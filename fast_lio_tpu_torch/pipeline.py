@@ -1,0 +1,584 @@
+"""The LIO pipeline: host orchestration around the per-scan step.
+
+Port of ``fast_lio_tpu/pipeline.py`` (the reference node's main loop,
+laserMapping.cpp:865-1019):
+
+  host: sensor buffering + packet sync (sync_packages analog) + IMU static
+        init + padding/bucketing
+  device: IMU propagate + deskew -> local-map cube slide + prune -> voxel
+        downsample -> iterated point-to-plane iEKF update -> map insert,
+        all at fixed shapes
+
+PyTorch runs eagerly, so ``lio_step`` is plain Python around tensor ops.
+The host reads the device a few times per scan: once per filter iteration
+(the exit test), once per wide-fallback search (which arm to run), once in
+the map insert's scatter, and once to know whether the first scan seeded the
+map.  ROADMAP.md queue A lists the CUDA-graph work that removes them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import imu as imu_mod
+from . import state as st
+from .config import Config, LidarType
+from .filter import ekf, process
+from .kernels import knn as knn_kernel
+from .map import hash_map as hm
+from .math import so3
+from .ops import measurement as meas
+from .ops.voxel_grid import voxel_downsample
+
+MOV_THRESHOLD = 1.5  # laserMapping.cpp:78
+
+_RESCORE_TODO = ("rescore_research is not ported yet (ROADMAP.md queue A "
+                 "item 16)")
+
+
+def _check_knn_backend(cfg: Config):
+    if cfg.knn_backend not in ("auto", "xla"):
+        raise ValueError(
+            f"knn_backend={cfg.knn_backend!r}: the one search backend is the "
+            "CUDA kNN kernel (plain PyTorch on CPU); use 'auto'")
+    if cfg.rescore_research:
+        raise NotImplementedError(_RESCORE_TODO)
+
+
+def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
+    """(queries (N,3), mask (N,)) -> (nbrs, sq, found) against map ``m``.
+
+    The search is ``kernels.knn.knn_search``: the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors.  With
+    ``Config.knn_wide_fallback``, queries left unsaturated by the 2x2x2
+    search (fewer than 5 neighbors, or the 5th beyond the guaranteed
+    coverage radius cell_size/2) are searched again over the centered 3x3x3
+    region.  Partial-wide compaction (exact, see the JAX package): when at
+    most ``knn_wide_max_queries`` (K_w) queries are unsaturated, only those
+    are re-searched, compacted into K_w slots padded with N; the padded rows
+    are dropped on scatter.  Otherwise the full wide search runs.
+    """
+    _check_knn_backend(cfg)
+
+    def base(q, wide=False):
+        return knn_kernel.knn_search(m, map_cfg, q, wide=wide)
+
+    if not cfg.knn_wide_fallback:
+        return lambda q, mask: base(q)
+
+    rcov2 = (0.5 * map_cfg.cell_size) ** 2
+    K_w = cfg.knn_wide_max_queries
+
+    def with_fallback(queries, mask):
+        N = queries.shape[0]
+        nbrs, sq, found = base(queries)
+        unsat = (~found[:, -1] | (sq[:, -1] > rcov2)) & mask
+        n_unsat = int(torch.sum(unsat))  # host read: which arm runs
+        if n_unsat == 0:
+            return nbrs, sq, found
+        if not (K_w and K_w < N and n_unsat <= K_w):
+            return base(queries, wide=True)
+        idx = torch.nonzero(unsat)[:, 0]
+        pad = torch.full((K_w - n_unsat,), N, dtype=idx.dtype, device=idx.device)
+        idx_pad = torch.cat([idx, pad])
+        qsub = queries[torch.clamp_max(idx_pad, N - 1)]
+        nw, sw, fw = base(qsub, wide=True)
+        # rows n_unsat.. are the padding (index N): dropped
+        nbrs[idx] = nw[:n_unsat]
+        sq[idx] = sw[:n_unsat]
+        found[idx] = fw[:n_unsat]
+        return nbrs, sq, found
+
+    return with_fallback
+
+
+@dataclasses.dataclass
+class ScanPacket:
+    """A synced measurement packet (MeasureGroup, common_lib.h:55-66)."""
+
+    lidar_beg_time: float
+    lidar_end_time: float
+    pts: np.ndarray  # (n, 3) f32, LiDAR frame
+    pt_time: np.ndarray  # (n,) seconds, offset from lidar_beg_time
+    imu_t: np.ndarray  # (m,) absolute seconds
+    imu_acc: np.ndarray  # (m, 3)
+    imu_gyr: np.ndarray  # (m, 3)
+    intensity: Optional[np.ndarray] = None  # (n,) f32
+    preprocess_time: float = 0.0  # host decode seconds for this scan
+
+
+class SyncBuffer:
+    """sync_packages (laserMapping.cpp:368-424): pair one LiDAR scan with all
+    IMU messages up to the scan-end time, with the mean-scantime fallback for
+    degenerate scans.  Host-only; the same code as the JAX package."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.lidar_buf: List[Tuple] = []
+        self.imu_t: List[float] = []
+        self.imu_acc: List[np.ndarray] = []
+        self.imu_gyr: List[np.ndarray] = []
+        self.mean_scantime = 0.0
+        self.scan_num = 0
+        self.last_timestamp_lidar = -np.inf
+        self.last_timestamp_imu = -np.inf
+        self.last_imu: Optional[Tuple[float, np.ndarray, np.ndarray]] = None
+        # soft time sync (laserMapping.cpp:300-324,343-347)
+        self.timediff_lidar_wrt_imu = 0.0
+        self.timediff_set = False
+
+    def push_lidar(self, stamp: float, pts: np.ndarray, pt_time: np.ndarray,
+                   intensity: Optional[np.ndarray] = None,
+                   preprocess_time: float = 0.0):
+        if stamp < self.last_timestamp_lidar:  # loop-back clear (:284-288)
+            self.lidar_buf.clear()
+        self.last_timestamp_lidar = stamp
+        if (self.cfg.time_sync_en and not self.timediff_set
+                and abs(stamp - self.last_timestamp_imu) > 1
+                and np.isfinite(self.last_timestamp_imu) and self.imu_t):
+            # one-shot clock-offset estimate (laserMapping.cpp:319-324)
+            self.timediff_set = True
+            self.timediff_lidar_wrt_imu = stamp + 0.1 - self.last_timestamp_imu
+        self.lidar_buf.append((stamp, pts, pt_time, intensity, preprocess_time))
+
+    def push_imu(self, t: float, acc: np.ndarray, gyr: np.ndarray):
+        t = t - self.cfg.time_offset_lidar_to_imu
+        if abs(self.timediff_lidar_wrt_imu) > 0.1 and self.cfg.time_sync_en:
+            t = t + self.timediff_lidar_wrt_imu  # (laserMapping.cpp:343-347)
+        if t < self.last_timestamp_imu:  # loop-back clear (:353-357)
+            self.imu_t.clear()
+            self.imu_acc.clear()
+            self.imu_gyr.clear()
+        self.last_timestamp_imu = t
+        self.imu_t.append(t)
+        self.imu_acc.append(np.asarray(acc, np.float64))
+        self.imu_gyr.append(np.asarray(gyr, np.float64))
+
+    def pop_packet(self) -> Optional[ScanPacket]:
+        if not self.lidar_buf or not self.imu_t:
+            return None
+        stamp, pts, pt_time, intensity, pre_t = self.lidar_buf[0]
+        if len(pts) <= 1:
+            end = stamp + self.mean_scantime
+        elif pt_time[-1] < 0.5 * self.mean_scantime:
+            end = stamp + self.mean_scantime
+        else:
+            self.scan_num += 1
+            end = stamp + pt_time[-1]
+            self.mean_scantime += (pt_time[-1] - self.mean_scantime) / self.scan_num
+        if self.cfg.lidar_type == LidarType.MARSIM:
+            end = stamp
+        if self.last_timestamp_imu < end:
+            return None  # wait for IMU to catch up
+
+        # IMU block: previous tail sample + all samples <= scan end
+        take = 0
+        while take < len(self.imu_t) and self.imu_t[take] <= end:
+            take += 1
+        sel_t = self.imu_t[:take]
+        sel_a = self.imu_acc[:take]
+        sel_g = self.imu_gyr[:take]
+        if self.last_imu is not None:
+            sel_t = [self.last_imu[0]] + sel_t
+            sel_a = [self.last_imu[1]] + sel_a
+            sel_g = [self.last_imu[2]] + sel_g
+        if take:
+            self.last_imu = (self.imu_t[take - 1], self.imu_acc[take - 1],
+                             self.imu_gyr[take - 1])
+        del self.imu_t[:take], self.imu_acc[:take], self.imu_gyr[:take]
+        self.lidar_buf.pop(0)
+        return ScanPacket(
+            lidar_beg_time=stamp,
+            lidar_end_time=end,
+            pts=pts,
+            pt_time=pt_time,
+            imu_t=np.asarray(sel_t),
+            imu_acc=np.stack(sel_a) if sel_a else np.zeros((0, 3)),
+            imu_gyr=np.stack(sel_g) if sel_g else np.zeros((0, 3)),
+            intensity=intensity,
+            preprocess_time=pre_t,
+        )
+
+
+@dataclasses.dataclass
+class StepDiag:
+    """Per-scan diagnostics (the runtime_pos_log fields).  Device-produced
+    counts are held as device scalars (``int()`` reads them)."""
+
+    n_raw: int = 0
+    n_truncated: int = 0
+    n_down: object = 0
+    n_effective: object = 0
+    iterations: object = 0
+    map_size: object = 0
+    total_time: float = 0.0
+    preprocess_time: float = 0.0
+
+
+def fov_segment(cfg: Config, pos_lid, lm_lo, lm_hi, lm_init):
+    """lasermap_fov_segment (laserMapping.cpp:231-277) on device: slide the
+    local-map cube when the LiDAR nears a face."""
+    # constants in the state dtype, rounded as the JAX package rounds them
+    cube = torch.tensor(cfg.cube_side_length, dtype=pos_lid.dtype,
+                        device=pos_lid.device)
+    det = torch.tensor(cfg.det_range, dtype=pos_lid.dtype, device=pos_lid.device)
+    half = cube / 2.0
+    init_lo = pos_lid - half
+    init_hi = pos_lid + half
+    d_lo = torch.abs(pos_lid - lm_lo)
+    d_hi = torch.abs(pos_lid - lm_hi)
+    thr = MOV_THRESHOLD * det
+    mov = torch.maximum((cube - 2.0 * MOV_THRESHOLD * det) * 0.5 * 0.9,
+                        det * (MOV_THRESHOLD - 1.0))
+    zero = torch.zeros_like(d_lo)
+    shift = torch.where(d_lo <= thr, -mov, torch.where(d_hi <= thr, mov, zero))
+    new_lo = torch.where(lm_init, lm_lo + shift, init_lo)
+    new_hi = torch.where(lm_init, lm_hi + shift, init_hi)
+    return new_lo, new_hi, torch.ones((), dtype=torch.bool, device=pos_lid.device)
+
+
+def lio_step(
+    cfg: Config,
+    map_cfg: hm.MapConfig,
+    x: st.State,
+    P,
+    m: hm.Map,
+    imu_carry: imu_mod.ImuCarry,
+    Q,
+    imu_t_rel,
+    imu_acc,
+    imu_gyr,
+    imu_mask,
+    acc_scale,
+    last_end_rel,
+    pcl_end_rel,
+    pts,
+    pt_time,
+    pt_mask,
+    pt_intensity,
+    lm_lo,
+    lm_hi,
+    lm_init,
+    ekf_inited,
+    do_update: bool = True,
+):
+    """One full per-scan LIO step: IMU propagate + deskew -> local-map cube
+    slide + prune -> voxel downsample -> iterated point-to-plane iEKF update
+    -> map insert.  Returns (x, P, map, imu_carry, (lm_lo, lm_hi, lm_init),
+    clouds, diag).  The map is updated in place."""
+    deskew = cfg.lidar_type != LidarType.MARSIM
+
+    # 1. IMU propagate + deskew
+    x, P, pts_d, imu_carry = imu_mod.propagate_and_deskew(
+        x, P, Q, imu_t_rel, imu_acc, imu_gyr, imu_mask, acc_scale,
+        last_end_rel, pcl_end_rel, imu_carry, pts, pt_time, deskew=deskew,
+    )
+
+    # 2. local-map slide; the prune runs under a device-side `moved` gate
+    # (no host read), the same map as pruning only when the cube moved
+    pos_lid = x.pos + so3.quat_rotate(x.rot, x.offset_T_L_I)
+    new_lo, new_hi, lm_init2 = fov_segment(cfg, pos_lid, lm_lo, lm_hi, lm_init)
+    moved = torch.any(new_lo != lm_lo) | ~lm_init
+    lm_lo, lm_hi, lm_init = new_lo, new_hi, lm_init2
+    m = hm.prune_outside(m, lm_lo, lm_hi, active=moved)
+
+    # 3. input voxel downsample (intensity voxel-averaged alongside)
+    pts_ds, ds_mask, int_ds = voxel_downsample(
+        pts_d, pt_mask, cfg.filter_size_surf, cfg.n_ds_max, feats=pt_intensity,
+        coord_bound=cfg.det_range * 1.25 + 5.0,  # body frame + deskew margin
+    )
+
+    # 4. iterated point-to-plane update
+    cache0 = meas.empty_cache(cfg.n_ds_max, pts_ds.dtype, pts_ds.device)
+    knn_fn = make_knn_fn(cfg, map_cfg, m)
+
+    def h_fn(x_i, converge, cache):
+        h_x, h, sel, cache, valid, _pw = meas.compute_measurement(
+            x_i, pts_ds, ds_mask, knn_fn, cache, converge, cfg.extrinsic_est_en)
+        return ekf.MeasOut(h_x, h, sel, valid, cache)
+
+    if do_update:
+        res = ekf.update_iterated(x, P, h_fn, cache0, cfg.laser_point_cov,
+                                  cfg.max_iteration, cfg.epsi)
+        x, P, cache, iters = res.x, res.P, res.carry, res.iterations
+    else:
+        cache, iters = cache0, 0
+    n_eff = torch.sum(cache.selected)
+
+    # 5. map insert with hysteresis
+    pts_world = meas.body_to_world(x, pts_ds)
+    add_mask, ds_flag = hm.insert_decisions(
+        pts_world, ds_mask, cache.nbrs, cache.found, ekf_inited,
+        cfg.filter_size_map)
+    m = hm.insert(m, map_cfg, pts_world, add_mask, ds_flag)
+
+    diag = dict(n_down=torch.sum(ds_mask), n_eff=n_eff, iters=iters,
+                map_size=hm.map_size(m))
+    clouds = dict(
+        world=pts_world, world_mask=ds_mask,  # /cloud_registered (downsampled)
+        world_intensity=int_ds,
+        body=pts_d, body_mask=pt_mask,  # /cloud_registered_body (dense)
+        body_intensity=pt_intensity,
+        effect_mask=cache.selected,  # /cloud_effected (world[effect_mask])
+    )
+    return x, P, m, imu_carry, (lm_lo, lm_hi, lm_init), clouds, diag
+
+
+class Pipeline:
+    """End-to-end odometry: feed packets, read poses.
+
+    ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
+    unless the caller passes ``device="cpu"`` explicitly.
+    """
+
+    def __init__(self, cfg: Config, device=None):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Pipeline runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain CPU path")
+        _check_knn_backend(cfg)
+        self.cfg = cfg
+        self.device = device
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        self.map_cfg = hm.make_config(
+            voxel_size=cfg.filter_size_map,
+            h_log2=cfg.map_h_log2,
+            bucket_slots=cfg.map_bucket_slots,
+            cell_multiplier=cfg.map_cell_multiplier,
+        )
+        if self.map_cfg.h_log2 > 15:
+            raise ValueError(
+                f"map_h_log2={cfg.map_h_log2}: the insert key layout "
+                "requires map_h_log2 <= 15")
+        self.sync = SyncBuffer(cfg)
+
+        dt, dev = self.dtype, device
+        self.x = st.identity_state(dt, dev)
+        self.P = torch.eye(st.DOF, dtype=dt, device=dev)
+        self.Q = process.process_noise_cov(
+            cfg.gyr_cov, cfg.acc_cov, cfg.b_gyr_cov, cfg.b_acc_cov, dt, dev)
+        self.map = hm.make_map(self.map_cfg, dt, dev)
+        self.imu_carry = imu_mod.init_imu_carry(dt, dev)
+        self.lm_state = (torch.zeros(3, dtype=dt, device=dev),
+                         torch.zeros(3, dtype=dt, device=dev),
+                         torch.zeros((), dtype=torch.bool, device=dev))
+
+        self.pad_buckets = tuple(sorted(set(
+            cfg.pad_buckets or (cfg.n_points_max,))))
+        self.truncated_points = 0
+        self._warned_truncation = False
+
+        # host state
+        self.imu_stats = imu_mod.empty_stats()
+        self.imu_need_init = True
+        self.acc_scale = 1.0
+        self.first_lidar_time: Optional[float] = None
+        self.last_lidar_end_time = 0.0
+        self.map_built = False
+        # (stamp, pos, quat) with device tensors; get_trajectory() reads them
+        self.trajectory: List[Tuple[float, torch.Tensor, torch.Tensor]] = []
+        self.state_log: List[Tuple[float, st.State]] = []  # runtime_pos_log
+        self.diags: List[StepDiag] = []
+        self.last_pts_world = None
+        self.last_pts_world_mask = None
+        self.last_pts_world_intensity = None
+        self.last_pts_body = None
+        self.last_pts_body_mask = None
+        self.last_pts_body_intensity = None
+
+    def _pad_for(self, n: int) -> int:
+        """Smallest configured pad >= n (largest if none fits; the overflow
+        is counted, never silent — see process_packet)."""
+        pads = [p for p in self.pad_buckets if p >= n]
+        return min(pads) if pads else max(self.pad_buckets)
+
+    # ------------------------------------------------------------------
+    # host orchestration
+    # ------------------------------------------------------------------
+
+    def get_trajectory(self):
+        """Trajectory on the host: [(t, pos np(3,), quat np(4,)), ...]."""
+        return [
+            (t, p.detach().cpu().numpy().astype(np.float64),
+             q.detach().cpu().numpy().astype(np.float64))
+            for t, p, q in self.trajectory
+        ]
+
+    def health_check(self) -> dict:
+        """On-demand estimator health report (reads the device): NaN state,
+        covariance conditioning, map pressure (overflow drops)."""
+        P = self.P.detach().cpu().numpy()
+        nan_state = any(bool(torch.isnan(v).any()) for v in self.x) or bool(
+            np.isnan(P).any())
+        eig = np.linalg.eigvalsh(0.5 * (P + P.T)) if not nan_state else None
+        return {
+            "nan": nan_state,
+            "p_min_eig": float(eig.min()) if eig is not None else float("nan"),
+            "p_max_eig": float(eig.max()) if eig is not None else float("nan"),
+            "map_size": int(hm.map_size(self.map)),
+            "map_dropped": int(self.map.dropped),
+            "truncated_points": self.truncated_points,
+            "scans": len(self.trajectory),
+            "imu_initialized": not self.imu_need_init,
+            "map_built": self.map_built,
+        }
+
+    def measure_stage_times(self) -> dict:
+        raise NotImplementedError(
+            "measure_stage_times (utils/stage_timing.py) is not ported yet "
+            "(ROADMAP.md queue A item 15)")
+
+    def pose_covariance(self) -> np.ndarray:
+        """6x6 pose covariance, rotation block first (publish_odometry,
+        laserMapping.cpp:596-606)."""
+        P = self.P.detach().cpu().numpy().astype(np.float64)
+        out = np.zeros((6, 6))
+        out[:3, :3] = P[3:6, 3:6]  # rot
+        out[3:, 3:] = P[0:3, 0:3]  # pos
+        out[:3, 3:] = P[3:6, 0:3]
+        out[3:, :3] = P[0:3, 3:6]
+        return out
+
+    def last_cloud_world_dense(self):
+        """Dense world-frame cloud (+intensity) of the last processed scan
+        (publish_frame_world dense mode, laserMapping.cpp:504-529): every
+        deskewed return transformed by the scan's posterior pose."""
+        if self.last_pts_body is None:
+            return (np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+        pts = meas.body_to_world(self.x, self.last_pts_body)
+        mask = self.last_pts_body_mask.cpu().numpy()
+        return (pts.detach().cpu().numpy()[mask],
+                self.last_pts_body_intensity.detach().cpu().numpy()[mask])
+
+    def push_lidar(self, stamp, pts, pt_time, intensity=None,
+                   preprocess_time=0.0):
+        self.sync.push_lidar(float(stamp), pts, pt_time, intensity,
+                             preprocess_time)
+
+    def push_imu(self, t, acc, gyr):
+        self.sync.push_imu(float(t), acc, gyr)
+
+    def spin_once(self) -> bool:
+        """Process at most one synced packet.  Returns True if one was run."""
+        pkt = self.sync.pop_packet()
+        if pkt is None:
+            return False
+        self.process_packet(pkt)
+        return True
+
+    def _pack_buf(self, pkt: ScanPacket, last_end_rel, pcl_end_rel, n_max):
+        """One flat f32 feed buffer: [scalars(8) | imu(M,7) | pts(N*3) |
+        time(N) | intensity(N)], the JAX package's layout, so every input is
+        rounded to f32 exactly as there.  Fresh each scan (no aliasing of an
+        in-flight copy)."""
+        m_max = self.cfg.n_imu_max
+        n = min(len(pkt.pts), n_max)
+        m = min(len(pkt.imu_t), m_max)
+        buf = np.zeros(8 + m_max * 7 + n_max * 5, np.float32)
+        buf[0:3] = (self.acc_scale, last_end_rel, pcl_end_rel)
+        imu = buf[8:8 + m_max * 7].reshape(m_max, 7)
+        imu[:m, 0] = pkt.imu_t[:m] - pkt.lidar_beg_time
+        imu[:m, 1:4] = pkt.imu_acc[:m]
+        imu[:m, 4:7] = pkt.imu_gyr[:m]
+        o = 8 + m_max * 7
+        pts = np.ascontiguousarray(pkt.pts[:n], np.float32)
+        buf[o:o + n * 3] = pts.reshape(-1)
+        buf[o + n_max * 3:o + n_max * 3 + n] = pkt.pt_time[:n]
+        if pkt.intensity is not None:
+            buf[o + n_max * 4:o + n_max * 4 + n] = pkt.intensity[:n]
+        return buf, n, m
+
+    def process_packet(self, pkt: ScanPacket):
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        diag = StepDiag(n_raw=len(pkt.pts), preprocess_time=pkt.preprocess_time)
+
+        if self.first_lidar_time is None:
+            self.first_lidar_time = pkt.lidar_beg_time
+
+        # ---- IMU static init phase (IMU_Processing.hpp:356-380) ----
+        if self.imu_need_init:
+            if len(pkt.imu_t):
+                self.imu_stats = imu_mod.update_stats(
+                    self.imu_stats, pkt.imu_acc, pkt.imu_gyr)
+                if self.imu_stats.n > cfg.max_ini_count:
+                    self.x, self.P = imu_mod.make_init_state(
+                        self.imu_stats, cfg.extrinsic_R_mat,
+                        cfg.extrinsic_T_vec, self.dtype, self.device)
+                    self.acc_scale = float(
+                        st.G_M_S2 / np.linalg.norm(self.imu_stats.mean_acc))
+                    self.imu_need_init = False
+            self.last_lidar_end_time = pkt.lidar_end_time
+            return
+
+        last_end_rel = self.last_lidar_end_time - pkt.lidar_beg_time
+        pcl_end_rel = pkt.lidar_end_time - pkt.lidar_beg_time
+        # bool(): a numpy stamp gives np.bool_, which torch takes as a float
+        ekf_inited = bool(
+            (pkt.lidar_beg_time - self.first_lidar_time) >= cfg.init_time)
+        pad = self._pad_for(len(pkt.pts))
+        truncated = max(0, len(pkt.pts) - pad)
+        if truncated:
+            self.truncated_points += truncated
+            if not self._warned_truncation:
+                self._warned_truncation = True
+                warnings.warn(
+                    f"scan of {len(pkt.pts)} points exceeds the largest pad "
+                    f"bucket {pad}; {truncated} points dropped (this is "
+                    "counted in health_check()['truncated_points'] — raise "
+                    "Config.n_points_max or add a pad bucket)")
+        diag.n_truncated = truncated
+        host_buf, n_pts, n_imu = self._pack_buf(pkt, last_end_rel, pcl_end_rel,
+                                                pad)
+
+        # one host->device copy, unpacked on the device
+        buf = torch.from_numpy(host_buf).to(self.device)
+        M, N = cfg.n_imu_max, pad
+        imu = buf[8:8 + M * 7].reshape(M, 7)
+        o = 8 + M * 7
+        pts = buf[o:o + N * 3].reshape(N, 3)
+        pt_time = buf[o + N * 3:o + N * 4]
+        pt_int = buf[o + N * 4:o + N * 5]
+        pt_mask = torch.arange(N, device=self.device) < n_pts
+        imu_mask = torch.arange(M, device=self.device) < n_imu
+        imu_t = torch.where(imu_mask, imu[:, 0], torch.full_like(imu[:, 0], 1e9))
+
+        (self.x, self.P, self.map, self.imu_carry, self.lm_state, clouds, d
+         ) = lio_step(
+            cfg, self.map_cfg, self.x, self.P, self.map, self.imu_carry, self.Q,
+            imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
+            buf[0], buf[1], buf[2],
+            pts, pt_time, pt_mask, pt_int,
+            *self.lm_state, ekf_inited, do_update=self.map_built,
+        )
+        if not self.map_built:
+            # one-time read during startup: did the first scan seed the map?
+            self.map_built = int(d["n_down"]) > 5
+
+        self.last_lidar_end_time = pkt.lidar_end_time
+        self.last_pts_world = clouds["world"]
+        self.last_pts_world_mask = clouds["world_mask"]
+        self.last_pts_world_intensity = clouds["world_intensity"]
+        self.last_pts_body = clouds["body"]
+        self.last_pts_body_mask = clouds["body_mask"]
+        self.last_pts_body_intensity = clouds["body_intensity"]
+
+        diag.n_effective = d["n_eff"]
+        diag.iterations = d["iters"]
+        diag.n_down = d["n_down"]
+        diag.map_size = d["map_size"]
+        if cfg.stage_timing:
+            # real per-scan latency: wait for the step's outputs
+            float(self.x.pos[0])
+            int(d["map_size"])
+        diag.total_time = time.perf_counter() - t0
+        self.diags.append(diag)
+        self.trajectory.append((pkt.lidar_end_time, self.x.pos, self.x.rot))
+        if cfg.runtime_pos_log:
+            self.state_log.append((pkt.lidar_beg_time, self.x))
