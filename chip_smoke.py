@@ -10,11 +10,16 @@ Phases, in order; any failed check exits non-zero:
 1. build — compile every CUDA kernel of the port from ``csrc/`` (nvcc, one
    process per source, all started together) and print the build time.
 2. kernels — hold each kernel against its plain PyTorch version on the card,
-   at the shapes of the main path: the kNN search with R = 8 (H = 2^15,
-   B = 64, N = 8192) and R = 27 (H = 2^15, B = 128, N = 2048), over a map
-   filled from a few simulated scans.  Rule (tests/test_knn_pallas.py:33-56):
-   found masks equal, squared distances within rtol 1e-5, neighbours equal
-   wherever the distances are distinct.  Times: CUDA events, median of 25.
+   at the shapes of the main path: the per-query kNN search (rows
+   ``knn_r8``: R = 8, H = 2^15, B = 64, N = 8192; ``knn_r27``: R = 27,
+   H = 2^15, B = 128, N = 2048) and the region-grouped search on the same
+   maps and queries (``grouped_r8``, ``grouped_r27``), over a map filled from
+   a few simulated scans.  Rule for the per-query kernel
+   (tests/test_knn_pallas.py:33-56): found masks equal, squared distances
+   within rtol 1e-5, neighbours equal wherever the distances are distinct;
+   the grouped kernel is held bit for bit (found, sq, and neighbours where
+   found) to its plain version and to the per-query kernel.  Times: CUDA
+   events, median of 25.
 3. small — the port's pipeline on CUDA against its own CPU path (the plain
    versions) on a small sim: per-scan positions within 5 mm.
 4. avia — the main path at the AVIA preset's full size (32768-point pad,
@@ -27,6 +32,22 @@ Phases, in order; any failed check exits non-zero:
    wide fallback with partial-wide compaction): 20 scans.  Checks: the R = 27
    kernel ran, and the checks of phase 4, with map drops within 10% of the
    JAX package's (it drops 307 points on this run).
+6. ouster64_grouped — phase 5's run with ``knn_backend="grouped"``: the
+   grouped kernel ran at R = 8 and R = 27 and the per-query kernel did not;
+   phase 5's checks; positions within 5 mm of phase 5's (``index_add_``
+   sums in another order on each run, so they are not bit-equal).
+7. cli_bag — the entry point users run: phase 4's sim written as a ROS1 bag
+   (Livox CustomMsg + Imu), replayed by ``fast_lio_tpu_torch.cli.main`` with
+   the AVIA preset and ``--checkpoint --map-save --pcd-save --stage-timing
+   --health``.  Checks: one trajectory line per estimate, ATE within 1 cm of
+   the JAX package's on the same bag, non-zero stage columns, every output
+   file; then a run checkpointed at scan 15 and resumed (``--resume``) on a
+   bag of the rest gives positions within 5 mm of the uninterrupted run.
+   The launch counts are read when the replay ends, before the stage timer
+   searches again; its launches are printed apart.
+8. fleet — the runner with two ``--bag``s (sim seeds 0 and 1, the second
+   shorter): each stream's trajectory within 5 mm of the single-stream
+   replay of its bag.
 
 Output: JSON lines per phase; then the ``kernels`` line, the card's name and
 power limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
@@ -35,11 +56,14 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,13 +71,21 @@ import numpy as np
 import torch
 
 # The JAX package's ATE (raw, aligned) and map drops on the runs of phases 4
-# and 5 (same presets, same sim data), computed once on a CPU by
-# tests/torch_reference_ate.py.
+# and 5 (same presets, same sim data; phase 6 is held to phase 5's) and of
+# phase 7's bag replay, computed once on a CPU by tests/torch_reference_ate.py.
 JAX_ATE_M = {
     "avia": (0.03469561611056514, 0.013552656768317909),
     "ouster64": (0.03198349476697826, 0.01154589455923144),
+    "cli_bag": (0.034757444004670235, 0.013331892125377977),
 }
 JAX_MAP_DROPPED = {"avia": 0, "ouster64": 307}
+# positions: the CUDA path against the CPU path (phase 3); the same run
+# twice on the card, resumed or batched (phases 6-8)
+POS_TOL_M = 5e-3
+# the runner's flags for phase 7's bag: decimation off and a short blind
+# zone, so the pipeline sees every simulated return (phase 4's width)
+CLI_BAG_FLAGS = ["--preset", "avia", "--point-filter-num", "1",
+                 "--blind", "0.3"]
 ATE_SLACK_M = 0.01
 # which points overflow a full bucket depends on f32 rounding of the poses,
 # so the port's drop count may differ a little from the JAX package's
@@ -62,7 +94,6 @@ DROPPED_SLACK = 0.1
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 SQ_RTOL, SQ_ATOL = 1e-5, 1e-6
-SMALL_POS_TOL_M = 5e-3
 TIMING_REPS = 25
 
 
@@ -163,20 +194,42 @@ def compare_knn(got, ref):
     return float(err.max())
 
 
+def grouped_row_bound_ms(map_cfg, n_groups, n, wide):
+    """The grouped kernel's row model: each group's R rows read once, plus
+    queries, the sort order and outputs, at the HBM rate."""
+    R = 27 if wide else 8
+    nbytes = n_groups * R * 4 * map_cfg.bucket_slots * 4 + n * (12 + 4 + 85)
+    return nbytes / H100_HBM_BYTES_PER_S * 1e3
+
+
+def equal_where_found(got, ref, what):
+    """Bit-equal found and sq, and neighbours where found; max |dsq|."""
+    check(torch.equal(got[2], ref[2]), f"{what}: found masks differ")
+    check(torch.equal(got[1], ref[1]), f"{what}: squared distances differ")
+    check(torch.equal(got[0][ref[2]], ref[0][ref[2]]),
+          f"{what}: neighbours differ where found")
+    f = ref[2]
+    return float((got[1][f] - ref[1][f]).abs().max()) if f.any() else 0.0
+
+
 def phase_kernels(pkg):
-    hm, knn, simlib = pkg["hm"], pkg["knn"], pkg["sim"]
+    hm, knn, kg, simlib = pkg["hm"], pkg["knn"], pkg["kg"], pkg["sim"]
     avia_sim = simlib.SimConfig(duration=0.75, n_rings=32, n_azimuth=400)
     ouster_sim = simlib.SimConfig(duration=0.75, n_rings=64, n_azimuth=688,
                                   elev_min=-22.5, elev_max=22.5)
     cases = [
-        ("knn_r8", hm.make_config(0.5, h_log2=15, cell_multiplier=4),
+        ("r8", hm.make_config(0.5, h_log2=15, cell_multiplier=4),
          avia_sim, 8192, False),
-        ("knn_r27", hm.make_config(0.5, h_log2=15, cell_multiplier=5),
+        ("r27", hm.make_config(0.5, h_log2=15, cell_multiplier=5),
          ouster_sim, 2048, True),
     ]
     rows = {}
-    for i, (name, map_cfg, sim_cfg, n, wide) in enumerate(cases):
+    for i, (tag, map_cfg, sim_cfg, n, wide) in enumerate(cases):
         m, q = knn_case(pkg, map_cfg, sim_cfg, n, wide, seed=i)
+        R = 27 if wide else 8
+        shape = dict(N=n, R=R, B=map_cfg.bucket_slots, H=map_cfg.num_buckets)
+        bound_ms, bound_by, rows_model_ms = knn_bound(hm, m, map_cfg, q, wide)
+
         got = knn.knn_search_cuda(m.packed, map_cfg, q, wide=wide)
         ref = hm.knn_search(m, map_cfg, q, wide=wide)
         torch.cuda.synchronize()
@@ -184,18 +237,45 @@ def phase_kernels(pkg):
         ms = cuda_ms(lambda: knn.knn_search_cuda(m.packed, map_cfg, q,
                                                         wide=wide))
         plain_ms = cuda_ms(lambda: hm.knn_search(m, map_cfg, q, wide=wide))
-        bound_ms, bound_by, rows_model_ms = knn_bound(hm, m, map_cfg, q,
-                                                      wide)
-        rows[name] = dict(
-            name=name, route="cuda", source="fast_lio_tpu_torch/csrc/knn.cu",
+        rows[f"knn_{tag}"] = dict(
+            name=f"knn_{tag}", route="cuda",
+            source="fast_lio_tpu_torch/csrc/knn.cu",
             replaces="tools/knn_pallas.py:193", launches=None,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None,
-            shape=dict(N=n, R=27 if wide else 8, B=map_cfg.bucket_slots,
-                       H=map_cfg.num_buckets),
+            bound_by=bound_by, library_ms=None, shape=shape,
             found_frac=float(got[2].float().mean()),
             rows_model_bound_ms=rows_model_ms)
-        log({"phase": "kernels", **rows[name]})
+        log({"phase": "kernels", **rows[f"knn_{tag}"]})
+
+        # the grouped kernel on the same map and queries
+        groups = kg.group_queries(q, map_cfg, wide)
+        got_g = kg.knn_search_cuda(m.packed, map_cfg, q, wide=wide)
+        ref_g = kg.knn_search_grouped_plain(m, map_cfg, q, wide=wide)
+        torch.cuda.synchronize()
+        err_g = equal_where_found(got_g, ref_g, f"grouped_{tag} vs plain")
+        equal_where_found(got_g, got, f"grouped_{tag} vs knn_{tag}")
+        n_groups = int(groups.n_groups)
+        regions = int(torch.unique(kg.region_key(
+            hm.region_base(q, map_cfg, wide))).numel())
+        kernel_ms = cuda_ms(lambda: kg.knn_search_cuda(
+            m.packed, map_cfg, q, wide=wide, groups=groups))
+        rows[f"grouped_{tag}"] = dict(
+            name=f"grouped_{tag}", route="cuda",
+            source="fast_lio_tpu_torch/csrc/knn_grouped.cu",
+            replaces="tools/knn_grouped.py:217", launches=None,
+            max_abs_err=err_g, ms=kernel_ms,
+            plain_ms=cuda_ms(lambda: kg.knn_search_grouped_plain(
+                m, map_cfg, q, wide=wide)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            shape=shape,
+            prep_ms=cuda_ms(lambda: kg.group_queries(q, map_cfg, wide)),
+            with_prep_ms=cuda_ms(lambda: kg.knn_search_cuda(
+                m.packed, map_cfg, q, wide=wide)),
+            n_groups=n_groups, regions=regions,
+            queries_per_region=n / regions,
+            group_rows_bound_ms=grouped_row_bound_ms(map_cfg, n_groups, n,
+                                                     wide))
+        log({"phase": "kernels", **rows[f"grouped_{tag}"]})
     return rows
 
 
@@ -241,50 +321,243 @@ def phase_small(pkg):
     check(p_ref.shape == p_gpu.shape, "small: trajectory lengths differ")
     check(np.isfinite(p_gpu).all(), "small: non-finite positions")
     dmax = float(np.abs(p_ref - p_gpu).max())
-    check(dmax <= SMALL_POS_TOL_M, f"small: CUDA vs CPU position {dmax} m")
+    check(dmax <= POS_TOL_M, f"small: CUDA vs CPU position {dmax} m")
     log({"phase": "small", "scans": len(p_gpu), "max_pos_diff_m": dmax,
-         "tol_m": SMALL_POS_TOL_M})
+         "tol_m": POS_TOL_M})
 
 
-def run_main_path(pkg, name, cfg, sim_cfg, warm_scans=5):
+def reset_launches(pkg) -> None:
+    for counts in (pkg["knn"].launches, pkg["kg"].launches):
+        for r in counts:
+            counts[r] = 0
+
+
+def read_launches(pkg) -> dict:
+    return {"knn": dict(pkg["knn"].launches),
+            "grouped": dict(pkg["kg"].launches)}
+
+
+def check_health(name, hc, ref_name) -> None:
+    check(not hc["nan"], f"{name}: NaN in the state")
+    check(hc["p_min_eig"] > 0.0, f"{name}: covariance not positive definite")
+    check(hc["truncated_points"] == 0, f"{name}: scan points truncated")
+    ref_dropped = JAX_MAP_DROPPED[ref_name]
+    check(hc["map_dropped"] <= ref_dropped * (1 + DROPPED_SLACK),
+          f"{name}: {hc['map_dropped']} map drops, JAX {ref_dropped}")
+
+
+def check_ate(name, out, ref_name) -> None:
+    for key, ref in zip(("ate_raw_m", "ate_aligned_m"), JAX_ATE_M[ref_name]):
+        check(out[key] <= ref + ATE_SLACK_M,
+              f"{name}: {key} {out[key]} > JAX {ref} + {ATE_SLACK_M}")
+
+
+def positions(traj) -> np.ndarray:
+    return np.stack([np.asarray(p, np.float64) for _, p, _ in traj])
+
+
+def grouping_stats(pkg, searches) -> dict:
+    """How the main path's grouped searches grouped, per R: queries per
+    search (padding slots included: the kernel searches them too), groups,
+    distinct regions, queries per region."""
+    hm, kg = pkg["hm"], pkg["kg"]
+    acc = {}
+    for map_cfg, q, wide in searches:
+        R = 27 if wide else 8
+        keys = kg.region_key(hm.region_base(q, map_cfg, wide))
+        a = acc.setdefault(f"r{R}", dict(searches=0, queries=0, groups=0,
+                                         regions=0))
+        a["searches"] += 1
+        a["queries"] += q.shape[0]
+        a["groups"] += int(kg.group_queries(q, map_cfg, wide).n_groups)
+        a["regions"] += int(torch.unique(keys).numel())
+    for a in acc.values():
+        a["queries_per_region"] = a["queries"] / a["regions"]
+        a["queries_per_group"] = a["queries"] / a["groups"]
+    return acc
+
+
+def run_main_path(pkg, name, cfg, sim_cfg, ref_name=None, warm_scans=5):
     """Drive one main path; checks the state is finite, the covariance
-    positive definite and the ATE within ATE_SLACK_M of the JAX package's."""
-    simlib, Pipeline, knn = pkg["sim"], pkg["Pipeline"], pkg["knn"]
+    positive definite and the ATE within ATE_SLACK_M of the JAX package's
+    (on run ``ref_name``, default ``name``).  Returns (row, launches of this
+    run, positions)."""
+    simlib, Pipeline = pkg["sim"], pkg["Pipeline"]
+    ref_name = ref_name or name
     data = simlib.generate(sim_cfg)
     torch.cuda.reset_peak_memory_stats()
     pipe = Pipeline(cfg)  # CUDA by default
-    for r in knn.launches:
-        knn.launches[r] = 0
+    reset_launches(pkg)
     times = feed(pipe, data)
-    launches = dict(knn.launches)
+    launches = read_launches(pkg)
     traj = pipe.get_trajectory()
     hc = pipe.health_check()
     steady = times[warm_scans:]
     out = {
         "phase": name, "scans": len(traj),
+        "knn_backend": cfg.knn_backend,
         "pts_per_scan": float(np.mean([len(s) for s in data.scans])),
         "scans_per_s": len(steady) / sum(steady),
         "scan_ms_median": 1e3 * statistics.median(steady),
         "first_scans_s": sum(times[:warm_scans]),
         "ate_raw_m": simlib.ate_rmse(traj, data),
         "ate_aligned_m": simlib.ate_rmse_aligned(traj, data),
-        "knn_launches": {f"r{r}": n for r, n in launches.items()},
+        "launches": {k: {f"r{r}": n for r, n in v.items()}
+                     for k, v in launches.items()},
         "iterations_mean": float(np.mean([int(d.iterations) for d in pipe.diags])),
         "n_effective_last": int(pipe.diags[-1].n_effective),
         "health": hc,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     log(out)
-    check(not hc["nan"], f"{name}: NaN in the state")
-    check(hc["p_min_eig"] > 0.0, f"{name}: covariance not positive definite")
-    check(hc["truncated_points"] == 0, f"{name}: scan points truncated")
-    ref_dropped = JAX_MAP_DROPPED[name]
-    check(hc["map_dropped"] <= ref_dropped * (1 + DROPPED_SLACK),
-          f"{name}: {hc['map_dropped']} map drops, JAX {ref_dropped}")
-    for key, ref in zip(("ate_raw_m", "ate_aligned_m"), JAX_ATE_M[name]):
-        check(out[key] <= ref + ATE_SLACK_M,
-              f"{name}: {key} {out[key]} > JAX {ref} + {ATE_SLACK_M}")
-    return out, launches
+    check_health(name, hc, ref_name)
+    check_ate(name, out, ref_name)
+    return out, launches, positions(traj)
+
+
+# --------------------------------------------------------------------------
+# phases 7-8: the command-line runner on bags
+# --------------------------------------------------------------------------
+
+
+def run_cli(pkg, argv) -> dict:
+    """``fast_lio_tpu_torch.cli.main(argv)`` on the card, its printout
+    captured; fails unless it exits 0.  Returns its summary JSON line, with
+    the health report and the printout's last lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pkg["cli"].main(argv)
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"cli {argv} exited {rc}: {lines[-5:]}")
+    summary = json.loads(lines[-1])
+    for ln in lines:
+        if ln.startswith('{"health"'):
+            summary.update(json.loads(ln))
+    return summary
+
+
+def read_tum(path: Path):
+    """A TUM trajectory file as [(t, pos, quat wxyz)]."""
+    rows = np.loadtxt(path, ndmin=2)
+    return [(r[0], r[1:4], np.array([r[7], r[4], r[5], r[6]])) for r in rows]
+
+
+def max_pos_diff(a, b) -> float:
+    """Largest position difference of two trajectories over their common
+    stamps (both must hold the same stamps)."""
+    check([round(t, 6) for t, _, _ in a] == [round(t, 6) for t, _, _ in b],
+          "trajectories have different stamps")
+    return float(np.abs(positions(a) - positions(b)).max())
+
+
+def phase_cli_bag(pkg, tmp: Path, data):
+    simlib = pkg["sim"]
+    bag = tmp / "avia.bag"
+    simlib.write_avia_bag(bag, data)
+    full = tmp / "full"
+    # after the replay the stage timer searches again on its own copy of the
+    # map; those launches are not the main path's, so the counts are read
+    # just before it runs
+    timer = pkg["Pipeline"].measure_stage_times
+    at_timer = {}
+
+    def read_then_time(pipe, *args, **kwargs):
+        at_timer.update(read_launches(pkg))
+        return timer(pipe, *args, **kwargs)
+
+    pkg["Pipeline"].measure_stage_times = read_then_time
+    reset_launches(pkg)
+    t0 = time.perf_counter()
+    try:
+        summary = run_cli(pkg, CLI_BAG_FLAGS + [
+            "--bag", str(bag), "--out", str(full), "--checkpoint",
+            "--map-save", "--pcd-save", "--stage-timing", "--health"])
+    finally:
+        pkg["Pipeline"].measure_stage_times = timer
+    wall = time.perf_counter() - t0
+    check(bool(at_timer), "cli_bag: the stage timer never ran")
+    launches = at_timer
+    timer_launches = {k: {r: n - launches[k][r] for r, n in v.items()}
+                      for k, v in read_launches(pkg).items()}
+    traj = read_tum(full / "trajectory_tum.txt")
+    csv = np.genfromtxt(full / "fast_lio_time_log.csv", delimiter=",",
+                        skip_header=2, ndmin=2)
+    out = {"phase": "cli_bag", "bag_mb": bag.stat().st_size / 2**20,
+           "scans": len(traj), "runner_wall_s": wall,
+           "runner_scans_per_s": summary["scans_per_sec"],
+           "ate_raw_m": simlib.ate_rmse(traj, data),
+           "ate_aligned_m": simlib.ate_rmse_aligned(traj, data),
+           "stage_s": {"incremental": float(csv[0, 3]),
+                       "search": float(csv[0, 4]),
+                       "delete": float(csv[0, 6])},
+           "launches": {k: {f"r{r}": n for r, n in v.items()}
+                        for k, v in launches.items()},
+           "stage_timer_launches": {k: {f"r{r}": n for r, n in v.items()}
+                                    for k, v in timer_launches.items()},
+           "health": summary["health"]}
+    check(len(traj) == len(csv) == summary["scans"],
+          "cli_bag: trajectory lines != estimates")
+    check(len(traj) >= len(data.scans) - 2, f"cli_bag: {len(traj)} estimates")
+    check((csv[:, [3, 4, 6]] > 0).all(), "cli_bag: a stage column is zero")
+    for f in ("checkpoint.npz", "map.pcd", "scans.pcd"):
+        check((full / f).stat().st_size > 0, f"cli_bag: no {f}")
+    check(launches["knn"][8] > 0, "cli_bag: the R=8 kNN kernel never ran")
+    check_health("cli_bag", summary["health"], "avia")
+    check_ate("cli_bag", out, "cli_bag")
+
+    # checkpoint at scan 15, then the rest of the run from a bag holding only
+    # what the first run had not consumed
+    first = tmp / "first"
+    run_cli(pkg, CLI_BAG_FLAGS + ["--bag", str(bag), "--out", str(first),
+                                  "--max-scans", "16", "--checkpoint"])
+    meta = pkg["ckpt"].load(first / "checkpoint.npz")[4]
+    done_t = float(meta["last_lidar_end_time"])
+    rest = [k for k, s in enumerate(data.scan_stamps) if s > done_t]
+    bag2 = tmp / "rest.bag"
+    simlib.write_avia_bag(bag2, data, scans=rest,
+                          imu_after=float(meta["sync_last_imu"][0]))
+    resumed = tmp / "resumed"
+    run_cli(pkg, CLI_BAG_FLAGS + ["--bag", str(bag2), "--out", str(resumed),
+                                  "--resume", str(first / "checkpoint.npz")])
+    both = (read_tum(first / "trajectory_tum.txt")
+            + read_tum(resumed / "trajectory_tum.txt"))
+    out["resume"] = {"checkpoint_after_scans": len(data.scans) - len(rest),
+                     "max_pos_diff_m": max_pos_diff(both, traj),
+                     "tol_m": POS_TOL_M}
+    log(out)
+    check(out["resume"]["max_pos_diff_m"] <= POS_TOL_M,
+          "cli_bag: the resumed run left the uninterrupted one")
+    return bag, traj, launches
+
+
+def phase_fleet(pkg, tmp: Path, bag0: Path, traj0, sim_cfg1):
+    """Two bags in lockstep; each stream against its single-stream replay
+    (stream 0's is phase 7's run of the same bag)."""
+    simlib = pkg["sim"]
+    bag1 = tmp / "avia_seed1.bag"
+    data1 = simlib.generate(sim_cfg1)
+    simlib.write_avia_bag(bag1, data1)
+    single1 = tmp / "single1"
+    run_cli(pkg, CLI_BAG_FLAGS + ["--bag", str(bag1), "--out", str(single1)])
+    fleet = tmp / "fleet"
+    reset_launches(pkg)
+    t0 = time.perf_counter()
+    summary = run_cli(pkg, CLI_BAG_FLAGS + ["--bag", str(bag0), "--bag",
+                                            str(bag1), "--out", str(fleet)])
+    wall = time.perf_counter() - t0
+    launches = read_launches(pkg)
+    singles = [traj0, read_tum(single1 / "trajectory_tum.txt")]
+    diffs = [max_pos_diff(read_tum(fleet / f"stream{i}" / "trajectory_tum.txt"),
+                          singles[i]) for i in range(2)]
+    log({"phase": "fleet", "streams": 2,
+         "scans": [len(t) for t in singles], "runner_wall_s": wall,
+         "aggregate_scans_per_s": summary["aggregate_scans_per_sec"],
+         "max_pos_diff_m": diffs, "tol_m": POS_TOL_M,
+         "launches": {k: {f"r{r}": n for r, n in v.items()}
+                      for k, v in launches.items()}})
+    check(len(singles[1]) < len(singles[0]), "fleet: stream 1 is not shorter")
+    check(max(diffs) <= POS_TOL_M, f"fleet: streams left their replays {diffs}")
+    return launches
 
 
 def main() -> int:
@@ -299,22 +572,26 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
 
-    from fast_lio_tpu_torch import config, sim
+    from fast_lio_tpu_torch import cli, config, sim
     from fast_lio_tpu_torch.kernels import build
     from fast_lio_tpu_torch.kernels import knn
+    from fast_lio_tpu_torch.kernels import knn_grouped
     from fast_lio_tpu_torch.map import hash_map as hm
     from fast_lio_tpu_torch.pipeline import Pipeline
+    from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
-    pkg = dict(config=config, sim=sim, hm=hm, knn=knn, Pipeline=Pipeline)
+    pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
+               Pipeline=Pipeline, cli=cli, ckpt=ckpt)
     card = gpu_name_and_power()
+    t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
-    paths = build.build_all(["knn"])
+    paths = build.build_all(["knn", "knn_grouped"])
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for p in paths.values()
              for ln in p.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "smem" in ln]
     log({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
 
     # 2. kernels vs plain versions
@@ -325,23 +602,67 @@ def main() -> int:
 
     # 4. avia at the preset's full size
     avia_sim = sim.SimConfig(duration=3.0, n_rings=32, n_azimuth=400)
-    avia, l_avia = run_main_path(pkg, "avia", config.PRESETS["avia"],
+    _, l_avia, _ = run_main_path(pkg, "avia", config.PRESETS["avia"],
                                  avia_sim)
-    check(l_avia[8] > 0, "avia: the R=8 kNN kernel never ran")
+    check(l_avia["knn"][8] > 0, "avia: the R=8 kNN kernel never ran")
 
     # 5. ouster64 (bench.py's 45056-point pad)
     ouster_cfg = dataclasses.replace(config.PRESETS["ouster64"],
                                      n_points_max=45056)
     ouster_sim = sim.SimConfig(duration=2.0, n_rings=64, n_azimuth=688,
                                elev_min=-22.5, elev_max=22.5)
-    _, l_ouster = run_main_path(pkg, "ouster64", ouster_cfg,
-                                      ouster_sim)
-    check(l_ouster[27] > 0, "ouster64: the R=27 kNN kernel never ran")
+    _, l_ouster, pos_ouster = run_main_path(pkg, "ouster64", ouster_cfg,
+                                            ouster_sim)
+    check(l_ouster["knn"][27] > 0, "ouster64: the R=27 kNN kernel never ran")
 
-    for name, r in (("knn_r8", 8), ("knn_r27", 27)):
-        kernel_rows[name]["launches"] = l_avia[r] + l_ouster[r]
-        kernel_rows[name]["launches_by_path"] = {"avia": l_avia[r],
-                                                 "ouster64": l_ouster[r]}
+    # 6. ouster64 with the grouped kernel; the searches' queries are kept
+    # (references only: no device work, no sync) to count their grouping
+    grouped_cfg = dataclasses.replace(ouster_cfg, knn_backend="grouped")
+    searches = []
+    launch = knn_grouped.knn_search_cuda
+
+    def keep_queries(packed, map_cfg, queries, k=5, wide=False, groups=None):
+        searches.append((map_cfg, queries, wide))
+        return launch(packed, map_cfg, queries, k=k, wide=wide, groups=groups)
+
+    knn_grouped.knn_search_cuda = keep_queries
+    try:
+        _, l_grouped, pos_grouped = run_main_path(
+            pkg, "ouster64_grouped", grouped_cfg, ouster_sim,
+            ref_name="ouster64")
+    finally:
+        knn_grouped.knn_search_cuda = launch
+    log({"phase": "ouster64_grouped", "grouping": grouping_stats(pkg,
+                                                                  searches)})
+    check(l_grouped["grouped"][8] > 0 and l_grouped["grouped"][27] > 0,
+          "ouster64_grouped: the grouped kernel did not run at both R")
+    check(sum(l_grouped["knn"].values()) == 0,
+          "ouster64_grouped: the per-query kernel ran")
+    dpos = float(np.abs(pos_grouped - pos_ouster).max())
+    log({"phase": "ouster64_grouped", "max_pos_diff_vs_ouster64_m": dpos,
+         "tol_m": POS_TOL_M})
+    check(dpos <= POS_TOL_M, f"ouster64_grouped: positions differ {dpos} m")
+
+    # 7-8. the command-line runner on bags (phase 4's sim, and a second,
+    # shorter run for the fleet)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        bag0, traj0, l_cli = phase_cli_bag(pkg, Path(tmp),
+                                           sim.generate(avia_sim))
+        l_fleet = phase_fleet(pkg, Path(tmp), bag0, traj0, dataclasses.replace(
+            avia_sim, duration=2.0, seed=1))
+
+    by_path = {"avia": l_avia, "ouster64": l_ouster,
+               "ouster64_grouped": l_grouped, "cli_bag": l_cli,
+               "fleet": l_fleet}
+    for name, row in kernel_rows.items():
+        kind, r = name.split("_")
+        kind = "knn" if kind == "knn" else "grouped"
+        r = int(r[1:])
+        row["launches_by_path"] = {path: launches[kind][r]
+                                   for path, launches in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        check(row["launches"] > 0, f"{name}: no launch on any main path")
+    log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log({"kernels": list(kernel_rows.values())})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",

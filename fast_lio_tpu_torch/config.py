@@ -90,12 +90,12 @@ class Config:
     # dispatch-only.
 
     # --- TPU runtime ---
-    knn_backend: str = "auto"  # "auto" | "xla" (synonyms).
-    # The XLA region-gather is the one production backend.  Two Pallas
-    # kernels (r3 per-query, r4 region-grouped) were measured on chip and
-    # both lose — 1.40 / 22.7 ms/search vs XLA's 0.46 at bench shapes
-    # (PERF.md "kNN backends") — and live demoted in tools/knn_pallas.py /
-    # tools/knn_grouped.py, still parity-tested.
+    knn_backend: str = "auto"  # "auto" | "xla" (synonyms) | "grouped".
+    # "auto"/"xla": the per-query CUDA kNN kernel (csrc/knn.cu), the
+    # default.  "grouped": the region-grouped CUDA kernel
+    # (csrc/knn_grouped.cu; queries sorted by region key, groups of <= 8
+    # share their rows).  Both compute hash_map.knn_search; on CPU tensors
+    # each runs its plain PyTorch version.
     knn_wide_fallback: bool = False  # when the 2x2x2 search leaves queries
     # unsaturated (< 5 neighbors or 5th NN beyond the covered radius), re-run
     # those scans' search over the centered 3x3x3 region (coverage radius =

@@ -3,8 +3,10 @@
 ``load_numpy_state(pipe, arrays)`` takes the JAX ``Pipeline``'s device state
 as numpy arrays (``state_arrays`` below lists the keys) and loads it into a
 port ``Pipeline``, which then continues the run the JAX pipeline started.
-This is the in-memory handover; the npz checkpoint format
-(``utils/checkpoint.py``) is a later item (ROADMAP.md queue A item 12).
+This is the in-memory handover of the device state only; the npz
+checkpoint (``utils/checkpoint.py``: ``save_pipeline``/``load_pipeline``)
+also carries the sync statistics and IMU init stats, and is the way to
+resume a run written to disk by either package.
 """
 from __future__ import annotations
 

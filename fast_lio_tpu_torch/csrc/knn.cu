@@ -30,82 +30,15 @@
 // about 34 us.  This design is latency-bound on dependent row reads: a warp
 // walks its R rows one after the other, and each row is one round trip.
 //
-// Bitwise agreement with the plain version needs IEEE arithmetic in the
-// plain version's order: never --use_fast_math; d2 is built from
-// __fmul_rn/__fadd_rn (no FMA contraction) left to right as in
-// hash_map.knn_search; q / cell is __fdiv_rn; the hash runs in uint32_t (a
-// negative cell times a prime in int would be undefined behaviour).
+// Bitwise agreement with the plain version: see knn_common.cuh, which holds
+// the hash, the top-5 and the row scoring this kernel shares with
+// knn_grouped.cu.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "knn_common.cuh"
 
 namespace {
 
-constexpr int K = 5;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float W_VALID_MAX = 1.0e17f;
-constexpr int NO_IDX = 0x7fffffff;
-
-__device__ __forceinline__ uint32_t cell_hash(uint32_t cx, uint32_t cy,
-                                              uint32_t cz) {
-  uint32_t h = (cx * 73856093u) ^ (cy * 19349663u) ^ (cz * 83492791u);
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
-
-struct TopK {
-  float d[K];
-  int id[K];
-  float x[K], y[K], z[K];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      d[j] = INFINITY;
-      id[j] = NO_IDX;
-      x[j] = y[j] = z[j] = 0.0f;
-    }
-  }
-
-  // sorted insert; every compare reads entries not yet moved this call
-  __device__ __forceinline__ void push(float nd, int ni, float nx, float ny,
-                                       float nz) {
-    if (!lex_less(nd, ni, d[K - 1], id[K - 1])) return;
-#pragma unroll
-    for (int j = K - 1; j > 0; --j) {
-      const bool before_prev = lex_less(nd, ni, d[j - 1], id[j - 1]);
-      const bool before_this = lex_less(nd, ni, d[j], id[j]);
-      if (before_prev) {
-        d[j] = d[j - 1]; id[j] = id[j - 1];
-        x[j] = x[j - 1]; y[j] = y[j - 1]; z[j] = z[j - 1];
-      } else if (before_this) {
-        d[j] = nd; id[j] = ni; x[j] = nx; y[j] = ny; z[j] = nz;
-      }
-    }
-    if (lex_less(nd, ni, d[0], id[0])) {
-      d[0] = nd; id[0] = ni; x[0] = nx; y[0] = ny; z[0] = nz;
-    }
-  }
-
-  __device__ __forceinline__ void pop_front() {
-#pragma unroll
-    for (int j = 0; j < K - 1; ++j) {
-      d[j] = d[j + 1]; id[j] = id[j + 1];
-      x[j] = x[j + 1]; y[j] = y[j + 1]; z[j] = z[j + 1];
-    }
-    d[K - 1] = INFINITY;
-    id[K - 1] = NO_IDX;
-  }
-};
+using namespace knn_common;
 
 template <int R>
 __global__ void __launch_bounds__(256)
@@ -123,9 +56,9 @@ knn_kernel(const float* __restrict__ packed, const float* __restrict__ queries,
 
   // region base: floor(q / cell - 0.5) narrow, floor(q / cell - 1) wide
   const float shift = (R == 8) ? 0.5f : 1.0f;
-  const int bx = (int)floorf(__fsub_rn(__fdiv_rn(qx, cell), shift));
-  const int by = (int)floorf(__fsub_rn(__fdiv_rn(qy, cell), shift));
-  const int bz = (int)floorf(__fsub_rn(__fdiv_rn(qz, cell), shift));
+  const int bx = region_base(qx, cell, shift);
+  const int by = region_base(qy, cell, shift);
+  const int bz = region_base(qz, cell, shift);
   // half-open AABB [lo, lo + span), f32 as region_bounds computes it
   const float lox = __fmul_rn(__int2float_rn(bx), cell);
   const float loy = __fmul_rn(__int2float_rn(by), cell);
@@ -137,11 +70,7 @@ knn_kernel(const float* __restrict__ packed, const float* __restrict__ queries,
   uint32_t bucket = 0xffffffffu;
   if (lane < R) {
     uint32_t ox, oy, oz;
-    if (R == 8) {
-      ox = (lane >> 2) & 1; oy = (lane >> 1) & 1; oz = lane & 1;
-    } else {
-      ox = lane / 9; oy = (lane / 3) % 3; oz = lane % 3;
-    }
+    region_offset<R>(lane, ox, oy, oz);
     bucket = cell_hash((uint32_t)bx + ox, (uint32_t)by + oy,
                        (uint32_t)bz + oz) & bucket_mask;
   }
@@ -159,57 +88,10 @@ knn_kernel(const float* __restrict__ packed, const float* __restrict__ queries,
     const int r = __ffs(todo) - 1;
     todo &= todo - 1;
     const uint32_t b = __shfl_sync(FULL, bucket, r);
-    const float* row = packed + (size_t)b * 4 * B;
-    for (int s = lane; s < B; s += 32) {
-      const float w = row[3 * B + s];
-      if (!(w < W_VALID_MAX)) continue;  // free slot: d2 >= 1e18, never found
-      const float x = row[s];
-      const float y = row[B + s];
-      const float z = row[2 * B + s];
-      const float dx = __fsub_rn(x, qx);
-      const float dy = __fsub_rn(y, qy);
-      const float dz = __fsub_rn(z, qz);
-      float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
-      d2 = __fadd_rn(d2, w);
-      const bool oob = x < lox || x >= hix || y < loy || y >= hiy ||
-                       z < loz || z >= hiz;
-      if (oob || !(d2 < W_VALID_MAX)) continue;
-      top.push(d2, (int)(b * (uint32_t)B) + s, x, y, z);
-    }
+    score_row(packed + (size_t)b * 4 * B, b, B, lane, qx, qy, qz, lox, loy,
+              loz, hix, hiy, hiz, top);
   }
-
-  // five warp-wide argmin rounds on (d2, idx)
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float bd = top.d[0];
-    int bi = top.id[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(FULL, bd, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
-    }
-    const bool hit = bi != NO_IDX;
-    const bool mine = hit && top.id[0] == bi;
-    const unsigned owner_mask = __ballot_sync(FULL, mine);
-    float wx = 0.0f, wy = 0.0f, wz = 0.0f;
-    if (owner_mask) {
-      const int owner = __ffs(owner_mask) - 1;
-      wx = __shfl_sync(FULL, top.x[0], owner);
-      wy = __shfl_sync(FULL, top.y[0], owner);
-      wz = __shfl_sync(FULL, top.z[0], owner);
-    }
-    if (mine) top.pop_front();
-    if (lane == 0) {
-      const size_t o = (size_t)q * K + k;
-      sq[o] = hit ? bd : INFINITY;
-      found[o] = hit ? 1 : 0;
-      nbrs[3 * o + 0] = wx;
-      nbrs[3 * o + 1] = wy;
-      nbrs[3 * o + 2] = wz;
-    }
-  }
+  write_top5(top, lane, (size_t)q, nbrs, sq, found);
 }
 
 }  // namespace

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/fast_lio_tpu_torch/`` at the repository
 root (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+flags (and the shared headers, ``csrc/*.cuh``), so an edited source is
+rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: ``load`` builds on the first call.
 """
@@ -42,7 +43,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by the source, every header in ``csrc/``
+    and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -53,10 +53,9 @@ def knn_search(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
     return knn_search_cuda(m.packed, cfg, queries, k=k, wide=wide)
 
 
-def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
-                    queries: torch.Tensor, k: int = hm.NUM_MATCH_POINTS,
-                    wide: bool = False):
-    """Launch the kernel on ``torch.cuda.current_stream()``; no sync."""
+def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
+                 queries: torch.Tensor, k: int) -> None:
+    """Raise ValueError on anything the kNN kernels do not take."""
     H, B = cfg.num_buckets, cfg.bucket_slots
     if k != hm.NUM_MATCH_POINTS:
         raise ValueError(f"the kNN kernel is specialized to k=5 (got k={k})")
@@ -78,10 +77,24 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
     if H * B >= 2**31:
         raise ValueError("map capacity H * B must stay below 2^31 slots")
 
+
+def empty_outputs(queries: torch.Tensor, k: int):
+    """Uninitialised (nbrs (N, k, 3), sq (N, k), found (N, k)) on the
+    queries' device, for a kernel to fill."""
+    N, dev = queries.shape[0], queries.device
+    return (torch.empty((N, k, 3), dtype=torch.float32, device=dev),
+            torch.empty((N, k), dtype=torch.float32, device=dev),
+            torch.empty((N, k), dtype=torch.bool, device=dev))
+
+
+def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
+                    queries: torch.Tensor, k: int = hm.NUM_MATCH_POINTS,
+                    wide: bool = False):
+    """Launch the kernel on ``torch.cuda.current_stream()``; no sync."""
+    check_inputs(packed, cfg, queries, k)
+    H, B = cfg.num_buckets, cfg.bucket_slots
+    nbrs, sq, found = empty_outputs(queries, k)
     N = queries.shape[0]
-    nbrs = torch.empty((N, k, 3), dtype=torch.float32, device=queries.device)
-    sq = torch.empty((N, k), dtype=torch.float32, device=queries.device)
-    found = torch.empty((N, k), dtype=torch.bool, device=queries.device)
     if N == 0:
         return nbrs, sq, found
 

@@ -160,19 +160,22 @@ _WIDE_OFFSETS = np.array(
 )  # (27, 3) — centered 3x3x3 region (wide / sparse-regime mode)
 
 
+def region_base(queries: torch.Tensor, cfg: MapConfig,
+                wide: bool = False) -> torch.Tensor:
+    """(N, 3) int32 base cell of each query's search region."""
+    return torch.floor(queries / cfg.cell_size - (1.0 if wide else 0.5)).to(
+        torch.int32)
+
+
 def region_cells(queries: torch.Tensor, cfg: MapConfig, wide: bool = False):
     """Search-region cells per query: (base (N,3), cells (N,R,3), n_cells).
 
     Standard: round-to-corner 2x2x2 (coverage radius cell_size/2).
     Wide: centered 3x3x3 (coverage radius cell_size)."""
-    dev = queries.device
-    if wide:
-        base = torch.floor(queries / cfg.cell_size - 1.0).to(torch.int32)
-        off = torch.as_tensor(_WIDE_OFFSETS + 1, device=dev)
-        return base, base[:, None, :] + off[None], 27
-    base = torch.floor(queries / cfg.cell_size - 0.5).to(torch.int32)
-    off = torch.as_tensor(_NEIGHBOR_OFFSETS, device=dev)
-    return base, base[:, None, :] + off[None], 8
+    base = region_base(queries, cfg, wide)
+    offsets = (_WIDE_OFFSETS + 1) if wide else _NEIGHBOR_OFFSETS
+    off = torch.as_tensor(offsets, device=queries.device)
+    return base, base[:, None, :] + off[None], len(offsets)
 
 
 def dedup_buckets(buckets: torch.Tensor, sentinel: int):
@@ -207,19 +210,34 @@ def region_bounds(base: torch.Tensor, cfg: MapConfig, n_side: int):
 
 
 def knn_search(m: Map, cfg: MapConfig, queries: torch.Tensor,
-               k: int = NUM_MATCH_POINTS, wide: bool = False):
+               k: int = NUM_MATCH_POINTS, wide: bool = False,
+               return_candidates: bool = False):
     """k nearest map points per query — the plain version of csrc/knn.cu.
 
     queries: (N, 3).  Returns (neighbors (N, k, 3), sq_dists (N, k) with +inf
     for missing, found_mask (N, k)).  Exact within the covered neighborhood;
     candidates are ordered by sorted bucket id, then slot, and ties go to the
-    lowest candidate index."""
-    B = cfg.bucket_slots
-    N = queries.shape[0]
-    base, cells, R = region_cells(queries, cfg, wide)
+    lowest candidate index.  With ``return_candidates`` it also returns the
+    gathered candidate block (N, R*B, 3) and its live mask (N, R*B), which
+    ``rescore_candidates`` re-ranks."""
+    base, cells, _R = region_cells(queries, cfg, wide)
     buckets, dup_mask = dedup_buckets(
         _bucket_of(cells, cfg.h_log2), cfg.num_buckets - 1)
+    return search_rows(m, cfg, queries, base, buckets, dup_mask, k, wide,
+                       return_candidates)
 
+
+def search_rows(m: Map, cfg: MapConfig, queries: torch.Tensor,
+                base: torch.Tensor, buckets: torch.Tensor,
+                dup_mask: torch.Tensor, k: int = NUM_MATCH_POINTS,
+                wide: bool = False, return_candidates: bool = False):
+    """Top-k of each query over the bucket rows ``buckets`` (N, R), sorted,
+    with the rows flagged in ``dup_mask`` skipped, keeping only candidates
+    inside the half-open AABB of the region at ``base`` (N, 3).  The math of
+    ``knn_search``, which passes each query's own region; the grouped search
+    passes its group head's rows."""
+    B = cfg.bucket_slots
+    N, R = buckets.shape
     rows = m.packed[buckets.reshape(-1)].reshape(N, R, 4 * B)
     cx = rows[:, :, 0 * B:1 * B].reshape(N, R * B)
     cy = rows[:, :, 1 * B:2 * B].reshape(N, R * B)
@@ -240,7 +258,24 @@ def knn_search(m: Map, cfg: MapConfig, queries: torch.Tensor,
     nbrs = torch.stack([torch.take_along_dim(c, idx, dim=1)
                         for c in (cx, cy, cz)], dim=-1)
     sq = torch.where(found, sq, torch.full_like(sq, torch.inf))
+    if return_candidates:
+        cand_pts = torch.stack([cx, cy, cz], dim=-1)
+        return nbrs, sq, found, cand_pts, ~kill & (cw == 0.0)
     return nbrs, sq, found
+
+
+def rescore_candidates(cand_pts: torch.Tensor, cand_ok: torch.Tensor,
+                       queries: torch.Tensor, k: int = NUM_MATCH_POINTS):
+    """Re-rank cached candidates (N, C, 3) with live mask (N, C) at new
+    query positions (N, 3), with no map gather: the converged-iteration
+    re-search of ``Config.rescore_research`` (the pose moves millimetres
+    between Gauss-Newton iterates, so the first search's region still
+    covers the true kNN).  Returns (nbrs, sq, found) as ``knn_search``."""
+    d2 = torch.sum((cand_pts - queries[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(cand_ok, d2, torch.full_like(d2, torch.inf))
+    sq, idx = smallest_k(d2, k)
+    nbrs = torch.take_along_dim(cand_pts, idx[..., None], dim=1)
+    return nbrs, sq, torch.isfinite(sq)
 
 
 # --------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from . import state as st
 from .config import Config, LidarType
 from .filter import ekf, process
 from .kernels import knn as knn_kernel
+from .kernels import knn_grouped
 from .map import hash_map as hm
 from .math import so3
 from .ops import measurement as meas
@@ -37,24 +38,35 @@ from .ops.voxel_grid import voxel_downsample
 
 MOV_THRESHOLD = 1.5  # laserMapping.cpp:78
 
-_RESCORE_TODO = ("rescore_research is not ported yet (ROADMAP.md queue A "
-                 "item 16)")
+KNN_BACKENDS = ("auto", "xla", "grouped")
 
 
 def _check_knn_backend(cfg: Config):
-    if cfg.knn_backend not in ("auto", "xla"):
+    if cfg.knn_backend not in KNN_BACKENDS:
         raise ValueError(
-            f"knn_backend={cfg.knn_backend!r}: the one search backend is the "
-            "CUDA kNN kernel (plain PyTorch on CPU); use 'auto'")
+            f"knn_backend={cfg.knn_backend!r}: the search backends are "
+            "'auto' (= 'xla', the per-query CUDA kNN kernel) and 'grouped' "
+            "(the region-grouped CUDA kernel); plain PyTorch on CPU")
     if cfg.rescore_research:
-        raise NotImplementedError(_RESCORE_TODO)
+        if cfg.knn_wide_fallback:
+            # the cached-candidate rescore re-ranks the 2x2x2 block only
+            raise ValueError(
+                "rescore_research does not compose with knn_wide_fallback: "
+                "the cached candidate block never covers the wide 3x3x3 "
+                "region — disable one of the two")
+        if cfg.knn_backend == "grouped":
+            raise ValueError(
+                "rescore_research does not compose with knn_backend="
+                "'grouped': the grouped kernel materialises no candidate "
+                "block to re-rank")
 
 
 def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
     """(queries (N,3), mask (N,)) -> (nbrs, sq, found) against map ``m``.
 
-    The search is ``kernels.knn.knn_search``: the CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors.  With
+    The search is ``kernels.knn.knn_search`` (``knn_backend`` "auto" or
+    "xla") or ``kernels.knn_grouped.knn_search`` ("grouped"): the CUDA
+    kernel on CUDA tensors, its plain version on CPU tensors.  With
     ``Config.knn_wide_fallback``, queries left unsaturated by the 2x2x2
     search (fewer than 5 neighbors, or the 5th beyond the guaranteed
     coverage radius cell_size/2) are searched again over the centered 3x3x3
@@ -62,11 +74,21 @@ def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
     most ``knn_wide_max_queries`` (K_w) queries are unsaturated, only those
     are re-searched, compacted into K_w slots padded with N; the padded rows
     are dropped on scatter.  Otherwise the full wide search runs.
+
+    With ``Config.rescore_research`` the function instead returns the plain
+    search with its candidate block, ``(nbrs, sq, found, cand_pts,
+    cand_ok)``, on the CPU and on CUDA alike (the JAX package computes it in
+    XLA too); ``lio_step`` re-ranks that block in later iterations.
     """
     _check_knn_backend(cfg)
+    if cfg.rescore_research:
+        return lambda q, mask: hm.knn_search(m, map_cfg, q,
+                                             return_candidates=True)
+    search = (knn_grouped.knn_search if cfg.knn_backend == "grouped"
+              else knn_kernel.knn_search)
 
     def base(q, wide=False):
-        return knn_kernel.knn_search(m, map_cfg, q, wide=wide)
+        return search(m, map_cfg, q, wide=wide)
 
     if not cfg.knn_wide_fallback:
         return lambda q, mask: base(q)
@@ -296,6 +318,13 @@ def lio_step(
     # 4. iterated point-to-plane update
     cache0 = meas.empty_cache(cfg.n_ds_max, pts_ds.dtype, pts_ds.device)
     knn_fn = make_knn_fn(cfg, map_cfg, m)
+    if cfg.rescore_research and do_update:
+        # one map gather per scan: the full search runs here at the
+        # predicted pose (what the loop's first iteration would search), and
+        # every re-search in the loop re-ranks its candidate block
+        cand_pts, cand_ok = knn_fn(meas.body_to_world(x, pts_ds), ds_mask)[3:]
+        knn_fn = lambda q, mask: hm.rescore_candidates(
+            cand_pts, cand_ok, q, meas.NUM_MATCH)
 
     def h_fn(x_i, converge, cache):
         h_x, h, sel, cache, valid, _pw = meas.compute_measurement(
@@ -430,9 +459,12 @@ class Pipeline:
         }
 
     def measure_stage_times(self) -> dict:
-        raise NotImplementedError(
-            "measure_stage_times (utils/stage_timing.py) is not ported yet "
-            "(ROADMAP.md queue A item 15)")
+        """Device seconds of the search / incremental / delete stage groups
+        at this pipeline's shapes against a copy of its live map — the
+        sources of the timing CSV's stage columns (``utils.stage_timing``)."""
+        from .utils.stage_timing import measure_stage_times
+
+        return measure_stage_times(self)
 
     def pose_covariance(self) -> np.ndarray:
         """6x6 pose covariance, rotation block first (publish_odometry,

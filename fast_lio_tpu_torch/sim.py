@@ -307,3 +307,40 @@ def ate_rmse_aligned(traj_est: List[Tuple[float, np.ndarray, np.ndarray]],
     t = mu_d - R @ mu_s
     err = (R @ est_p.T).T + t - gt_p
     return float(np.sqrt((err**2).sum(-1).mean()))
+
+
+def write_avia_bag(path, sim: SimData, scans=None, imu_after: float = -np.inf,
+                   lidar_topic: str = "/livox/lidar",
+                   imu_topic: str = "/livox/imu") -> None:
+    """Write a sim run as a ROS1 bag: each scan as a Livox CustomMsg (tag
+    0x10, line = point index mod 6, reflectivity 1) after the Imu messages
+    stamped up to it, then the remaining Imu messages.
+
+    ``scans`` picks the scan indices (default all); Imu samples stamped at or
+    before ``imu_after`` are left out, so a bag can carry the second half of
+    a run that resumes from a checkpoint."""
+    from .io.rosbag import BagWriter, serialize_imu, serialize_livox
+
+    w = BagWriter(path)
+    imu_i = int(np.searchsorted(sim.imu_t, imu_after, side="right"))
+
+    def imu_until(t_max):
+        nonlocal imu_i
+        while imu_i < len(sim.imu_t) and sim.imu_t[imu_i] <= t_max:
+            t = float(sim.imu_t[imu_i])
+            w.write(imu_topic, "sensor_msgs/Imu", t,
+                    serialize_imu(t, sim.imu_acc[imu_i], sim.imu_gyr[imu_i]))
+            imu_i += 1
+
+    for k in (range(len(sim.scans)) if scans is None else scans):
+        stamp = float(sim.scan_stamps[k])
+        imu_until(stamp + 1e-9)
+        pts = sim.scans[k]
+        n = len(pts)
+        w.write(lidar_topic, "livox_ros_driver/CustomMsg", stamp,
+                serialize_livox(stamp, pts, np.ones(n, np.float32),
+                                (sim.scan_pt_times[k] * 1e9).astype(np.uint32),
+                                np.full(n, 0x10, np.uint8),
+                                (np.arange(n) % 6).astype(np.uint8)))
+    imu_until(np.inf)
+    w.close()

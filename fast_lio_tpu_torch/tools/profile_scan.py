@@ -42,6 +42,7 @@ import torch
 from .. import config, pipeline, sim
 from ..filter import ekf
 from ..kernels import knn as knn_kernel
+from ..kernels import knn_grouped
 from ..map import hash_map as hm
 
 RUNS = {
@@ -53,15 +54,20 @@ RUNS = {
                  sim.SimConfig(duration=2.0, n_rings=64, n_azimuth=688,
                                elev_min=-22.5, elev_max=22.5)),
 }
+# ouster64 with the region-grouped kNN kernel (chip_smoke.py's phase)
+RUNS["ouster64_grouped"] = (
+    dataclasses.replace(RUNS["ouster64"][0], knn_backend="grouped"),
+    RUNS["ouster64"][1])
 
 # (label, module, attribute) of each stage function lio_step calls; the kNN
-# search runs inside the update and is reported as its part
+# search (either backend) runs inside the update and is reported as its part
 STAGES = (
     ("propagate_deskew", pipeline.imu_mod, "propagate_and_deskew"),
     ("fov_prune", hm, "prune_outside"),
     ("downsample", pipeline, "voxel_downsample"),
     ("update", ekf, "update_iterated"),
     ("update.knn", knn_kernel, "knn_search"),
+    ("update.knn_grouped", knn_grouped, "knn_search"),
     ("insert_decisions", hm, "insert_decisions"),
     ("insert", hm, "insert"),
 )
@@ -143,7 +149,8 @@ def profile_window(step, n_scans: int) -> dict:
             k: v / n_scans for k, v in sorted(syncs_by_op.items(),
                                               key=lambda kv: -kv[1])},
         "knn_kernel_ms_per_scan": 1e-3 * sum(
-            v for k, v in by_kernel.items() if "knn_kernel" in k) / n_scans,
+            v for k, v in by_kernel.items()
+            if "knn_kernel" in k or "knn_grouped_kernel" in k) / n_scans,
         "top_device_ms_per_scan": [
             {"name": name[:80], "ms": 1e-3 * by_kernel[name] / n_scans,
              "calls": calls[name] / n_scans} for name in top],
@@ -185,7 +192,8 @@ def stage_window(step, n_scans: int) -> dict:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     stages = {label: 1e3 * acc[label] / n_scans for label, _m, _a in STAGES}
-    outside = wall_s - sum(v for k, v in acc.items() if k != "update.knn")
+    outside = wall_s - sum(v for k, v in acc.items()
+                           if not k.startswith("update.knn"))
     stages["outside_stages"] = 1e3 * outside / n_scans
     # the syncs of this tool's own wrappers are left out
     lines = Counter(

@@ -6,6 +6,7 @@ import pytest
 
 from fast_lio_tpu import config as jcfg
 from fast_lio_tpu_torch import config as tcfg
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _as_plain(cfg):

@@ -22,6 +22,7 @@ from fast_lio_tpu.filter import process as jproc
 from fast_lio_tpu_torch import state as tst
 from fast_lio_tpu_torch.filter import ekf as tekf
 from fast_lio_tpu_torch.filter import process as tproc
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-10
 

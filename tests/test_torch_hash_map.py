@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from fast_lio_tpu import sim as simlib
 from fast_lio_tpu.map import hash_map as jhm
 from fast_lio_tpu_torch.map import hash_map as thm
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _j_insert = jax.jit(jhm.insert, static_argnums=1)  # op-by-op is slow on CPU
 

@@ -24,6 +24,7 @@ from fast_lio_tpu.filter import process as jproc
 from fast_lio_tpu_torch import imu as timu
 from fast_lio_tpu_torch import state as tst
 from fast_lio_tpu_torch.filter import process as tproc
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOLS = {"f64": (np.float64, torch.float64, 1e-10, 1e-10),
         "f32": (np.float32, torch.float32, 2e-5, 1e-4)}

@@ -19,6 +19,7 @@ import torch
 
 from fast_lio_tpu_torch.kernels import knn as tknn
 from fast_lio_tpu_torch.map import hash_map as thm
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @functools.cache

@@ -17,6 +17,7 @@ from fast_lio_tpu.math import so3 as jso3
 from fast_lio_tpu_torch import state as tst
 from fast_lio_tpu_torch.math import s2 as ts2
 from fast_lio_tpu_torch.math import so3 as tso3
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"f64": (np.float64, torch.float64, 1e-12, 1e-12),
           "f32": (np.float32, torch.float32, 2e-6, 2e-6)}

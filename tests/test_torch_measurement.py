@@ -23,6 +23,7 @@ from fast_lio_tpu.ops import plane_fit as jpf
 from fast_lio_tpu_torch import state as tst
 from fast_lio_tpu_torch.ops import measurement as tmeas
 from fast_lio_tpu_torch.ops import plane_fit as tpf
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOLS = {"f64": (np.float64, 1e-10), "f32": (np.float32, 5e-5)}
 

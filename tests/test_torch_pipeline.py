@@ -21,6 +21,7 @@ from fast_lio_tpu_torch import config as tcfg
 from fast_lio_tpu_torch import convert
 from fast_lio_tpu_torch import pipeline as tpipe
 from fast_lio_tpu_torch.map import hash_map as thm
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POS_TOL = {"float32": 5e-3, "float64": 1e-6}
 
@@ -203,14 +204,17 @@ def test_device_selection_and_unported_options():
             tpipe.Pipeline(cfg)
     small = dataclasses.replace(cfg, **SMALL)
     assert tpipe.Pipeline(small, device="cpu").map.packed.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.Pipeline(dataclasses.replace(small, rescore_research=True),
-                       device="cpu")
+    # every option of the JAX package's single-device pipeline is ported:
+    # rescore_research (test_torch_rescore.py), the stage timers
+    # (test_torch_stage_timing.py), and the grouped backend besides
+    for opt in (dict(rescore_research=True), dict(knn_backend="grouped"),
+                dict(knn_backend="xla")):
+        tpipe.Pipeline(dataclasses.replace(small, **opt), device="cpu")
     with pytest.raises(ValueError, match="knn_backend"):
         tpipe.Pipeline(dataclasses.replace(small, knn_backend="pallas"),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.Pipeline(small, device="cpu").measure_stage_times()
+    assert set(tpipe.Pipeline(small, device="cpu").measure_stage_times()) == {
+        "search", "incremental", "delete"}
     with pytest.raises(ValueError, match="h_log2"):
         tpipe.Pipeline(dataclasses.replace(small, map_h_log2=16), device="cpu")
     assert isinstance(tpipe.Pipeline(small, device="cpu").map, thm.Map)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from fast_lio_tpu.ops import voxel_grid as jvg
 from fast_lio_tpu_torch.ops import voxel_grid as tvg
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # name: (coordinate half-span of the cloud in m, coord_bound passed)
 PATHS = {

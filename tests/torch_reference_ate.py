@@ -1,29 +1,36 @@
-"""The JAX package's ATE on chip_smoke.py's two main-path runs.
+"""The JAX package's ATE on chip_smoke.py's main-path runs and bag replay.
 
 chip_smoke.py holds the port's ATE on the card against these numbers (plus
 1 cm), and imports no JAX itself, so they are computed here once, on a CPU,
-and written into chip_smoke.py as constants.  Not a test (pytest does not
+and written into chip_smoke.py as constants: the avia and ouster64 runs
+(phases 4-6) and the bag replay of phase 7 (the avia run written as a ROS1
+bag by the port's ``sim.write_avia_bag``, replayed by the JAX package's
+runner with the same flags).  Not a test (pytest does not
 collect this file); run it from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py
 
 It runs the JAX pipeline at the presets' full size (a few GB of host memory,
-well under a minute) and prints one JSON line per run.
+about a minute) and prints one JSON line per run.
 """
 import dataclasses
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax  # noqa: E402
+import numpy as np  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+from fast_lio_tpu import cli  # noqa: E402
 from fast_lio_tpu import sim as simlib  # noqa: E402
 from fast_lio_tpu.config import PRESETS  # noqa: E402
 from fast_lio_tpu.pipeline import Pipeline  # noqa: E402
+from fast_lio_tpu_torch import sim as port_sim  # noqa: E402
 
 RUNS = {
     # name: (config, sim config) — the same as chip_smoke.py phases 4 and 5
@@ -54,6 +61,27 @@ def run(cfg, sim_cfg):
                 scans=len(traj), health=pipe.health_check())
 
 
+# chip_smoke.py's CLI_BAG_FLAGS
+CLI_BAG_FLAGS = ["--preset", "avia", "--point-filter-num", "1",
+                 "--blind", "0.3"]
+
+
+def run_cli_bag(sim_cfg):
+    """The JAX runner on the avia run written as a bag."""
+    data = simlib.generate(sim_cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        bag = Path(tmp) / "avia.bag"
+        port_sim.write_avia_bag(bag, port_sim.generate(sim_cfg))
+        assert cli.main(CLI_BAG_FLAGS + ["--bag", str(bag), "--out", tmp]) == 0
+        rows = np.loadtxt(Path(tmp) / "trajectory_tum.txt", ndmin=2)
+    traj = [(r[0], r[1:4], np.array([r[7], r[4], r[5], r[6]])) for r in rows]
+    return dict(ate_raw_m=simlib.ate_rmse(traj, data),
+                ate_aligned_m=simlib.ate_rmse_aligned(traj, data),
+                scans=len(traj))
+
+
 if __name__ == "__main__":
     for name, (cfg, sim_cfg) in RUNS.items():
         print(json.dumps({"run": name, **run(cfg, sim_cfg)}), flush=True)
+    print(json.dumps({"run": "cli_bag", **run_cli_bag(RUNS["avia"][1])}),
+          flush=True)
