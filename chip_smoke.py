@@ -12,14 +12,20 @@ Phases, in order; any failed check exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version on the card,
    at the shapes of the main path: the per-query kNN search (rows
    ``knn_r8``: R = 8, H = 2^15, B = 64, N = 8192; ``knn_r27``: R = 27,
-   H = 2^15, B = 128, N = 2048) and the region-grouped search on the same
-   maps and queries (``grouped_r8``, ``grouped_r27``), over a map filled from
-   a few simulated scans.  Rule for the per-query kernel
+   H = 2^15, B = 128, N = 2048), the region-grouped search on the same
+   maps and queries (``grouped_r8``, ``grouped_r27``) and its prep kernel
+   (``grouped_prep_r8``, ``grouped_prep_r27``), over a map filled from a few
+   simulated scans (``fast_lio_tpu_torch/tools/microbench_knn.py``), with
+   the queries the main path searches for the next scan, in its order and
+   shuffled.  Rule for the per-query kernel
    (tests/test_knn_pallas.py:33-56): found masks equal, squared distances
    within rtol 1e-5, neighbours equal wherever the distances are distinct;
-   the grouped kernel is held bit for bit (found, sq, and neighbours where
-   found) to its plain version and to the per-query kernel.  Times: CUDA
-   events, median of 25.
+   the grouped search is held bit for bit (found, sq, and neighbours where
+   found) to its plain version and to the per-query kernel, and the prep
+   bit for bit to ``group_queries`` (order, the group starts, the group
+   count).  Times: the
+   microbenchmark's ``device_us`` (profiler), ``graph_us`` (a CUDA graph of
+   100 calls) and ``enqueue_us`` (host clock), with the ptxas registers.
 3. small — the port's pipeline on CUDA against its own CPU path (the plain
    versions) on a small sim: per-scan positions within 5 mm.
 4. avia — the main path at the AVIA preset's full size (32768-point pad,
@@ -33,7 +39,8 @@ Phases, in order; any failed check exits non-zero:
    kernel ran, and the checks of phase 4, with map drops within 10% of the
    JAX package's (it drops 307 points on this run).
 6. ouster64_grouped — phase 5's run with ``knn_backend="grouped"``: the
-   grouped kernel ran at R = 8 and R = 27 and the per-query kernel did not;
+   grouped prep and search kernels ran at R = 8 and R = 27, once each per
+   search, and the per-query kernel did not;
    phase 5's checks; positions within 5 mm of phase 5's (``index_add_``
    sums in another order on each run, so they are not bit-equal).
 7. cli_bag — the entry point users run: phase 4's sim written as a ROS1 bag
@@ -48,6 +55,10 @@ Phases, in order; any failed check exits non-zero:
 8. fleet — the runner with two ``--bag``s (sim seeds 0 and 1, the second
    shorter): each stream's trajectory within 5 mm of the single-stream
    replay of its bag.
+
+Phases 4 and 5 also print how many distinct bucket rows each tile of their
+searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
+``knn.tile_union_stats``); phase 6 prints how its searches grouped.
 
 Output: JSON lines per phase; then the ``kernels`` line, the card's name and
 power limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
@@ -91,10 +102,8 @@ ATE_SLACK_M = 0.01
 # so the port's drop count may differ a little from the JAX package's
 DROPPED_SLACK = 0.1
 
-H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 SQ_RTOL, SQ_ATOL = 1e-5, 1e-6
-TIMING_REPS = 25
+TIMING_REPS = 25  # profiler calls and enqueue samples per search
 
 
 def log(obj) -> None:
@@ -113,66 +122,9 @@ def gpu_name_and_power() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median device time of fn() in ms (CUDA events), after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
-
-
-def knn_case(pkg, map_cfg, sim_cfg, n_queries, wide, seed):
-    """A map filled from 5 simulated scans (world frame) and n_queries
-    jittered points of the 6th, all on the card."""
-    hm, simlib = pkg["hm"], pkg["sim"]
-    dev = torch.device("cuda")
-    data = simlib.generate(sim_cfg)
-    m = hm.make_map(map_cfg, torch.float32, dev)
-    for k in range(5):
-        pw = data.scans[k] @ data.gt_rot[k].T + data.gt_pos[k]
-        p = torch.tensor(pw, dtype=torch.float32, device=dev)
-        on = torch.ones(len(p), dtype=torch.bool, device=dev)
-        m = hm.insert(m, map_cfg, p, on, on)
-    q = data.scans[5] @ data.gt_rot[5].T + data.gt_pos[5]
-    q = np.resize(q, (n_queries, 3))  # repeats the scan if it is short
-    q = q + np.random.default_rng(seed).normal(0.0, 0.05, q.shape)
-    return m, torch.tensor(q, dtype=torch.float32, device=dev)
-
-
-def knn_bound(hm, m, map_cfg, queries, wide):
-    """Least time for this run's data: each distinct bucket row read once
-    (plus queries and outputs) at the HBM rate, or ~15 f32 operations per
-    live candidate slot (1 per free slot) at the f32 rate; the larger."""
-    B = map_cfg.bucket_slots
-    N = queries.shape[0]
-    _base, cells, R = hm.region_cells(queries, map_cfg, wide)
-    buckets = torch.sort(hm._bucket_of(cells, map_cfg.h_log2), dim=-1).values
-    distinct = torch.cat([torch.ones_like(buckets[:, :1], dtype=torch.bool),
-                          buckets[:, 1:] != buckets[:, :-1]], dim=-1)
-    live_per_bucket = hm.valid_mask(m).sum(dim=1)
-    live = int((live_per_bucket[buckets] * distinct).sum())
-    slots = int(distinct.sum()) * B
-    n_rows = int(torch.unique(buckets).numel())
-    nbytes = n_rows * 4 * B * 4 + N * 12 + N * 5 * (12 + 4 + 1)
-    ops = 15 * live + (slots - live)
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
-    rows_model = (N * R * 4 * B * 4 + N * 12 + N * 85) / H100_HBM_BYTES_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            rows_model)
 
 
 def compare_knn(got, ref):
@@ -194,14 +146,6 @@ def compare_knn(got, ref):
     return float(err.max())
 
 
-def grouped_row_bound_ms(map_cfg, n_groups, n, wide):
-    """The grouped kernel's row model: each group's R rows read once, plus
-    queries, the sort order and outputs, at the HBM rate."""
-    R = 27 if wide else 8
-    nbytes = n_groups * R * 4 * map_cfg.bucket_slots * 4 + n * (12 + 4 + 85)
-    return nbytes / H100_HBM_BYTES_PER_S * 1e3
-
-
 def equal_where_found(got, ref, what):
     """Bit-equal found and sq, and neighbours where found; max |dsq|."""
     check(torch.equal(got[2], ref[2]), f"{what}: found masks differ")
@@ -212,70 +156,88 @@ def equal_where_found(got, ref, what):
     return float((got[1][f] - ref[1][f]).abs().max()) if f.any() else 0.0
 
 
+def equal_groups(got, want, what) -> None:
+    """The prep kernel's groups bit-equal to group_queries': what the search
+    reads (order, the first n_groups starts, n_groups)."""
+    n = int(want.n_groups[0])
+    check(int(got.n_groups[0]) == n, f"{what}: group counts differ")
+    check(torch.equal(got.order.long().cpu(), want.order.long().cpu()),
+          f"{what}: order differs")
+    check(torch.equal(got.starts[:n].cpu(), want.starts[:n].cpu()),
+          f"{what}: starts differ")
+
+
+# kernel row kind -> (source, ptxas library and entry)
+KERNEL_ROWS = {
+    "knn": ("fast_lio_tpu_torch/csrc/knn.cu", "knn", "knn_tile_kernel"),
+    "grouped": ("fast_lio_tpu_torch/csrc/knn_grouped.cu", "knn_grouped",
+                "knn_grouped_search_kernel"),
+    "grouped_prep": ("fast_lio_tpu_torch/csrc/knn_grouped.cu", "knn_grouped",
+                     "knn_grouped_prep_kernel"),
+}
+REPLACES = {"knn": "tools/knn_pallas.py:193",
+            "grouped": "tools/knn_grouped.py:217",
+            "grouped_prep": "tools/knn_grouped.py:217"}
+TIMES = ("device_us", "prep_device_us", "graph_us", "enqueue_us")
+
+
+def kernel_row(mb, kind, tag, t, err) -> dict:
+    """The kernels line's row of one kernel from its main-order times."""
+    source, lib, entry = KERNEL_ROWS[kind]
+    N, R = t["shape"]["N"], t["shape"]["R"]
+    # the prep kernel is instantiated by block size, the others by R
+    inst = (1024 if N > 2048 else 256) if kind == "grouped_prep" else R
+    return dict(
+        name=f"{kind}_{tag}", route="cuda", source=source,
+        replaces=REPLACES[kind], launches=None, max_abs_err=err,
+        ms=1e-3 * t["graph_us"], plain_ms=1e-3 * t["plain_us"],
+        bound_ms=1e-3 * t["bound_us"], bound_by=t["bound_by"],
+        library_ms=None, shape=t["shape"], **{k: t[k] for k in TIMES},
+        distinct_rows=t["distinct_rows"],
+        ptxas=mb.registers(lib, entry, inst))
+
+
 def phase_kernels(pkg):
-    hm, knn, kg, simlib = pkg["hm"], pkg["knn"], pkg["kg"], pkg["sim"]
-    avia_sim = simlib.SimConfig(duration=0.75, n_rings=32, n_azimuth=400)
-    ouster_sim = simlib.SimConfig(duration=0.75, n_rings=64, n_azimuth=688,
-                                  elev_min=-22.5, elev_max=22.5)
-    cases = [
-        ("r8", hm.make_config(0.5, h_log2=15, cell_multiplier=4),
-         avia_sim, 8192, False),
-        ("r27", hm.make_config(0.5, h_log2=15, cell_multiplier=5),
-         ouster_sim, 2048, True),
-    ]
+    hm, knn, kg, mb = pkg["hm"], pkg["knn"], pkg["kg"], pkg["mb"]
     rows = {}
-    for i, (tag, map_cfg, sim_cfg, n, wide) in enumerate(cases):
-        m, q = knn_case(pkg, map_cfg, sim_cfg, n, wide, seed=i)
-        R = 27 if wide else 8
-        shape = dict(N=n, R=R, B=map_cfg.bucket_slots, H=map_cfg.num_buckets)
-        bound_ms, bound_by, rows_model_ms = knn_bound(hm, m, map_cfg, q, wide)
-
-        got = knn.knn_search_cuda(m.packed, map_cfg, q, wide=wide)
-        ref = hm.knn_search(m, map_cfg, q, wide=wide)
-        torch.cuda.synchronize()
-        err = compare_knn(got, ref)
-        ms = cuda_ms(lambda: knn.knn_search_cuda(m.packed, map_cfg, q,
-                                                        wide=wide))
-        plain_ms = cuda_ms(lambda: hm.knn_search(m, map_cfg, q, wide=wide))
-        rows[f"knn_{tag}"] = dict(
-            name=f"knn_{tag}", route="cuda",
-            source="fast_lio_tpu_torch/csrc/knn.cu",
-            replaces="tools/knn_pallas.py:193", launches=None,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, shape=shape,
-            found_frac=float(got[2].float().mean()),
-            rows_model_bound_ms=rows_model_ms)
-        log({"phase": "kernels", **rows[f"knn_{tag}"]})
-
-        # the grouped kernel on the same map and queries
-        groups = kg.group_queries(q, map_cfg, wide)
-        got_g = kg.knn_search_cuda(m.packed, map_cfg, q, wide=wide)
-        ref_g = kg.knn_search_grouped_plain(m, map_cfg, q, wide=wide)
-        torch.cuda.synchronize()
-        err_g = equal_where_found(got_g, ref_g, f"grouped_{tag} vs plain")
-        equal_where_found(got_g, got, f"grouped_{tag} vs knn_{tag}")
-        n_groups = int(groups.n_groups)
-        regions = int(torch.unique(kg.region_key(
-            hm.region_base(q, map_cfg, wide))).numel())
-        kernel_ms = cuda_ms(lambda: kg.knn_search_cuda(
-            m.packed, map_cfg, q, wide=wide, groups=groups))
-        rows[f"grouped_{tag}"] = dict(
-            name=f"grouped_{tag}", route="cuda",
-            source="fast_lio_tpu_torch/csrc/knn_grouped.cu",
-            replaces="tools/knn_grouped.py:217", launches=None,
-            max_abs_err=err_g, ms=kernel_ms,
-            plain_ms=cuda_ms(lambda: kg.knn_search_grouped_plain(
-                m, map_cfg, q, wide=wide)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            shape=shape,
-            prep_ms=cuda_ms(lambda: kg.group_queries(q, map_cfg, wide)),
-            with_prep_ms=cuda_ms(lambda: kg.knn_search_cuda(
-                m.packed, map_cfg, q, wide=wide)),
-            n_groups=n_groups, regions=regions,
-            queries_per_region=n / regions,
-            group_rows_bound_ms=grouped_row_bound_ms(map_cfg, n_groups, n,
-                                                     wide))
-        log({"phase": "kernels", **rows[f"grouped_{tag}"]})
+    for tag in mb.CASES:
+        for order in ("main", "shuffled"):
+            case = mb.make_case(tag, order)
+            m, map_cfg, q, wide = case.m, case.cfg, case.queries, case.wide
+            got = knn.knn_search_cuda(m.packed, map_cfg, q, wide=wide)
+            ref = hm.knn_search(m, map_cfg, q, wide=wide)
+            got_g = kg.knn_search_cuda(m.packed, map_cfg, q, wide=wide)
+            ref_g = kg.knn_search_grouped_plain(m, map_cfg, q, wide=wide)
+            groups = kg.group_queries_cuda(q, map_cfg, wide)
+            torch.cuda.synchronize()
+            err = {"knn": compare_knn(got, ref),
+                   "grouped": equal_where_found(got_g, ref_g,
+                                                f"grouped_{tag} vs plain"),
+                   "grouped_prep": 0.0}
+            equal_where_found(got_g, got, f"grouped_{tag} vs knn_{tag}")
+            # group_queries on the CPU divides as the kernel does (IEEE)
+            equal_groups(groups, kg.group_queries(q.cpu(), map_cfg, wide),
+                         f"grouped_prep_{tag} {order}")
+            times = mb.measure(case, TIMING_REPS, with_plain=order == "main")
+            log({"phase": "kernels", "case": tag, "order": order,
+                 "times": times})
+            for kind in KERNEL_ROWS:
+                t = times[f"{kind}_{tag}"]
+                if order == "main":
+                    rows[f"{kind}_{tag}"] = kernel_row(mb, kind, tag, t,
+                                                       err[kind])
+                else:
+                    rows[f"{kind}_{tag}"]["shuffled"] = dict(
+                        {k: t[k] for k in TIMES},
+                        bound_ms=1e-3 * t["bound_us"], max_abs_err=err[kind])
+            if order == "main":
+                rows[f"grouped_{tag}"].update(
+                    n_groups=int(groups.n_groups[0]),
+                    regions=int(torch.unique(kg.region_key(
+                        hm.region_base(q, map_cfg, wide))).numel()))
+    for row in rows.values():
+        check(row["device_us"] is not None and row["graph_us"] > 0,
+              f"{row['name']}: not timed on the device")
     return rows
 
 
@@ -326,15 +288,20 @@ def phase_small(pkg):
          "tol_m": POS_TOL_M})
 
 
+def launch_counters(pkg) -> dict:
+    kg = pkg["kg"]
+    return {"knn": pkg["knn"].launches, "grouped": kg.launches,
+            "grouped_prep": kg.prep_launches}
+
+
 def reset_launches(pkg) -> None:
-    for counts in (pkg["knn"].launches, pkg["kg"].launches):
+    for counts in launch_counters(pkg).values():
         for r in counts:
             counts[r] = 0
 
 
 def read_launches(pkg) -> dict:
-    return {"knn": dict(pkg["knn"].launches),
-            "grouped": dict(pkg["kg"].launches)}
+    return {k: dict(v) for k, v in launch_counters(pkg).items()}
 
 
 def check_health(name, hc, ref_name) -> None:
@@ -354,6 +321,43 @@ def check_ate(name, out, ref_name) -> None:
 
 def positions(traj) -> np.ndarray:
     return np.stack([np.asarray(p, np.float64) for _, p, _ in traj])
+
+
+@contextlib.contextmanager
+def keeping_queries(module):
+    """Wraps ``module.knn_search_cuda`` to keep each search's (map config,
+    queries, wide): references only, no device work, no sync."""
+    searches = []
+    launch = module.knn_search_cuda
+
+    def keep(packed, map_cfg, queries, k=5, wide=False):
+        searches.append((map_cfg, queries, wide))
+        return launch(packed, map_cfg, queries, k=k, wide=wide)
+
+    module.knn_search_cuda = keep
+    try:
+        yield searches
+    finally:
+        module.knn_search_cuda = launch
+
+
+def tile_stats(pkg, searches) -> dict:
+    """The distinct bucket rows each tile of consecutive queries of the
+    searches stages in ``csrc/knn.cu``, per R (padding slots included)."""
+    acc = {}
+    for map_cfg, q, wide in searches:
+        st = pkg["knn"].tile_union_stats(q, map_cfg, wide)
+        a = acc.setdefault(f"r{27 if wide else 8}", dict(
+            searches=0, tiles=0, rows=0.0, chunks=0.0, max_rows_per_tile=0))
+        a["searches"] += 1
+        a["tiles"] += st["tiles"]
+        a["rows"] += st["mean_rows"] * st["tiles"]
+        a["chunks"] += st["mean_chunks"] * st["tiles"]
+        a["max_rows_per_tile"] = max(a["max_rows_per_tile"], st["max_rows"])
+    for a in acc.values():
+        a["mean_rows_per_tile"] = a.pop("rows") / a["tiles"]
+        a["mean_chunks_per_tile"] = a.pop("chunks") / a["tiles"]
+    return acc
 
 
 def grouping_stats(pkg, searches) -> dict:
@@ -578,21 +582,21 @@ def main() -> int:
     from fast_lio_tpu_torch.kernels import knn_grouped
     from fast_lio_tpu_torch.map import hash_map as hm
     from fast_lio_tpu_torch.pipeline import Pipeline
+    from fast_lio_tpu_torch.tools import microbench_knn
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
     pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
-               Pipeline=Pipeline, cli=cli, ckpt=ckpt)
+               mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt)
     card = gpu_name_and_power()
     t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
-    paths = build.build_all(["knn", "knn_grouped"])
+    libs = ["knn", "knn_grouped"]
+    build.build_all(libs)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for p in paths.values()
-             for ln in p.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    log({"phase": "build", "seconds": build_s, "card": card, "ptxas": ptxas})
+    log({"phase": "build", "seconds": build_s, "card": card,
+         "ptxas": {lib: build.kernel_usage(lib) for lib in libs}})
 
     # 2. kernels vs plain versions
     kernel_rows = phase_kernels(pkg)
@@ -602,8 +606,10 @@ def main() -> int:
 
     # 4. avia at the preset's full size
     avia_sim = sim.SimConfig(duration=3.0, n_rings=32, n_azimuth=400)
-    _, l_avia, _ = run_main_path(pkg, "avia", config.PRESETS["avia"],
-                                 avia_sim)
+    with keeping_queries(knn) as searches:
+        _, l_avia, _ = run_main_path(pkg, "avia", config.PRESETS["avia"],
+                                     avia_sim)
+    log({"phase": "avia", "tiles": tile_stats(pkg, searches)})
     check(l_avia["knn"][8] > 0, "avia: the R=8 kNN kernel never ran")
 
     # 5. ouster64 (bench.py's 45056-point pad)
@@ -611,31 +617,25 @@ def main() -> int:
                                      n_points_max=45056)
     ouster_sim = sim.SimConfig(duration=2.0, n_rings=64, n_azimuth=688,
                                elev_min=-22.5, elev_max=22.5)
-    _, l_ouster, pos_ouster = run_main_path(pkg, "ouster64", ouster_cfg,
-                                            ouster_sim)
+    with keeping_queries(knn) as searches:
+        _, l_ouster, pos_ouster = run_main_path(pkg, "ouster64", ouster_cfg,
+                                                ouster_sim)
+    log({"phase": "ouster64", "tiles": tile_stats(pkg, searches)})
     check(l_ouster["knn"][27] > 0, "ouster64: the R=27 kNN kernel never ran")
 
-    # 6. ouster64 with the grouped kernel; the searches' queries are kept
-    # (references only: no device work, no sync) to count their grouping
+    # 6. ouster64 with the grouped kernels
     grouped_cfg = dataclasses.replace(ouster_cfg, knn_backend="grouped")
-    searches = []
-    launch = knn_grouped.knn_search_cuda
-
-    def keep_queries(packed, map_cfg, queries, k=5, wide=False, groups=None):
-        searches.append((map_cfg, queries, wide))
-        return launch(packed, map_cfg, queries, k=k, wide=wide, groups=groups)
-
-    knn_grouped.knn_search_cuda = keep_queries
-    try:
+    with keeping_queries(knn_grouped) as searches:
         _, l_grouped, pos_grouped = run_main_path(
             pkg, "ouster64_grouped", grouped_cfg, ouster_sim,
             ref_name="ouster64")
-    finally:
-        knn_grouped.knn_search_cuda = launch
-    log({"phase": "ouster64_grouped", "grouping": grouping_stats(pkg,
-                                                                  searches)})
-    check(l_grouped["grouped"][8] > 0 and l_grouped["grouped"][27] > 0,
-          "ouster64_grouped: the grouped kernel did not run at both R")
+    log({"phase": "ouster64_grouped",
+         "grouping": grouping_stats(pkg, searches)})
+    for r in (8, 27):
+        check(l_grouped["grouped"][r] > 0
+              and l_grouped["grouped_prep"][r] == l_grouped["grouped"][r],
+              f"ouster64_grouped: not one prep and one search per R={r} "
+              f"search ({l_grouped})")
     check(sum(l_grouped["knn"].values()) == 0,
           "ouster64_grouped: the per-query kernel ran")
     dpos = float(np.abs(pos_grouped - pos_ouster).max())
@@ -655,8 +655,7 @@ def main() -> int:
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
                "fleet": l_fleet}
     for name, row in kernel_rows.items():
-        kind, r = name.split("_")
-        kind = "knn" if kind == "knn" else "grouped"
+        kind, r = name.rsplit("_", 1)
         r = int(r[1:])
         row["launches_by_path"] = {path: launches[kind][r]
                                    for path, launches in by_path.items()}

@@ -12,23 +12,41 @@
 // dx^2 + dy^2 + dz^2 + w; candidates outside the region's half-open AABB
 // dropped; the 5 smallest (d2, candidate index) returned, ties to the lowest
 // index.  The plain version orders candidates by sorted bucket id, then
-// slot; the global key bucket * B + slot has the same order, so the kernel
-// needs no sort — only the dedup.
+// slot; the global key bucket * B + slot has the same order, so neither the
+// order of the rows nor of the chunks below changes the result.
 //
-// Design (first, simple, right): one warp per query.  Lanes 0..R-1 compute
-// one region cell and its bucket each; a lane is a duplicate if an earlier
-// lane holds the same bucket (R shuffles).  For each distinct bucket row the
-// lanes read neighbouring slots of each channel (coalesced 128-byte
-// segments), w first, and x/y/z only for live slots.  Each lane keeps a
-// sorted top-5 of (d2, idx) in registers; five warp-wide argmin rounds on
-// (d2, idx) pick the winners.  No shared-memory staging, wgmma or TMA.
+// Design: one block of 8 warps per tile of consecutive queries, L lanes per
+// query: a half warp (L = 16, a tile of 16) at R = 8, a warp (L = 32, a
+// tile of 8) at R = 27, where a query's 27 cells need a lane each.  On the
+// main path consecutive queries are neighbours (the voxel downsample emits
+// its centroids in voxel order), so a tile's region cells fall in a few
+// distinct buckets.  The block
+//   1. hashes the tile's cells and dedups their buckets in a shared-memory
+//      hash table (atomicCAS, linear probing), then numbers the distinct
+//      rows (the tile's union) by a block scan;
+//   2. stages the union's rows into a two-stage ring in shared memory with
+//      1-D bulk copies (TMA: one cp.async.bulk per row, 4B floats, its w and
+//      x/y/z together, completing on an mbarrier), in chunks of at most
+//      ring_rows rows; chunk k + 1 is in flight while chunk k is scored;
+//   3. lists each staged row's live slots once (a ballot per 32 slots), and
+//      each lane group scores its query against the live slots of the
+//      staged rows of its own region only (lane r of the group holds the
+//      union index of region cell r's row; a ballot picks those in the
+//      chunk), keeping a per-lane top-5 of (d2, idx) in registers; five
+//      argmin rounds over the group pick the winners, whose coordinates
+//      lanes 0-4 of the group read from the ring (a union of at most two
+//      chunks is still staged) or else from the map.
+// A block's work is a chain of dependent steps (queries, hash, rows,
+// scoring, argmin), so its time is that chain's latency times the number of
+// waves of blocks: half-warp groups at R = 8 put the avia preset's 8192
+// queries in one wave.  Shuffled queries (about one query per region) give
+// a union of up to a tile's R rows per query, staged chunk by chunk: the
+// same bytes the first one-warp-per-query design read, now in flight a
+// chunk at a time.
 //
-// Bound on this card (H100 SXM, 3.35 TB/s): the rows it must read,
-// N * R * 4B * 4 bytes, plus queries (12 N) and outputs (44 N).  At the avia
-// preset's N = 8192, R = 8, B = 64 that is 67 MB, about 20 us; at the
-// ouster64 preset's partial-wide K_w = 2048, R = 27, B = 128 it is 113 MB,
-// about 34 us.  This design is latency-bound on dependent row reads: a warp
-// walks its R rows one after the other, and each row is one round trip.
+// Bound on this card (H100 SXM, 3.35 TB/s): each distinct row once, plus
+// queries (12 N) and outputs (85 N) -- under a microsecond on the sim map
+// (kernels/bounds.py).
 //
 // Bitwise agreement with the plain version: see knn_common.cuh, which holds
 // the hash, the top-5 and the row scoring this kernel shares with
@@ -40,84 +58,288 @@ namespace {
 
 using namespace knn_common;
 
+constexpr int WARPS = 8;
+constexpr int TABLE = 512;             // hash slots, >= 2 * (tile cells)
+constexpr int TABLE_LOG2 = 9;
+constexpr int RING_ROWS_MAX = 32;      // rows per stage: one copy per lane
+constexpr uint32_t EMPTY = 0xffffffffu;  // never a bucket (mask < 2^31)
+constexpr uint16_t NO_ROW = 0xffff;
+
+// lanes per query, and queries per tile, by region size
 template <int R>
-__global__ void __launch_bounds__(256)
-knn_kernel(const float* __restrict__ packed, const float* __restrict__ queries,
-           int n, int B, uint32_t bucket_mask, float cell, float span,
-           float* __restrict__ nbrs, float* __restrict__ sq,
-           uint8_t* __restrict__ found) {
-  const int q = (int)((blockIdx.x * (unsigned)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (q >= n) return;  // q is uniform across the warp
+struct Tile {
+  static constexpr int L = (R <= 16) ? 16 : 32;
+  static constexpr int Q = WARPS * (32 / L);
+  static_assert(2 * Q * R <= TABLE, "the hash table is too small");
+};
 
-  const float qx = queries[3 * q + 0];
-  const float qy = queries[3 * q + 1];
-  const float qz = queries[3 * q + 2];
+__device__ __forceinline__ uint32_t table_home(uint32_t bucket) {
+  return (bucket * 0x9E3779B1u) >> (32 - TABLE_LOG2);
+}
 
-  // region base: floor(q / cell - 0.5) narrow, floor(q / cell - 1) wide
-  const float shift = (R == 8) ? 0.5f : 1.0f;
-  const int bx = region_base(qx, cell, shift);
-  const int by = region_base(qy, cell, shift);
-  const int bz = region_base(qz, cell, shift);
-  // half-open AABB [lo, lo + span), f32 as region_bounds computes it
-  const float lox = __fmul_rn(__int2float_rn(bx), cell);
-  const float loy = __fmul_rn(__int2float_rn(by), cell);
-  const float loz = __fmul_rn(__int2float_rn(bz), cell);
-  const float hix = __fadd_rn(lox, span);
-  const float hiy = __fadd_rn(loy, span);
-  const float hiz = __fadd_rn(loz, span);
-
-  uint32_t bucket = 0xffffffffu;
-  if (lane < R) {
-    uint32_t ox, oy, oz;
-    region_offset<R>(lane, ox, oy, oz);
-    bucket = cell_hash((uint32_t)bx + ox, (uint32_t)by + oy,
-                       (uint32_t)bz + oz) & bucket_mask;
-  }
-  bool dup = false;
+// Exclusive prefix sum over the block's 32 * WARPS threads; `tmp` holds
+// WARPS ints.  Every thread calls it; *total is the block's sum.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* tmp,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const uint32_t bj = __shfl_sync(FULL, bucket, j);
-    dup = dup || (j < lane && bj == bucket);
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc += o;
   }
-  uint32_t todo = __ballot_sync(FULL, lane < R && !dup);
+  if (lane == 31) tmp[warp] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    before += (w < warp) ? tmp[w] : 0;
+    all += tmp[w];
+  }
+  *total = all;
+  return before + inc - v;
+}
 
+// Winner coordinates: from the ring where the whole union is still staged
+// (at most two chunks: union row u sits at ring row u), else from the map
+// rows in device memory.
+struct TileCoords {
+  const float* packed;
+  const float* ring;
+  const uint32_t* table;
+  const uint16_t* row_of_slot;
+  int B;
+  bool staged;
+  __device__ __forceinline__ void operator()(int idx, float& x, float& y,
+                                             float& z) const {
+    const uint32_t b = (uint32_t)idx / (uint32_t)B;
+    const int s = idx - (int)(b * (uint32_t)B);
+    const float* row;
+    if (staged) {
+      uint32_t h = table_home(b);
+      while (table[h] != b) h = (h + 1) & (TABLE - 1);
+      row = ring + (size_t)row_of_slot[h] * 4 * B;
+    } else {
+      row = packed + (size_t)b * 4 * B;
+    }
+    x = row[s];
+    y = row[B + s];
+    z = row[2 * B + s];
+  }
+};
+
+// Warp 0: the union's rows of chunk k into stage k & 1 of the ring, one
+// bulk copy per row (lane), all completing on the stage's barrier.
+__device__ __forceinline__ void stage_chunk(
+    int k, const float* packed, const uint32_t* union_bucket, int n_union,
+    int B, int ring_rows, float* ring, uint64_t* full, int lane) {
+  const int st = k & 1;
+  const int r0 = k * ring_rows;
+  const int cnt = min(ring_rows, n_union - r0);
+  const int row_floats = 4 * B;
+  const uint32_t row_bytes = 16u * (uint32_t)B;
+  if (lane == 0) mbar_arrive_expect_tx(&full[st], (uint32_t)cnt * row_bytes);
+  __syncwarp();
+  if (lane < cnt) {
+    fence_proxy_async();
+    bulk_copy_to_shared(ring + (size_t)(st * ring_rows + lane) * row_floats,
+                        packed + (size_t)union_bucket[r0 + lane] * row_floats,
+                        row_bytes, &full[st]);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * WARPS)
+knn_tile_kernel(const float* __restrict__ packed,
+                const float* __restrict__ queries, int n, int B,
+                uint32_t bucket_mask, float cell, float span, int ring_rows,
+                float* __restrict__ nbrs, float* __restrict__ sq,
+                uint8_t* __restrict__ found) {
+  constexpr int L = Tile<R>::L, TQ = Tile<R>::Q;
+  // 2 * ring_rows rows, then the live slots of the chunk being scored
+  extern __shared__ __align__(128) float ring[];
+  __shared__ int qbase[TQ][3];
+  __shared__ uint32_t table[TABLE];
+  __shared__ uint16_t row_of_slot[TABLE];
+  __shared__ uint16_t slot_of_cell[TQ * R];
+  __shared__ uint32_t union_bucket[TQ * R];
+  __shared__ int scan_tmp[WARPS];
+  __shared__ int live_count[RING_ROWS_MAX];
+  __shared__ __align__(8) uint64_t full[2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane & (L - 1);           // lane within the query's group
+  const int base = lane - sub;              // the group's first lane
+  const unsigned group = (L == 32) ? FULL : (0xffffu << base);
+  const int tq = warp * (32 / L) + base / L;  // the group's query in the tile
+  const int qi = blockIdx.x * TQ + tq;
+  const int nq = min(TQ, n - (int)blockIdx.x * TQ);
+  const bool active = tq < nq;
+  const float shift = (R == 8) ? 0.5f : 1.0f;
+  const int row_floats = 4 * B;
+  uint16_t* live_slot = reinterpret_cast<uint16_t*>(
+      ring + (size_t)2 * ring_rows * row_floats);  // ring_rows lists of B
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    fence_mbar_init();
+  }
+  for (int i = tid; i < TABLE; i += blockDim.x) table[i] = EMPTY;
+  float qc = 0.0f;  // lane sub = c < 3 of the group holds coordinate c
+  if (active && sub < 3) {
+    qc = queries[3 * (size_t)qi + sub];
+    qbase[tq][sub] = region_base(qc, cell, shift);
+  }
+  const Query q(__shfl_sync(FULL, qc, base), __shfl_sync(FULL, qc, base + 1),
+                __shfl_sync(FULL, qc, base + 2), cell, shift, span);
+  __syncthreads();
+
+  // 1. the tile's distinct buckets
+  for (int t = tid; t < nq * R; t += blockDim.x) {
+    const int qq = t / R;
+    const uint32_t b = region_bucket<R>(qbase[qq][0], qbase[qq][1],
+                                        qbase[qq][2], t - qq * R,
+                                        bucket_mask);
+    uint32_t h = table_home(b);
+    while (true) {
+      const uint32_t prev = atomicCAS(&table[h], EMPTY, b);
+      if (prev == EMPTY || prev == b) break;
+      h = (h + 1) & (TABLE - 1);
+    }
+    slot_of_cell[t] = (uint16_t)h;
+  }
+  __syncthreads();
+  constexpr int PER_THREAD = TABLE / (32 * WARPS);
+  int here = 0;
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i)
+    here += table[tid * PER_THREAD + i] != EMPTY;
+  int n_union;
+  int next = block_exclusive_sum(here, scan_tmp, &n_union);
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int h = tid * PER_THREAD + i;
+    if (table[h] != EMPTY) {
+      row_of_slot[h] = (uint16_t)next;
+      union_bucket[next] = table[h];
+      ++next;
+    }
+  }
+  __syncthreads();
+
+  // the query's distinct rows: lane sub = r < R of its group holds the
+  // union index of region cell r, or NO_ROW for a bucket a lower cell holds
+  const bool has_cell = active && sub < R;
+  const uint32_t h = has_cell ? slot_of_cell[tq * R + sub] : 0;
+  const uint32_t b = has_cell ? table[h] : EMPTY;
+  const bool first = first_of_bucket<R>(b, sub, base);
+  const uint32_t my_row = (has_cell && first) ? row_of_slot[h] : NO_ROW;
+
+  // 2-3. stage the union chunk by chunk and score
   TopK top;
   top.init();
-  while (todo) {
-    const int r = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const uint32_t b = __shfl_sync(FULL, bucket, r);
-    score_row(packed + (size_t)b * 4 * B, b, B, lane, qx, qy, qz, lox, loy,
-              loz, hix, hiy, hiz, top);
+  const int n_chunks = (n_union + ring_rows - 1) / ring_rows;
+  if (warp == 0)
+    stage_chunk(0, packed, union_bucket, n_union, B, ring_rows, ring, full,
+                lane);
+  for (int k = 0; k < n_chunks; ++k) {
+    const int st = k & 1;
+    // stage st ^ 1 held chunk k - 1, which every warp finished before the
+    // barrier that ended the last iteration
+    if (warp == 0 && k + 1 < n_chunks)
+      stage_chunk(k + 1, packed, union_bucket, n_union, B, ring_rows, ring,
+                  full, lane);
+    mbar_wait(&full[st], (uint32_t)(k >> 1) & 1u);
+    const uint32_t r0 = (uint32_t)(k * ring_rows);
+    const int cnt = min(ring_rows, n_union - (int)r0);
+    const float* stage = ring + (size_t)st * ring_rows * row_floats;
+    // the chunk's live slots, listed once for every query of the tile (a
+    // warp per row), so that the lanes score live slots only
+    for (int j = warp; j < cnt; j += WARPS) {
+      const float* w = stage + (size_t)j * row_floats + 3 * B;
+      int count = 0;
+      for (int s0 = 0; s0 < B; s0 += 32) {
+        const int s = s0 + lane;
+        const bool live = s < B && w[s] < W_VALID_MAX;
+        const unsigned m = __ballot_sync(FULL, live);
+        if (live)
+          live_slot[j * B + count + __popc(m & ((1u << lane) - 1u))] =
+              (uint16_t)s;
+        count += __popc(m);
+      }
+      if (lane == 0) live_count[j] = count;
+    }
+    __syncthreads();
+    // the group's rows in this chunk (none for a group past the last query)
+    uint32_t todo =
+        __ballot_sync(FULL, my_row - r0 < (uint32_t)ring_rows) & group;
+    while (todo) {
+      const int r = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const uint32_t u = __shfl_sync(group, my_row, r);
+      const int j = (int)(u - r0);
+      const float* row = stage + (size_t)j * row_floats;
+      for (int i = sub; i < live_count[j]; i += L)
+        score_slot(row, live_slot[j * B + i], union_bucket[u], B, q, top);
+    }
+    __syncthreads();
   }
-  write_top5(top, lane, (size_t)q, nbrs, sq, found);
+
+  if (active)
+    write_top5<L>(top, sub, group, (size_t)qi,
+                  TileCoords{packed, ring, table, row_of_slot, B,
+                             n_chunks <= 2},
+                  nbrs, sq, found);
+}
+
+template <int R>
+int configure() {
+  int bytes = 0;
+  int err = max_dynamic_smem(knn_tile_kernel<R>, &bytes);
+  if (err) return err;
+  return (int)cudaFuncSetAttribute(
+      knn_tile_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Raises both kernels' dynamic shared-memory limit to what a block may take
+// on the current device; call once per device before the first launch.
+int knn_configure() {
+  const int err = configure<8>();
+  return err ? err : configure<27>();
+}
+
 // Launches the search on `stream` and returns cudaGetLastError() (0 = ok).
-// packed (H, 4B) f32, queries (n, 3) f32, outputs nbrs (n, 5, 3) f32,
-// sq (n, 5) f32, found (n, 5) uint8; all contiguous on the current device.
+// packed (H, 4B) f32 (16-byte aligned), queries (n, 3) f32, outputs nbrs
+// (n, 5, 3) f32, sq (n, 5) f32, found (n, 5) uint8; all contiguous on the
+// current device.  ring_rows (1..32) rows of 4B floats per stage of the
+// shared-memory ring; the block takes 2 * ring_rows * 16 * B bytes of
+// dynamic shared memory for it, and ring_rows * B * 2 for the live lists.
 int knn_search_f32(const float* packed, const float* queries, int n,
                    int bucket_slots, unsigned int bucket_mask, float cell,
-                   float span, int wide, float* nbrs, float* sq,
+                   float span, int wide, int ring_rows, float* nbrs, float* sq,
                    unsigned char* found, void* stream) {
   if (n <= 0) return 0;
-  const int warps_per_block = 8;
-  const dim3 block(32 * warps_per_block);
-  const dim3 grid((n + warps_per_block - 1) / warps_per_block);
+  if (ring_rows < 1 || ring_rows > RING_ROWS_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(32 * WARPS);
+  const size_t smem = (size_t)2 * ring_rows * 16 * bucket_slots  // the ring
+                      + (size_t)ring_rows * bucket_slots * 2;  // live lists
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
-    knn_kernel<27><<<grid, block, 0, s>>>(packed, queries, n, bucket_slots,
-                                          bucket_mask, cell, span, nbrs, sq,
-                                          found);
+    const dim3 grid((n + Tile<27>::Q - 1) / Tile<27>::Q);
+    knn_tile_kernel<27><<<grid, block, smem, s>>>(
+        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
+        nbrs, sq, found);
   } else {
-    knn_kernel<8><<<grid, block, 0, s>>>(packed, queries, n, bucket_slots,
-                                         bucket_mask, cell, span, nbrs, sq,
-                                         found);
+    const dim3 grid((n + Tile<8>::Q - 1) / Tile<8>::Q);
+    knn_tile_kernel<8><<<grid, block, smem, s>>>(
+        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
+        nbrs, sq, found);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,7 @@
 // Device code shared by the two kNN kernels (knn.cu, knn_grouped.cu): the
-// cell hash, the (d2, index) order and the per-lane sorted top-5.
+// cell hash, the (d2, index) order as one 64-bit key, the per-lane sorted
+// top-5, the row scoring, and the Hopper bulk-copy (TMA) and mbarrier
+// primitives that stage bucket rows in shared memory.
 //
 // Bitwise agreement with the plain PyTorch versions needs IEEE arithmetic
 // in their order: never --use_fast_math; d2 is built from __fmul_rn and
@@ -17,7 +19,6 @@ namespace knn_common {
 constexpr int K = 5;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float W_VALID_MAX = 1.0e17f;
-constexpr int NO_IDX = 0x7fffffff;
 
 __device__ __forceinline__ uint32_t cell_hash(uint32_t cx, uint32_t cy,
                                               uint32_t cz) {
@@ -28,10 +29,6 @@ __device__ __forceinline__ uint32_t cell_hash(uint32_t cx, uint32_t cy,
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
-}
-
-__device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
 }
 
 // Region base cell of one coordinate: floor(q / cell - shift), with shift
@@ -52,114 +49,227 @@ __device__ __forceinline__ void region_offset(int r, uint32_t& ox,
   }
 }
 
+// Bucket of region cell r of the region at base (bx, by, bz).
+template <int R>
+__device__ __forceinline__ uint32_t region_bucket(int bx, int by, int bz,
+                                                  int r,
+                                                  uint32_t bucket_mask) {
+  uint32_t ox, oy, oz;
+  region_offset<R>(r, ox, oy, oz);
+  return cell_hash((uint32_t)bx + ox, (uint32_t)by + oy,
+                   (uint32_t)bz + oz) & bucket_mask;
+}
+
+// True on lanes sub = 0..R-1 of a group of lanes (the L lanes from `base`)
+// whose bucket no lower lane of the group holds.  All 32 lanes call.
+template <int R>
+__device__ __forceinline__ bool first_of_bucket(uint32_t bucket, int sub,
+                                                int base) {
+  bool dup = false;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const uint32_t bj = __shfl_sync(FULL, bucket, base + j);
+    dup = dup || (j < sub && bj == bucket);
+  }
+  return sub < R && !dup;
+}
+
+// A query and its region's half-open AABB [lo, lo + span), f32 as
+// region_bounds computes it.
+struct Query {
+  float x, y, z, lox, loy, loz, hix, hiy, hiz;
+
+  __device__ __forceinline__ Query(float qx, float qy, float qz, float cell,
+                                   float shift, float span)
+      : x(qx), y(qy), z(qz) {
+    lox = __fmul_rn(__int2float_rn(region_base(qx, cell, shift)), cell);
+    loy = __fmul_rn(__int2float_rn(region_base(qy, cell, shift)), cell);
+    loz = __fmul_rn(__int2float_rn(region_base(qz, cell, shift)), cell);
+    hix = __fadd_rn(lox, span);
+    hiy = __fadd_rn(loy, span);
+    hiz = __fadd_rn(loz, span);
+  }
+};
+
+// A candidate as one 64-bit key: the bits of its d2 above its index.  A
+// pushed d2 is finite and >= +0 (a sum of squares plus w = 0), where the
+// bits of a float order as the float does, so the key's unsigned order is
+// the (d2, index) order, and one 64-bit compare replaces two.
+__device__ __forceinline__ uint64_t cand_key(float d2, int idx) {
+  return ((uint64_t)__float_as_uint(d2) << 32) | (uint32_t)idx;
+}
+constexpr uint64_t NO_CAND = ~0ull;  // above every key (d2 < 1e17)
+
+// The lane's sorted best five candidate keys; the winners' coordinates
+// are read once at the end (write_top5), so they take no registers here.
 struct TopK {
-  float d[K];
-  int id[K];
-  float x[K], y[K], z[K];
+  uint64_t key[K];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      d[j] = INFINITY;
-      id[j] = NO_IDX;
-      x[j] = y[j] = z[j] = 0.0f;
-    }
+    for (int j = 0; j < K; ++j) key[j] = NO_CAND;
   }
 
-  // sorted insert; every compare reads entries not yet moved this call
-  __device__ __forceinline__ void push(float nd, int ni, float nx, float ny,
-                                       float nz) {
-    if (!lex_less(nd, ni, d[K - 1], id[K - 1])) return;
+  // sorted insert by compare-exchange down the list (no branch inside)
+  __device__ __forceinline__ void push(float d2, int idx) {
+    uint64_t c = cand_key(d2, idx);
+    if (c >= key[K - 1]) return;
 #pragma unroll
-    for (int j = K - 1; j > 0; --j) {
-      const bool before_prev = lex_less(nd, ni, d[j - 1], id[j - 1]);
-      const bool before_this = lex_less(nd, ni, d[j], id[j]);
-      if (before_prev) {
-        d[j] = d[j - 1]; id[j] = id[j - 1];
-        x[j] = x[j - 1]; y[j] = y[j - 1]; z[j] = z[j - 1];
-      } else if (before_this) {
-        d[j] = nd; id[j] = ni; x[j] = nx; y[j] = ny; z[j] = nz;
-      }
-    }
-    if (lex_less(nd, ni, d[0], id[0])) {
-      d[0] = nd; id[0] = ni; x[0] = nx; y[0] = ny; z[0] = nz;
+    for (int j = 0; j < K; ++j) {
+      const uint64_t lo = c < key[j] ? c : key[j];
+      c = c < key[j] ? key[j] : c;
+      key[j] = lo;
     }
   }
 
   __device__ __forceinline__ void pop_front() {
 #pragma unroll
-    for (int j = 0; j < K - 1; ++j) {
-      d[j] = d[j + 1]; id[j] = id[j + 1];
-      x[j] = x[j + 1]; y[j] = y[j + 1]; z[j] = z[j + 1];
-    }
-    d[K - 1] = INFINITY;
-    id[K - 1] = NO_IDX;
+    for (int j = 0; j < K - 1; ++j) key[j] = key[j + 1];
+    key[K - 1] = NO_CAND;
   }
 };
 
-// Scores one bucket row (planar [x(B) | y(B) | z(B) | w(B)], in device or
-// shared memory) against one query: the lanes of the warp take
-// neighbouring slots, skip free slots before reading x, y, z, drop
-// candidates outside the region's half-open AABB [lo, hi), and push the
-// rest into the lane's top-5 with the global index bucket * B + slot.
-__device__ __forceinline__ void score_row(
-    const float* row, uint32_t bucket, int B, int lane, float qx, float qy,
-    float qz, float lox, float loy, float loz, float hix, float hiy,
-    float hiz, TopK& top) {
-  for (int s = lane; s < B; s += 32) {
-    const float w = row[3 * B + s];
-    if (!(w < W_VALID_MAX)) continue;  // free slot: d2 >= 1e18, never found
-    const float x = row[s];
-    const float y = row[B + s];
-    const float z = row[2 * B + s];
-    const float dx = __fsub_rn(x, qx);
-    const float dy = __fsub_rn(y, qy);
-    const float dz = __fsub_rn(z, qz);
-    float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-    d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
-    d2 = __fadd_rn(d2, w);
-    const bool oob = x < lox || x >= hix || y < loy || y >= hiy ||
-                     z < loz || z >= hiz;
-    if (oob || !(d2 < W_VALID_MAX)) continue;
-    top.push(d2, (int)(bucket * (uint32_t)B) + s, x, y, z);
+// Scores slot s of one bucket row (planar [x(B) | y(B) | z(B) | w(B)], in
+// device or shared memory) against one query: a free slot is skipped, a
+// candidate outside the region's half-open AABB dropped, and the rest pushed
+// into the lane's top-5 with the global index bucket * B + s.
+__device__ __forceinline__ void score_slot(const float* row, int s,
+                                           uint32_t bucket, int B,
+                                           const Query& q, TopK& top) {
+  const float w = row[3 * B + s];
+  if (!(w < W_VALID_MAX)) return;  // free slot: d2 >= 1e18, never found
+  const float x = row[s];
+  const float y = row[B + s];
+  const float z = row[2 * B + s];
+  const float dx = __fsub_rn(x, q.x);
+  const float dy = __fsub_rn(y, q.y);
+  const float dz = __fsub_rn(z, q.z);
+  float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  d2 = __fadd_rn(d2, __fmul_rn(dz, dz));
+  d2 = __fadd_rn(d2, w);
+  const bool oob = x < q.lox || x >= q.hix || y < q.loy || y >= q.hiy ||
+                   z < q.loz || z >= q.hiz;
+  if (oob || !(d2 < W_VALID_MAX)) return;
+  top.push(d2, (int)(bucket * (uint32_t)B) + s);
+}
+
+// Scores a whole row, the lanes of the warp on neighbouring slots.
+__device__ __forceinline__ void score_row(const float* row, uint32_t bucket,
+                                          int B, int lane, const Query& q,
+                                          TopK& top) {
+  for (int s = lane; s < B; s += 32) score_slot(row, s, bucket, B, q, top);
+}
+
+// Five argmin rounds on the candidate keys over the L lanes (16 or 32, a
+// half warp or a warp, named by `mask`) that searched query o: lane sub = k
+// of them ends up holding winner k and writes row o, entry k of the outputs
+// (sq +inf and found 0 where fewer than 5 were found), with the winner's
+// coordinates from coords(idx, x, y, z).  Candidate indices are unique
+// across the lanes, so exactly one lane owns each winner and pops it.
+template <int L, class Coords>
+__device__ __forceinline__ void write_top5(TopK& top, int sub, unsigned mask,
+                                           size_t o, const Coords& coords,
+                                           float* nbrs, float* sq,
+                                           uint8_t* found) {
+  uint64_t mine = NO_CAND;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    uint64_t best = top.key[0];
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) {
+      const uint64_t other = __shfl_xor_sync(mask, best, off);
+      best = other < best ? other : best;
+    }
+    if (best != NO_CAND && top.key[0] == best) top.pop_front();
+    if (sub == k) mine = best;
+  }
+  if (sub < K) {
+    const size_t j = o * K + sub;
+    const bool hit = mine != NO_CAND;
+    float x = 0.0f, y = 0.0f, z = 0.0f;
+    if (hit) coords((int)(uint32_t)mine, x, y, z);
+    sq[j] = hit ? __uint_as_float((uint32_t)(mine >> 32)) : INFINITY;
+    found[j] = hit ? 1 : 0;
+    nbrs[3 * j + 0] = x;
+    nbrs[3 * j + 1] = y;
+    nbrs[3 * j + 2] = z;
   }
 }
 
-// Five warp-wide argmin rounds on (d2, idx); lane 0 writes the query's row
-// o of the outputs (sq +inf and found 0 where fewer than 5 were found).
-__device__ __forceinline__ void write_top5(TopK& top, int lane, size_t o,
-                                           float* nbrs, float* sq,
-                                           uint8_t* found) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float bd = top.d[0];
-    int bi = top.id[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(FULL, bd, off);
-      const int oi = __shfl_xor_sync(FULL, bi, off);
-      if (lex_less(od, oi, bd, bi)) { bd = od; bi = oi; }
-    }
-    const bool hit = bi != NO_IDX;
-    const bool mine = hit && top.id[0] == bi;
-    const unsigned owner_mask = __ballot_sync(FULL, mine);
-    float wx = 0.0f, wy = 0.0f, wz = 0.0f;
-    if (owner_mask) {
-      const int owner = __ffs(owner_mask) - 1;
-      wx = __shfl_sync(FULL, top.x[0], owner);
-      wy = __shfl_sync(FULL, top.y[0], owner);
-      wz = __shfl_sync(FULL, top.z[0], owner);
-    }
-    if (mine) top.pop_front();
-    if (lane == 0) {
-      const size_t j = o * K + k;
-      sq[j] = hit ? bd : INFINITY;
-      found[j] = hit ? 1 : 0;
-      nbrs[3 * j + 0] = wx;
-      nbrs[3 * j + 1] = wy;
-      nbrs[3 * j + 2] = wz;
-    }
+// ---------------------------------------------------------------------------
+// Hopper: 1-D bulk copies (TMA) from global to shared memory, completing on
+// an mbarrier in shared memory (PTX ISA 8.0, sm_90).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// makes initialised mbarriers visible to the async proxy (the bulk copies)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// orders this thread's earlier shared-memory accesses before its later
+// bulk copies into the same buffers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// one arrival that also announces `bytes` to be delivered by bulk copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// waits until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
   }
+}
+
+// bytes (a multiple of 16) from src to dst, both 16-byte aligned; completes
+// `bytes` of the barrier's expected transaction count
+__device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared memory a block may take on this device, less its static part.
+template <class Kernel>
+__host__ int max_dynamic_smem(Kernel kernel, int* bytes) {
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *bytes = optin - (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 }  // namespace knn_common

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -76,6 +77,36 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Registers, spilled bytes and static shared memory of each kernel in
+    an ``nvcc -Xptxas -v`` log, by its (mangled) entry name."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[entry].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[entry]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            usage[entry]["smem_bytes"] = int(m[1])
+    return usage
+
+
+def kernel_usage(name: str) -> Dict[str, dict]:
+    """``ptxas_usage`` of the built ``csrc/<name>.cu``."""
+    return ptxas_usage(library_path(name).with_suffix(".log").read_text())
 
 
 def load(name: str) -> ctypes.CDLL:

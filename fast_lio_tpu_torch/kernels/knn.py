@@ -5,12 +5,13 @@ Replaces the TPU kernel ``tools/knn_pallas.py::_kernel`` (its wrapper
 kernel computes exactly ``map.hash_map.knn_search`` — its plain version —
 for the 2x2x2 region (R = 8) and the wide 3x3x3 region (R = 27).
 
-Bound on an H100 SXM (3.35 TB/s): the bucket rows it must read,
-N * R * 4B * 4 bytes, plus queries (12 N) and outputs (44 N): 67 MB / ~20 us
-at the avia preset's N = 8192, R = 8, B = 64; 113 MB / ~34 us at the
-ouster64 preset's partial-wide K_w = 2048, R = 27, B = 128.  This first
-design (one warp per query, rows read one after another) is latency-bound on
-those dependent row reads; see the source's header.
+The kernel takes a tile of ``TILE[R]`` consecutive queries per block, stages
+the tile's distinct bucket rows (its union) into a two-stage ring in shared
+memory by bulk copies, ``ring_rows(B)`` rows a stage, and scores each query
+against the staged rows of its own region; see the source's header.
+``tile_union_stats`` counts, in plain torch, the rows a tile stages.  Bound:
+``kernels/bounds.py``, each distinct row once, under a microsecond on the
+sim map.
 
 Routing: a CPU tensor goes to the plain version; a CUDA tensor always goes
 to the kernel (which is built at first use), and anything the kernel does
@@ -26,7 +27,47 @@ import torch
 from ..map import hash_map as hm
 from . import build
 
+# queries per block (tile), by R: a half warp per query at R = 8, a warp
+# per query at R = 27 (a lane per region cell)
+TILE = {8: 16, 27: 8}
+RING_ROWS = 16  # rows per stage of the shared-memory row ring
+RING_BYTES = 128 * 1024  # the most the ring's two stages may take
+
 launches = {8: 0, 27: 0}
+
+
+def ring_rows(B: int) -> int:
+    """Rows of 4B floats per stage of the kernel's two-stage ring: 16, or
+    fewer where two stages of 16 would pass ``RING_BYTES``."""
+    rows = min(RING_ROWS, RING_BYTES // (2 * 16 * B))
+    if rows < 1:
+        raise ValueError(f"a bucket row of B={B} slots ({16 * B} bytes) "
+                         f"does not fit the kernel's ring ({RING_BYTES} B)")
+    return rows
+
+
+def tile_union_stats(queries: torch.Tensor, cfg: hm.MapConfig,
+                     wide: bool = False) -> dict:
+    """How many distinct bucket rows each tile of ``TILE[R]`` consecutive
+    queries stages (plain torch, any device): the tiles, the mean and the
+    largest union, and the mean count of ring chunks it takes."""
+    tile = TILE[27 if wide else 8]
+    N = queries.shape[0]
+    if N == 0:
+        return {"tiles": 0, "mean_rows": 0.0, "max_rows": 0,
+                "mean_chunks": 0.0}
+    _base, cells, _R = hm.region_cells(queries, cfg, wide)
+    buckets = hm._bucket_of(cells, cfg.h_log2)
+    n_tiles = -(-N // tile)
+    pad = n_tiles * tile - N  # repeats of the last query add no row
+    if pad:
+        buckets = torch.cat([buckets, buckets[-1:].expand(pad, -1)])
+    per_tile = torch.sort(buckets.reshape(n_tiles, -1), dim=1).values
+    rows = 1 + (per_tile[:, 1:] != per_tile[:, :-1]).sum(dim=1)
+    chunks = -(-rows // ring_rows(cfg.bucket_slots))
+    return {"tiles": n_tiles, "mean_rows": float(rows.double().mean()),
+            "max_rows": int(rows.max()),
+            "mean_chunks": float(chunks.double().mean())}
 
 
 @functools.cache
@@ -34,12 +75,25 @@ def _lib():
     """The kernel's library, built at first use, with its C signatures."""
     lib = build.load("knn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.knn_search_f32.argtypes = [p, p, i, i, ctypes.c_uint, f, f, i,
+    lib.knn_search_f32.argtypes = [p, p, i, i, ctypes.c_uint, f, f, i, i,
                                    p, p, p, p]
     lib.knn_search_f32.restype = i
+    lib.knn_configure.argtypes = []
+    lib.knn_configure.restype = i
     lib.knn_error_string.argtypes = [i]
     lib.knn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _configure(device_index: int) -> None:
+    """Raise the kernels' shared-memory limit once per device."""
+    lib = _lib()
+    with torch.cuda.device(device_index):
+        err = lib.knn_configure()
+    if err != 0:
+        raise RuntimeError(
+            f"knn kernel setup failed: {lib.knn_error_string(err).decode()}")
 
 
 def knn_search(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
@@ -76,6 +130,8 @@ def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
         raise ValueError(f"queries must be (N, 3) (got {tuple(queries.shape)})")
     if H * B >= 2**31:
         raise ValueError("map capacity H * B must stay below 2^31 slots")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned (bulk row copies)")
 
 
 def empty_outputs(queries: torch.Tensor, k: int):
@@ -93,6 +149,7 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
     """Launch the kernel on ``torch.cuda.current_stream()``; no sync."""
     check_inputs(packed, cfg, queries, k)
     H, B = cfg.num_buckets, cfg.bucket_slots
+    rows = ring_rows(B)
     nbrs, sq, found = empty_outputs(queries, k)
     N = queries.shape[0]
     if N == 0:
@@ -101,11 +158,12 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
     R = 27 if wide else 8
     span = (3 if wide else 2) * cfg.cell_size
     lib = _lib()
+    _configure(queries.device.index)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.knn_search_f32(
             packed.data_ptr(), queries.data_ptr(), N, B, H - 1,
-            float(cfg.cell_size), float(span), int(wide),
+            float(cfg.cell_size), float(span), int(wide), rows,
             nbrs.data_ptr(), sq.data_ptr(), found.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(

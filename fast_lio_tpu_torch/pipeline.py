@@ -47,6 +47,13 @@ def _check_knn_backend(cfg: Config):
             f"knn_backend={cfg.knn_backend!r}: the search backends are "
             "'auto' (= 'xla', the per-query CUDA kNN kernel) and 'grouped' "
             "(the region-grouped CUDA kernel); plain PyTorch on CPU")
+    if (cfg.knn_backend == "grouped"
+            and cfg.n_ds_max > knn_grouped.PREP_MAX_QUERIES):
+        # every search of a scan holds at most n_ds_max queries
+        raise ValueError(
+            f"knn_backend='grouped' with n_ds_max={cfg.n_ds_max}: its prep "
+            f"kernel groups at most {knn_grouped.PREP_MAX_QUERIES} queries "
+            "(one block); use the default backend")
     if cfg.rescore_research:
         if cfg.knn_wide_fallback:
             # the cached-candidate rescore re-ranks the 2x2x2 block only

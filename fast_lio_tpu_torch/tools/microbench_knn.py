@@ -1,0 +1,326 @@
+"""Microbenchmark of the port's two kNN searches on the card: the per-query
+kernel (``kernels/knn.py``) and the region-grouped search
+(``kernels/knn_grouped.py``), each at the shapes of the main path, on the
+queries in the main path's order and shuffled.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 -m fast_lio_tpu_torch.tools.microbench_knn [--reps 50]
+
+It is the port of the JAX package's ``tools/microbench_knn.py`` and
+``tools/microbench_grouped.py``, and ``chip_smoke.py`` phase 2 times its
+kernels with the functions here.  For each search it gives:
+
+* ``device_us``: the search kernel's device time per launch, from
+  ``torch.profiler``'s device activities; for the grouped search, the rest
+  of its device activity per search (its prep) is ``prep_device_us``; the
+  grouped search's prep kernel is also timed alone (``grouped_prep``);
+* ``graph_us``: the stream time of one whole search, prep included: 100
+  wrapper calls captured in one ``torch.cuda.CUDAGraph``, replayed between
+  one pair of CUDA events after a warm-up, divided by 100;
+* ``enqueue_us``: the host clock around one wrapper call with no
+  synchronize (median), which is what the eager main path pays;
+* ``plain_us``: CUDA events around back-to-back calls of the plain PyTorch
+  version, host enqueue included (it is no yardstick of speed);
+* ``bound_us``: ``kernels/bounds.knn_bound`` of the same search
+  (``prep_bound`` for the prep).
+
+The map stays warm in L2 from one call to the next, as on the main path,
+where the map prune reads the whole map just before the search.
+
+The map holds 5 simulated scans; the queries are those the main path
+searches for a 6th, at its true pose ("main"), and the same queries
+permuted by a seeded numpy permutation ("shuffled", incoherent order): the
+scan's voxel centroids from the pipeline's downsample, in its voxel order
+and padded as it pads, N = 8192 at R = 8, B = 64 (the avia preset); and
+those that search leaves unsaturated, compacted into 2048 slots as the
+partial-wide search does, at R = 27, B = 128 (the ouster64 preset); H =
+2^15.  Prints one JSON line per search and query order, then the card's
+name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import config, sim
+from ..kernels import bounds, build
+from ..kernels import knn
+from ..kernels import knn_grouped as kg
+from ..map import hash_map as hm
+from ..ops.voxel_grid import voxel_downsample
+from .profile_scan import is_knn_prep_kernel, is_knn_search_kernel
+
+GRAPH_CALLS = 100
+
+
+class Case(NamedTuple):
+    tag: str
+    order: str  # "main" or "shuffled"
+    m: hm.Map
+    cfg: hm.MapConfig
+    queries: torch.Tensor
+    wide: bool
+
+
+# tag: (preset, sim run, wide, seed of the shuffle)
+CASES = {
+    "r8": (config.PRESETS["avia"],
+           sim.SimConfig(duration=0.75, n_rings=32, n_azimuth=400),
+           False, 0),
+    "r27": (config.PRESETS["ouster64"],
+            sim.SimConfig(duration=0.75, n_rings=64, n_azimuth=688,
+                          elev_min=-22.5, elev_max=22.5),
+            True, 1),
+}
+SCAN = 5  # the scan searched; the map holds the scans before it
+
+
+def map_config(preset: config.Config) -> hm.MapConfig:
+    """The map configuration ``Pipeline`` makes of a preset."""
+    return hm.make_config(voxel_size=preset.filter_size_map,
+                          h_log2=preset.map_h_log2,
+                          bucket_slots=preset.map_bucket_slots,
+                          cell_multiplier=preset.map_cell_multiplier)
+
+
+def main_path_queries(preset: config.Config, cfg: hm.MapConfig, m: hm.Map,
+                      scan: np.ndarray, rot: np.ndarray, pos: np.ndarray,
+                      wide: bool) -> torch.Tensor:
+    """The queries the main path searches for one scan (LiDAR frame) at
+    pose (rot, pos): the voxel centroids of ``lio_step``'s downsample (the
+    preset's leaf, pad and key bound; voxel order, zero pads) moved to the
+    world.  Wide: the queries the narrow search leaves unsaturated, in
+    order, in the preset's ``knn_wide_max_queries`` slots, padded with the
+    last query as ``pipeline.make_knn_fn`` pads them (any beyond the slots
+    are left out, where the main path would search all wide)."""
+    dev = m.packed.device
+    pts = torch.tensor(scan, dtype=torch.float32, device=dev)
+    ds, ds_mask = voxel_downsample(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
+        preset.filter_size_surf, preset.n_ds_max,
+        coord_bound=preset.det_range * 1.25 + 5.0)
+    rot_t = torch.tensor(rot, dtype=torch.float32, device=dev)
+    q = ds @ rot_t.T + torch.tensor(pos, dtype=torch.float32, device=dev)
+    if not wide:
+        return q
+    _nbrs, sq, found = hm.knn_search(m, cfg, q)
+    unsat = (~found[:, -1] | (sq[:, -1] > (0.5 * cfg.cell_size) ** 2)) \
+        & ds_mask
+    K_w, N = preset.knn_wide_max_queries, q.shape[0]
+    idx = torch.nonzero(unsat)[:K_w, 0]
+    pad = torch.full((K_w - idx.shape[0],), N - 1, dtype=idx.dtype,
+                     device=dev)
+    return q[torch.cat([idx, pad])].contiguous()
+
+
+def make_case(tag: str, order: str = "main", device="cuda") -> Case:
+    """A map filled from 5 simulated scans (world frame, true poses) and
+    the queries of the main path's search of the 6th (``main_path_queries``)
+    in its order ("main") or permuted by a seeded numpy permutation
+    ("shuffled")."""
+    if order not in ("main", "shuffled"):
+        raise ValueError(f"order {order!r}: 'main' or 'shuffled'")
+    preset, sim_cfg, wide, seed = CASES[tag]
+    cfg = map_config(preset)
+    data = sim.generate(sim_cfg)
+    m = hm.make_map(cfg, torch.float32, device)
+    for k in range(SCAN):
+        pw = data.scans[k] @ data.gt_rot[k].T + data.gt_pos[k]
+        p = torch.tensor(pw, dtype=torch.float32, device=device)
+        on = torch.ones(len(p), dtype=torch.bool, device=device)
+        m = hm.insert(m, cfg, p, on, on)
+    q = main_path_queries(preset, cfg, m, data.scans[SCAN],
+                          data.gt_rot[SCAN], data.gt_pos[SCAN], wide)
+    if order == "shuffled":
+        perm = np.random.default_rng(seed + 100).permutation(q.shape[0])
+        q = q[torch.from_numpy(perm).to(device)]
+    return Case(tag, order, m, cfg, q, wide)
+
+
+def device_us(fn: Callable, calls: int,
+              is_search: Callable[[str], bool] = is_knn_search_kernel):
+    """(search kernel us per launch, other device us per call, search
+    launches per call) over ``calls`` calls under ``torch.profiler``; None
+    for the times where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = torch.autograd.DeviceType.CUDA
+    search, other, n = 0.0, 0.0, 0
+    for ev in prof.events():
+        if ev.device_type != dev:
+            continue
+        if is_search(ev.name):
+            search += ev.time_range.elapsed_us()
+            n += 1
+        else:
+            other += ev.time_range.elapsed_us()
+    if n == 0:
+        return None, None, 0.0
+    return search / n, other / calls, n / calls
+
+
+def graph_us(fn: Callable, calls: int = GRAPH_CALLS, replays: int = 10):
+    """Stream time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed between one pair of events (median of ``replays``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(1e3 * start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def enqueue_us(fn: Callable, reps: int) -> float:
+    """Median host time of one call, no synchronize inside the timing (the
+    device drains between calls)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def stream_us(fn: Callable, calls: int) -> float:
+    """CUDA events around ``calls`` back-to-back calls, per call (the host's
+    enqueue included where it is the slower)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return 1e3 * start.elapsed_time(end) / calls
+
+
+def time_search(fn: Callable, reps: int,
+                is_search: Callable[[str], bool] = is_knn_search_kernel
+                ) -> dict:
+    """The three numbers of one search (see the module's docstring)."""
+    dev, prep, per_call = device_us(fn, reps, is_search)
+    return {"device_us": dev, "prep_device_us": prep,
+            "search_launches_per_call": per_call,
+            "graph_us": graph_us(fn), "enqueue_us": enqueue_us(fn, reps)}
+
+
+def searches(case: Case) -> dict:
+    """name -> (kernel wrapper call, plain version call, kernel-name test)
+    of the case."""
+    m, cfg, q, wide = case.m, case.cfg, case.queries, case.wide
+    return {
+        f"knn_{case.tag}": (
+            lambda: knn.knn_search_cuda(m.packed, cfg, q, wide=wide),
+            lambda: hm.knn_search(m, cfg, q, wide=wide),
+            is_knn_search_kernel),
+        f"grouped_{case.tag}": (
+            lambda: kg.knn_search_cuda(m.packed, cfg, q, wide=wide),
+            lambda: kg.knn_search_grouped_plain(m, cfg, q, wide=wide),
+            is_knn_search_kernel),
+        f"grouped_prep_{case.tag}": (
+            lambda: kg.group_queries_cuda(q, cfg, wide),
+            lambda: kg.group_queries(q, cfg, wide),
+            is_knn_prep_kernel),
+    }
+
+
+def registers(lib: str, kernel: str, R: int) -> Optional[dict]:
+    """ptxas usage of ``kernel<R>`` in ``csrc/<lib>.cu``'s build log."""
+    for entry, use in build.kernel_usage(lib).items():
+        if f"{kernel}ILi{R}E" in entry:
+            return use
+    return None
+
+
+def measure(case: Case, reps: int, with_plain: bool = True) -> dict:
+    """name -> row of times for both searches of the case and the grouped
+    search's prep."""
+    N = case.queries.shape[0]
+    search_bound = bounds.knn_bound(case.m, case.cfg, case.queries,
+                                    case.wide)
+    n_groups = int(kg.group_queries(case.queries, case.cfg,
+                                    case.wide).n_groups[0])
+    rows = {}
+    for name, (fn, plain, is_kernel) in searches(case).items():
+        bound = (bounds.prep_bound(N, n_groups)
+                 if is_kernel is is_knn_prep_kernel else search_bound)
+        row = {"name": name, "order": case.order,
+               "shape": dict(N=N, R=27 if case.wide else 8,
+                             B=case.cfg.bucket_slots,
+                             H=case.cfg.num_buckets),
+               **time_search(fn, reps, is_kernel),
+               "bound_us": 1e3 * bound.ms, "bound_by": bound.by,
+               "distinct_rows": bound.distinct_rows}
+        if with_plain:
+            row["plain_us"] = stream_us(plain, max(5, reps // 5))
+        rows[name] = row
+    return rows
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=50,
+                    help="calls per profiler window and enqueue median")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("microbench_knn: no CUDA device; nothing measured",
+              file=sys.stderr)
+        return 1
+    build.build_all(["knn", "knn_grouped"])
+    for tag in CASES:
+        for order in ("main", "shuffled"):
+            for row in measure(make_case(tag, order), args.reps).values():
+                print(json.dumps(row), flush=True)
+    for lib in ("knn", "knn_grouped"):
+        print(json.dumps({"ptxas": lib, "kernels": build.kernel_usage(lib)}),
+              flush=True)
+    print(card(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,6 +31,8 @@ import argparse
 import dataclasses
 import functools
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -71,6 +73,26 @@ STAGES = (
     ("insert_decisions", hm, "insert_decisions"),
     ("insert", hm, "insert"),
 )
+
+# the port's kNN kernels by the names the profiler gives them: every kernel
+# of csrc/knn*.cu is a template named knn_<...>kernel, so one pattern also
+# counts an earlier tree's kernels when two trees are profiled in turns; the
+# grouped search's prep kernel is told apart from the search kernels
+KNN_KERNEL = re.compile(r"\bknn_\w*kernel<")
+KNN_PREP_KERNEL = "knn_grouped_prep_kernel<"
+
+
+def is_knn_kernel(name: str) -> bool:
+    """A kNN search kernel or the grouped search's prep kernel."""
+    return KNN_KERNEL.search(name) is not None
+
+
+def is_knn_prep_kernel(name: str) -> bool:
+    return KNN_PREP_KERNEL in name
+
+
+def is_knn_search_kernel(name: str) -> bool:
+    return is_knn_kernel(name) and not is_knn_prep_kernel(name)
 
 
 def _scan_feeder(pipe, data):
@@ -149,8 +171,9 @@ def profile_window(step, n_scans: int) -> dict:
             k: v / n_scans for k, v in sorted(syncs_by_op.items(),
                                               key=lambda kv: -kv[1])},
         "knn_kernel_ms_per_scan": 1e-3 * sum(
-            v for k, v in by_kernel.items()
-            if "knn_kernel" in k or "knn_grouped_kernel" in k) / n_scans,
+            v for k, v in by_kernel.items() if is_knn_kernel(k)) / n_scans,
+        "knn_search_launches_per_scan": sum(
+            n for k, n in calls.items() if is_knn_search_kernel(k)) / n_scans,
         "top_device_ms_per_scan": [
             {"name": name[:80], "ms": 1e-3 * by_kernel[name] / n_scans,
              "calls": calls[name] / n_scans} for name in top],
@@ -221,10 +244,14 @@ def run(name: str, n_scans: int, warm: int) -> dict:
         step()
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0) / n_scans
+    n_done = len(pipe.diags)
+    profile = profile_window(step, n_scans)
+    # the device's work per scan grows with the update's iterations
+    profile["iterations_per_scan"] = statistics.mean(
+        int(d.iterations) for d in pipe.diags[n_done:])
     out = {"tool": "profile_scan", "preset": name, "scans": n_scans,
            "warm_scans": warm, "plain_wall_ms_per_scan": plain_ms,
-           "profile": profile_window(step, n_scans),
-           "stages": stage_window(step, n_scans)}
+           "profile": profile, "stages": stage_window(step, n_scans)}
     hc = pipe.health_check()
     if hc["nan"]:
         raise RuntimeError(f"{name}: NaN in the state")

@@ -1,7 +1,8 @@
 """The kNN search of the port: its plain version against the JAX package's
 XLA search and its Pallas kernel (interpret mode, loaded as
-tests/test_knn_pallas.py loads it), the kernel wrapper's routing on CPU, and
-on a GPU the CUDA kernel against the plain version.
+tests/test_knn_pallas.py loads it), the kernel wrapper's routing and host
+logic on CPU (ring sizes, tile unions), and on a GPU the CUDA kernel against
+the plain version on coherent, shuffled, clamped and union-overflow scenes.
 
 The rule of tests/test_knn_pallas.py: found masks equal; squared distances
 within rtol 1e-5 (atol 1e-6); neighbours equal (1e-6) wherever the
@@ -165,3 +166,105 @@ def test_cuda_kernel_matches_plain_version(case, B):
     assert tknn.launches[r] == before + 1
     ref = thm.knn_search(tm, cfg, qc, wide=wide)
     _rule(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("B, rows", [(16, 16), (64, 16), (128, 16),
+                                     (256, 16), (512, 8), (4096, 1)])
+def test_ring_rows_per_bucket_width(B, rows):
+    """Two stages of 16 rows (32 KB at B = 64, 64 KB at B = 128), fewer
+    where they would pass the ring's 128 KB."""
+    assert tknn.ring_rows(B) == rows
+    assert 2 * rows * 16 * B <= tknn.RING_BYTES
+
+
+def test_ring_refuses_a_row_wider_than_its_stage():
+    with pytest.raises(ValueError, match="does not fit"):
+        tknn.ring_rows(8192)
+
+
+def test_tile_union_stats_on_a_scene():
+    """Tiles of queries in one storage cell stage that region's rows once;
+    tiles of queries in distinct far-apart cells stage R rows per query
+    (less the hash collisions), and take several chunks of the ring.
+    Tiles hold 16 queries at R = 8 and 8 at R = 27."""
+    cfg = thm.MapConfig(h_log2=15, bucket_slots=64, cell_size=1.0,
+                        voxel_size=0.5)
+    rng = np.random.default_rng(66)
+    one_cell = torch.tensor(rng.uniform(1.1, 1.4, (64, 3)), dtype=torch.float32)
+    for wide, tiles in ((False, 4), (True, 8)):
+        st = tknn.tile_union_stats(one_cell, cfg, wide)
+        _b, cells, _R = thm.region_cells(one_cell[:1], cfg, wide)
+        rows = len(set(thm._bucket_of(cells, cfg.h_log2)[0].tolist()))
+        assert st["tiles"] == tiles
+        assert st["mean_rows"] == st["max_rows"] == rows
+        assert st["mean_chunks"] == -(-rows // tknn.ring_rows(64))
+    apart = torch.tensor(np.arange(20)[:, None] * np.array([[10.0, 7.0, 3.0]])
+                         + 0.2, dtype=torch.float32)  # 20 distinct regions
+    st = tknn.tile_union_stats(apart, cfg)
+    buckets = thm._bucket_of(thm.region_cells(apart, cfg)[1], cfg.h_log2)
+    want = [len(set(buckets[:16].reshape(-1).tolist())),
+            len(set(buckets[16:].reshape(-1).tolist()))]
+    assert st["tiles"] == 2 and st["max_rows"] == max(want)
+    assert st["mean_rows"] == sum(want) / 2
+    assert want[0] > 120  # 16 queries x 8 cells, few collisions in 2^15
+    ring = tknn.ring_rows(64)
+    assert st["mean_chunks"] == sum(-(-w // ring) for w in want) / 2
+    assert st["mean_chunks"] > 2
+    assert tknn.tile_union_stats(apart[:0], cfg)["tiles"] == 0
+
+
+CUDA_N = (1, 7, 8, 9, 33, 8192, 8193)
+CUDA_SCENES = ["coherent", "shuffled", "clamped", "union_overflow"]
+
+
+def cuda_scene(scene, B, n=max(CUDA_N), device="cuda", seed=65):
+    """(cfg, map, queries (n, 3)) of one scene at bucket width B.
+
+    coherent: queries in voxel order (as the voxel downsample emits them,
+    about 8 per storage cell); shuffled: the same queries permuted;
+    clamped: queries beyond 512 storage cells (x near 600 and 700, where the
+    grouped search's 10-bit key saturates); union_overflow: queries spread
+    over 24^3 cells, so a tile's distinct rows overflow the kernel's ring."""
+    rng = np.random.default_rng(seed)
+    cfg = _cfg(B)
+    if scene == "clamped":
+        pts = np.concatenate([
+            rng.uniform([598, -2, -2], [602, 2, 2], size=(3000, 3)),
+            rng.uniform([698, -2, -2], [702, 2, 2], size=(3000, 3))])
+        x = np.where(np.arange(n) % 2 == 0, 600.0, 700.0)
+        q = np.stack([x, np.zeros(n), np.zeros(n)], -1) + rng.uniform(
+            -0.4, 0.4, size=(n, 3))
+    elif scene == "union_overflow":
+        pts = rng.uniform(-12, 12, size=(20000, 3))
+        q = rng.uniform(-12, 12, size=(n, 3))
+    else:
+        pts = rng.uniform(-6, 6, size=(6000, 3))
+        q = rng.uniform(-5, 5, size=(n, 3))
+        v = np.floor(q / 0.5).astype(np.int64)
+        q = q[np.lexsort((v[:, 2], v[:, 1], v[:, 0]))]
+        if scene == "shuffled":
+            q = q[rng.permutation(n)]
+    cfg, tm = _port_map(pts.astype(np.float32), B, device=device)
+    return cfg, tm, torch.tensor(q.astype(np.float32), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("B", [16, 64, 128])
+@pytest.mark.parametrize("scene", CUDA_SCENES)
+def test_cuda_tile_kernel_matches_plain_version_on_scenes(scene, B, wide):
+    """At N = 1, 7, 8, 9, 33, 8192 and 8193 (partial tiles, one tile, many
+    tiles), under the rule of tests/test_knn_pallas.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
+    cfg, tm, q = cuda_scene(scene, B)
+    r = 27 if wide else 8
+    for n in CUDA_N:
+        qn = q[:n].contiguous()
+        before = tknn.launches[r]
+        got = tknn.knn_search(tm, cfg, qn, wide=wide)
+        torch.cuda.synchronize()
+        assert tknn.launches[r] == before + 1
+        _rule(_np(got), _np(thm.knn_search(tm, cfg, qn, wide=wide)))
+        if n >= 33:
+            assert got[2].any()

@@ -3,8 +3,10 @@ JAX package's grouped Pallas kernel (interpret mode, loaded as
 tests/test_knn_grouped.py loads it) on that file's six search cases plus a
 clamped out-of-range case; against the port's own per-query search bit for
 bit where the region key is not clamped; the pipeline with
-``knn_backend="grouped"``; and on a GPU the CUDA kernel against the plain
-version and against the per-query kernel.
+``knn_backend="grouped"``; the wrapper's host logic (the ring's stage count,
+the prep's one-block limit); and on a GPU the prep kernel against
+``group_queries`` and the search kernel against the plain version and the
+per-query kernel, on coherent, shuffled, clamped and union-overflow scenes.
 
 Rule against the Pallas kernel (tests/test_knn_grouped.py:37-59): found
 masks equal, squared distances within rtol 1e-5 (atol 1e-6), neighbours
@@ -29,6 +31,7 @@ from fast_lio_tpu_torch import sim as tsim
 from fast_lio_tpu_torch.kernels import knn as tknn
 from fast_lio_tpu_torch.kernels import knn_grouped as tkg
 from fast_lio_tpu_torch.map import hash_map as thm
+from test_torch_knn import CUDA_N, CUDA_SCENES, cuda_scene
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = thm.MapConfig(h_log2=10, bucket_slots=16, cell_size=1.0, voxel_size=0.5)
@@ -321,3 +324,118 @@ def test_cuda_grouped_kernel_matches_plain_version(B, wide, scene):
     else:
         _bit_equal(got, per_query)
         assert got[2].any()
+
+
+@pytest.mark.parametrize("R, B, stages", [
+    (8, 16, 4), (8, 64, 4), (8, 128, 4), (27, 16, 4), (27, 64, 4),
+    (27, 128, 2), (27, 256, 2)])
+def test_search_stages_per_region_and_width(R, B, stages):
+    """As many stages of R rows as 112 KB hold (two blocks share an SM),
+    2 to 4; R = 27 at B = 128 takes two stages, 108 KB."""
+    assert tkg.search_stages(R, B) == stages
+    assert stages * R * 16 * B <= (tkg.MAX_SHARED_BYTES
+                                   - tkg.STATIC_SHARED_BYTES)
+
+
+def test_search_refuses_rows_whose_two_stages_do_not_fit():
+    with pytest.raises(ValueError, match="more than a block has"):
+        tkg.search_stages(27, 512)
+
+
+@pytest.mark.parametrize("n", [0, tkg.PREP_MAX_QUERIES + 1])
+def test_prep_refuses_what_one_block_does_not_sort(n):
+    """The prep kernel groups 1..PREP_MAX_QUERIES queries, and the grouped
+    search refuses more, before either looks at the device (CPU tensors
+    here); a size it sorts on the CPU is refused for its device."""
+    q = torch.zeros((n, 3), dtype=torch.float32)
+    with pytest.raises(ValueError, match="one block"):
+        tkg.group_queries_cuda(q, CFG)
+    if n:
+        with pytest.raises(ValueError, match="one block"):
+            tkg.knn_search_cuda(thm.make_map(CFG).packed, CFG, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkg.group_queries_cuda(torch.zeros((5, 3)), CFG)
+
+
+def test_grouped_backend_refuses_searches_above_the_prep():
+    """A scan's searches hold up to n_ds_max queries: the grouped backend
+    takes at most what the prep kernel sorts, on either device."""
+    cfg = dataclasses.replace(tcfg.PRESETS["avia"], knn_backend="grouped")
+    tpipe.Pipeline(cfg, device="cpu")  # n_ds_max 8192
+    big = dataclasses.replace(cfg, n_ds_max=tkg.PREP_MAX_QUERIES + 1)
+    with pytest.raises(ValueError, match="n_ds_max"):
+        tpipe.Pipeline(big, device="cpu")
+    with pytest.raises(ValueError, match="n_ds_max"):
+        tpipe.make_knn_fn(big, CFG, thm.make_map(CFG))
+    tpipe.Pipeline(dataclasses.replace(big, knn_backend="auto"), device="cpu")
+
+
+def _groups_equal(got, want):
+    """The prep kernel's groups against group_queries', bit for bit: what
+    the search reads (order, the first n_groups starts, n_groups); each
+    sorted query's group, rebuilt from those starts, is group_queries'."""
+    n = int(want.n_groups[0])
+    assert int(got.n_groups[0]) == n
+    assert got.gid is None
+    assert torch.equal(got.order.long().cpu(), want.order.long().cpu())
+    starts = got.starts[:n].cpu()
+    assert torch.equal(starts, want.starts[:n].cpu())
+    assert n >= 1 and int(starts[0]) == 0
+    gid = torch.searchsorted(starts.long(),
+                             torch.arange(len(got.order)), right=True) - 1
+    assert torch.equal(gid, want.gid.long().cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("scene", CUDA_SCENES)
+def test_cuda_prep_kernel_equals_group_queries(scene, wide):
+    """order, the group starts and n_groups, at every N of CUDA_N up to
+    one block, against group_queries on the CPU (IEEE
+    division, as the kernel divides) and on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the prep kernel has no CPU mode")
+    _cfg, _tm, q = cuda_scene(scene, 16)
+    r = 27 if wide else 8
+    for n in [n for n in CUDA_N if n <= tkg.PREP_MAX_QUERIES]:
+        qn = q[:n].contiguous()
+        before = tkg.prep_launches[r]
+        got = tkg.group_queries_cuda(qn, CFG, wide)
+        torch.cuda.synchronize()
+        assert tkg.prep_launches[r] == before + 1
+        _groups_equal(got, tkg.group_queries(qn.cpu(), CFG, wide))
+        _groups_equal(got, tkg.group_queries(qn, CFG, wide))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("B", [16, 64, 128])
+@pytest.mark.parametrize("scene", CUDA_SCENES)
+def test_cuda_grouped_search_on_scenes(scene, B, wide):
+    """At N = 1, 7, 8, 9, 33 and 8192: two launches a search (prep and
+    search), bit-equal to the plain version on the card and on the CPU, and
+    to the per-query kernel where no key is clamped; at 8193, more than the
+    prep's one block sorts, it raises and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernels have no CPU mode")
+    cfg, tm, q = cuda_scene(scene, B)
+    tm_cpu = thm.Map(packed=tm.packed.cpu(), dropped=tm.dropped.cpu())
+    r = 27 if wide else 8
+    for n in CUDA_N:
+        qn = q[:n].contiguous()
+        before = (tkg.launches[r], tkg.prep_launches[r])
+        if n > tkg.PREP_MAX_QUERIES:
+            with pytest.raises(ValueError, match="one block"):
+                tkg.knn_search(tm, cfg, qn, wide=wide)
+            assert (tkg.launches[r], tkg.prep_launches[r]) == before
+            continue
+        got = tkg.knn_search(tm, cfg, qn, wide=wide)
+        torch.cuda.synchronize()
+        assert (tkg.launches[r], tkg.prep_launches[r]) \
+            == (before[0] + 1, before[1] + 1)
+        _bit_equal(got, tkg.knn_search_grouped_plain(tm, cfg, qn, wide=wide))
+        _bit_equal(got, tkg.knn_search_grouped_plain(tm_cpu, cfg, qn.cpu(),
+                                                     wide=wide))
+        if scene != "clamped":
+            _bit_equal(got, tknn.knn_search_cuda(tm.packed, cfg, qn,
+                                                 wide=wide))
