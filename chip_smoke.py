@@ -20,6 +20,8 @@ Phases, in order; any failed check exits non-zero:
    shuffled.  Rule for the per-query kernel
    (tests/test_knn_pallas.py:33-56): found masks equal, squared distances
    within rtol 1e-5, neighbours equal wherever the distances are distinct;
+   the per-query kernel also on each rank's table of each map split two
+   ways (phase 10's 2^14 buckets; ``rank_tables``);
    the grouped search is held bit for bit (found, sq, and neighbours where
    found) to its plain version and to the per-query kernel, and the prep
    bit for bit to ``group_queries`` (order, the group starts, the group
@@ -55,6 +57,19 @@ Phases, in order; any failed check exits non-zero:
 8. fleet — the runner with two ``--bag``s (sim seeds 0 and 1, the second
    shorter): each stream's trajectory within 5 mm of the single-stream
    replay of its bag.
+9. sharded_avia_1rank — the map sharded (``Pipeline(cfg, group=...)``,
+   ``parallel/sharding.py``) on one rank over NCCL, a worker process
+   (``parallel.launch`` running ``tools/bench_scaling.drive``): the first 20
+   scans of phase 4's run at the AVIA preset.  Checks: positions within 5 mm
+   of phase 4's on the same scans, phase 4's health and ATE checks, the
+   R = 8 kernel launched on the rank's table.
+10. sharded_ouster64_2ranks — phase 5's run (20 scans) on two ranks sharing
+   the card over gloo (NCCL refuses two ranks on one device; gloo's
+   collectives go through host copies), each rank's table 2^14 x 128 slots.
+   Checks: the ranks' trajectories bit-identical, phase 5's health and ATE
+   checks (global map drops), the R = 8 and R = 27 kernels launched on each
+   rank.  Prints the global map size and drops beside phase 5's, and the
+   transport.
 
 Phases 4 and 5 also print how many distinct bucket rows each tile of their
 searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
@@ -238,7 +253,25 @@ def phase_kernels(pkg):
     for row in rows.values():
         check(row["device_us"] is not None and row["graph_us"] > 0,
               f"{row['name']}: not timed on the device")
+    for tag in mb.CASES:
+        rows[f"knn_{tag}"]["rank_tables"] = rank_tables(pkg, mb.make_case(tag))
     return rows
+
+
+def rank_tables(pkg, case, world=2) -> dict:
+    """The per-query kernel on each rank's table of ``case``'s map sharded
+    ``world`` ways (what phase 10 searches: 2^(h_log2 - 1) buckets), held
+    to its plain version by the rule of ``compare_knn``."""
+    hm, knn, shd = pkg["hm"], pkg["knn"], pkg["sharding"]
+    lcfg = shd.local_map_cfg(case.cfg, world)
+    errs = []
+    for rank in range(world):
+        m = shd.split_global_map(case.m.packed, torch.zeros(world), rank, world)
+        got = knn.knn_search_cuda(m.packed, lcfg, case.queries, wide=case.wide)
+        ref = hm.knn_search(m, lcfg, case.queries, wide=case.wide)
+        torch.cuda.synchronize()
+        errs.append(compare_knn(got, ref))
+    return {"world": world, "h_log2": lcfg.h_log2, "max_abs_err": errs}
 
 
 # --------------------------------------------------------------------------
@@ -385,7 +418,7 @@ def run_main_path(pkg, name, cfg, sim_cfg, ref_name=None, warm_scans=5):
     """Drive one main path; checks the state is finite, the covariance
     positive definite and the ATE within ATE_SLACK_M of the JAX package's
     (on run ``ref_name``, default ``name``).  Returns (row, launches of this
-    run, positions)."""
+    run, trajectory)."""
     simlib, Pipeline = pkg["sim"], pkg["Pipeline"]
     ref_name = ref_name or name
     data = simlib.generate(sim_cfg)
@@ -416,7 +449,7 @@ def run_main_path(pkg, name, cfg, sim_cfg, ref_name=None, warm_scans=5):
     log(out)
     check_health(name, hc, ref_name)
     check_ate(name, out, ref_name)
-    return out, launches, positions(traj)
+    return out, launches, traj
 
 
 # --------------------------------------------------------------------------
@@ -564,6 +597,42 @@ def phase_fleet(pkg, tmp: Path, bag0: Path, traj0, sim_cfg1):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 9-10: the map sharded across ranks
+# --------------------------------------------------------------------------
+
+
+def phase_sharded(pkg, name, cfg, sim_cfg, world, backend, n_scans, ref_name):
+    """``bench_scaling.drive`` on ``world`` ranks of the card, each a worker
+    process; the checks of the main path on rank 0's report (the map's size
+    and drops are global), and the ranks' trajectories bit-identical.
+    Returns (row, the ranks' reports)."""
+    t0 = time.perf_counter()
+    ranks = pkg["launch"](pkg["bench_scaling"].drive, world,
+                          args=(cfg, sim_cfg, n_scans), backend=backend,
+                          device="cuda:0", timeout_s=600.0)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    out = {"phase": name, "ranks": world, "transport": r0["transport"],
+           "scans": len(r0["stamps"]),
+           "scans_per_s": [r["scans_per_s"] for r in ranks],
+           "ate_raw_m": r0["ate_raw_m"], "ate_aligned_m": r0["ate_aligned_m"],
+           "launches_by_rank": [{f"r{k}": n for k, n in r["launches"].items()}
+                                for r in ranks],
+           "iterations_mean": r0["iterations_mean"],
+           "n_effective_last": r0["n_effective_last"], "health": r0["health"],
+           "launch_wall_s": wall}
+    log(out)
+    check(all(np.array_equal(r["positions"], r0["positions"])
+              and r["stamps"] == r0["stamps"] for r in ranks),
+          f"{name}: the ranks' trajectories differ")
+    check(all(r["health"] == r0["health"] for r in ranks),
+          f"{name}: the ranks' health reports differ")
+    check_health(name, r0["health"], ref_name)
+    check_ate(name, out, ref_name)
+    return out, ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -581,12 +650,14 @@ def main() -> int:
     from fast_lio_tpu_torch.kernels import knn
     from fast_lio_tpu_torch.kernels import knn_grouped
     from fast_lio_tpu_torch.map import hash_map as hm
+    from fast_lio_tpu_torch.parallel import launch, sharding
     from fast_lio_tpu_torch.pipeline import Pipeline
-    from fast_lio_tpu_torch.tools import microbench_knn
+    from fast_lio_tpu_torch.tools import bench_scaling, microbench_knn
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
     pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
-               mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt)
+               mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt,
+               launch=launch, sharding=sharding, bench_scaling=bench_scaling)
     card = gpu_name_and_power()
     t_start = time.perf_counter()
 
@@ -607,8 +678,8 @@ def main() -> int:
     # 4. avia at the preset's full size
     avia_sim = sim.SimConfig(duration=3.0, n_rings=32, n_azimuth=400)
     with keeping_queries(knn) as searches:
-        _, l_avia, _ = run_main_path(pkg, "avia", config.PRESETS["avia"],
-                                     avia_sim)
+        _, l_avia, traj_avia = run_main_path(pkg, "avia", config.PRESETS["avia"],
+                                             avia_sim)
     log({"phase": "avia", "tiles": tile_stats(pkg, searches)})
     check(l_avia["knn"][8] > 0, "avia: the R=8 kNN kernel never ran")
 
@@ -618,15 +689,15 @@ def main() -> int:
     ouster_sim = sim.SimConfig(duration=2.0, n_rings=64, n_azimuth=688,
                                elev_min=-22.5, elev_max=22.5)
     with keeping_queries(knn) as searches:
-        _, l_ouster, pos_ouster = run_main_path(pkg, "ouster64", ouster_cfg,
-                                                ouster_sim)
+        out_ouster, l_ouster, traj_ouster = run_main_path(
+            pkg, "ouster64", ouster_cfg, ouster_sim)
     log({"phase": "ouster64", "tiles": tile_stats(pkg, searches)})
     check(l_ouster["knn"][27] > 0, "ouster64: the R=27 kNN kernel never ran")
 
     # 6. ouster64 with the grouped kernels
     grouped_cfg = dataclasses.replace(ouster_cfg, knn_backend="grouped")
     with keeping_queries(knn_grouped) as searches:
-        _, l_grouped, pos_grouped = run_main_path(
+        _, l_grouped, traj_grouped = run_main_path(
             pkg, "ouster64_grouped", grouped_cfg, ouster_sim,
             ref_name="ouster64")
     log({"phase": "ouster64_grouped",
@@ -638,7 +709,7 @@ def main() -> int:
               f"search ({l_grouped})")
     check(sum(l_grouped["knn"].values()) == 0,
           "ouster64_grouped: the per-query kernel ran")
-    dpos = float(np.abs(pos_grouped - pos_ouster).max())
+    dpos = max_pos_diff(traj_grouped, traj_ouster)
     log({"phase": "ouster64_grouped", "max_pos_diff_vs_ouster64_m": dpos,
          "tol_m": POS_TOL_M})
     check(dpos <= POS_TOL_M, f"ouster64_grouped: positions differ {dpos} m")
@@ -651,15 +722,60 @@ def main() -> int:
         l_fleet = phase_fleet(pkg, Path(tmp), bag0, traj0, dataclasses.replace(
             avia_sim, duration=2.0, seed=1))
 
+    # 9. the map sharded, one rank over NCCL: phase 4's first 20 scans
+    _, ranks_avia = phase_sharded(pkg, "sharded_avia_1rank",
+                                  config.PRESETS["avia"], avia_sim, 1, "nccl",
+                                  20, "avia")
+    r0 = ranks_avia[0]
+    n = len(r0["stamps"])
+    check(n >= 18, f"sharded_avia_1rank: {n} estimates")
+    dpos = max_pos_diff([(t, p, None) for t, p in zip(r0["stamps"],
+                                                     r0["positions"])],
+                        traj_avia[:n])
+    log({"phase": "sharded_avia_1rank", "max_pos_diff_vs_avia_m": dpos,
+         "tol_m": POS_TOL_M})
+    check(dpos <= POS_TOL_M, f"sharded_avia_1rank: positions differ {dpos} m")
+    check(r0["launches"][8] > 0,
+          "sharded_avia_1rank: the R=8 kNN kernel never ran")
+
+    # 10. two ranks sharing the card over gloo: phase 5's run
+    _, ranks_ouster = phase_sharded(pkg, "sharded_ouster64_2ranks",
+                                    ouster_cfg, ouster_sim, 2, "gloo", None,
+                                    "ouster64")
+    for r in ranks_ouster:
+        check(r["launches"][8] > 0 and r["launches"][27] > 0,
+              f"sharded_ouster64_2ranks: rank {r['rank']} launched "
+              f"{r['launches']}")
+    hc = ranks_ouster[0]["health"]
+    log({"phase": "sharded_ouster64_2ranks",
+         "transport": ranks_ouster[0]["transport"],
+         "map_size": hc["map_size"], "map_dropped": hc["map_dropped"],
+         "ouster64_map_size": out_ouster["health"]["map_size"],
+         "ouster64_map_dropped": out_ouster["health"]["map_dropped"],
+         "max_pos_diff_vs_ouster64_m": max_pos_diff(
+             [(t, p, None) for t, p in zip(ranks_ouster[0]["stamps"],
+                                           ranks_ouster[0]["positions"])],
+             traj_ouster)})
+
     by_path = {"avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
                "fleet": l_fleet}
+    by_rank = {"sharded_avia_1rank": ranks_avia,
+               "sharded_ouster64_2ranks": ranks_ouster}
+    for path, ranks in by_rank.items():  # the per-query kernel only
+        by_path[path] = {k: {r: 0 for r in v} for k, v in l_avia.items()}
+        by_path[path]["knn"] = {r: sum(rk["launches"][r] for rk in ranks)
+                                for r in (8, 27)}
     for name, row in kernel_rows.items():
         kind, r = name.rsplit("_", 1)
         r = int(r[1:])
         row["launches_by_path"] = {path: launches[kind][r]
                                    for path, launches in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if kind == "knn":
+            row["launches_by_rank"] = {
+                path: [rk["launches"][r] for rk in ranks]
+                for path, ranks in by_rank.items()}
         check(row["launches"] > 0, f"{name}: no launch on any main path")
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log({"kernels": list(kernel_rows.values())})

@@ -16,6 +16,7 @@ import torch
 from . import state as st
 from .imu import ImuCarry
 from .map.hash_map import Map
+from .utils.checkpoint import local_map
 
 STATE_FIELDS = st.State._fields
 HOST_SCALARS = ("acc_scale", "first_lidar_time", "last_lidar_end_time",
@@ -30,8 +31,11 @@ def load_numpy_state(pipe, arrays: dict) -> None:
     """Load ``arrays`` (every key of ``KEYS``) into ``pipe`` in place.
 
     Float arrays are copied in the pipeline's compute dtype, the map in its
-    map dtype; nothing aliases the caller's numpy memory.  Raises KeyError on
-    a missing key and ValueError on a map of the wrong shape."""
+    map dtype; nothing aliases the caller's numpy memory.  A sharded
+    pipeline takes a sharded JAX pipeline's global layout (``map_packed``
+    (n * H_local, 4B), ``map_dropped`` (n,)) and keeps its rank's rows.
+    Raises KeyError on a missing key and ValueError on a map of the wrong
+    shape or layout."""
     missing = [k for k in KEYS if k not in arrays]
     if missing:
         raise KeyError(f"missing state arrays: {missing}")
@@ -40,14 +44,12 @@ def load_numpy_state(pipe, arrays: dict) -> None:
     def t(a, dtype=dt):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    packed = np.asarray(arrays["map_packed"])
-    if packed.shape != tuple(pipe.map.packed.shape):
-        raise ValueError(f"map_packed shape {packed.shape} != the pipeline's "
-                         f"{tuple(pipe.map.packed.shape)}")
+    m = local_map(pipe, np.asarray(arrays["map_packed"]),
+                  np.asarray(arrays["map_dropped"]))
     pipe.x = st.State(*(t(arrays[f]) for f in STATE_FIELDS))
     pipe.P = t(arrays["P"])
-    pipe.map = Map(packed=t(packed, pipe.map.packed.dtype),
-                   dropped=t(arrays["map_dropped"], torch.int32))
+    pipe.map = Map(packed=m.packed.to(dev, pipe.map.packed.dtype),
+                   dropped=m.dropped.to(dev, torch.int32))
     pipe.imu_carry = ImuCarry(t(arrays["angvel_last"]), t(arrays["acc_s_last"]))
     pipe.lm_state = (t(arrays["lm_lo"]), t(arrays["lm_hi"]),
                      t(arrays["lm_init"], torch.bool))

@@ -149,6 +149,7 @@ def update_iterated(
     R: float,
     max_iter: int,
     epsi=0.001,
+    group=None,
 ) -> UpdateResult:
     """The modified iterated update (esekfom.hpp:1619-1931).
 
@@ -160,6 +161,17 @@ def update_iterated(
     ``i == max_iter-2`` if no iteration has converged, the loop exits on
     ``t > 1`` or ``i == max_iter-1``, and a pass with ``valid`` False leaves
     the iterate unchanged (but still counts as an evaluation).
+
+    ``group`` (a ``parallel.ShardGroup``): the measurement rows are split
+    across its ranks, and each iteration sums H^T H, H^T h and the ranks'
+    ``valid`` flags over them in one ``all_reduce_sum`` — the JAX package's
+    two ``psum`` (``fast_lio_tpu/filter/ekf.py:294-298``), elementwise sums
+    alike.  ``valid`` joins the sum because the loop's host read decides
+    whether the ranks meet again: it must read a value that is the same on
+    every rank, and a rank's own ``valid`` comes from its own downsample,
+    whose atomic sums on CUDA may differ from another rank's in the last
+    bit.  (It is the same flag wherever the ranks' selections agree.)
+    Without a group nothing changes.
     """
     dtype, device = P.dtype, P.device
     epsi = torch.as_tensor(epsi, dtype=dtype, device=device)
@@ -187,6 +199,11 @@ def update_iterated(
 
         HTH = h_x.T @ h_x  # (12,12) — the only N-reductions
         HTh = h_x.T @ h  # (12,)
+        valid_t = torch.as_tensor(out.valid, device=device).reshape(())
+        if group is not None:
+            red = group.all_reduce_sum(torch.cat(
+                [HTH.reshape(-1), HTh, valid_t.to(dtype).reshape(1)]))
+            HTH, HTh, valid_t = red[:144].reshape(12, 12), red[144:156], red[156] > 0
 
         # info-form gain: P_temp = (P_w/R)^{-1} + blockdiag(HTH, 0)
         P_temp = _spd_solve(P_w / R, eye).clone()
@@ -200,7 +217,6 @@ def update_iterated(
         converged_t = torch.all(torch.abs(dx_) <= epsi)
 
         # the loop's one host read: (valid, converged)
-        valid_t = torch.as_tensor(out.valid, device=device).reshape(())
         valid, converged = torch.stack([valid_t, converged_t]).tolist()
 
         t_new = t + int(converged)

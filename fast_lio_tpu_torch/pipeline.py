@@ -14,6 +14,15 @@ The host reads the device a few times per scan: once per filter iteration
 (the exit test), once per wide-fallback search (which arm to run), once in
 the map insert's scatter, and once to know whether the first scan seeded the
 map.  ROADMAP.md queue A lists the CUDA-graph work that removes them.
+
+With the map sharded across ranks (``Pipeline(cfg, group=...)``,
+``parallel/sharding.py``) two of those reads decide whether the ranks meet
+in a collective: the fallback arm, read from the merged kNN results, and the
+filter's exit test, read from the summed reductions.  Both are results of a
+collective, so they are the same bits on every rank, and every rank enters
+the same collectives in the same order.  The insert's read stays on the
+rank's own table; the seeding read counts the downsampled points, the same
+integer on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from .map import hash_map as hm
 from .math import so3
 from .ops import measurement as meas
 from .ops.voxel_grid import voxel_downsample
+from .parallel import sharding
 
 MOV_THRESHOLD = 1.5  # laserMapping.cpp:78
 
@@ -370,9 +380,29 @@ class Pipeline:
 
     ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
     unless the caller passes ``device="cpu"`` explicitly.
+
+    ``group`` (a ``parallel.ShardGroup``, from ``init_distributed``) shards
+    the map across the group's ranks, on the group's device: the counterpart
+    of the JAX package's ``Pipeline(cfg, mesh)``.  Every rank builds its own
+    ``Pipeline`` and is fed the same packets; each scan runs
+    ``sharding.sharded_lio_step``, with the update on every scan as in the
+    JAX sharded path (on the first, empty map it finds no point and changes
+    nothing).  ``health_check`` and the checkpoints are collectives: every
+    rank calls them.
     """
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, group=None):
+        if group is not None:
+            if cfg.rescore_research:
+                # candidate blocks are per rank; re-ranking them across ranks
+                # would need an (N, C, 3) all-gather per iteration
+                raise NotImplementedError(
+                    "rescore_research is not supported with a sharded map; "
+                    "use the default re-search mode")
+            if device is not None:
+                raise ValueError("a sharded pipeline runs on its group's "
+                                 "device; pass no device")
+            device = group.device
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -381,6 +411,7 @@ class Pipeline:
         _check_knn_backend(cfg)
         self.cfg = cfg
         self.device = device
+        self.group = group
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.map_cfg = hm.make_config(
             voxel_size=cfg.filter_size_map,
@@ -399,7 +430,10 @@ class Pipeline:
         self.P = torch.eye(st.DOF, dtype=dt, device=dev)
         self.Q = process.process_noise_cov(
             cfg.gyr_cov, cfg.acc_cov, cfg.b_gyr_cov, cfg.b_acc_cov, dt, dev)
-        self.map = hm.make_map(self.map_cfg, dt, dev)
+        if group is None:
+            self.map = hm.make_map(self.map_cfg, dt, dev)
+        else:
+            self.map = sharding.make_sharded_map(self.map_cfg, group, dt)
         self.imu_carry = imu_mod.init_imu_carry(dt, dev)
         self.lm_state = (torch.zeros(3, dtype=dt, device=dev),
                          torch.zeros(3, dtype=dt, device=dev),
@@ -448,17 +482,24 @@ class Pipeline:
 
     def health_check(self) -> dict:
         """On-demand estimator health report (reads the device): NaN state,
-        covariance conditioning, map pressure (overflow drops)."""
+        covariance conditioning, map pressure (overflow drops).  With a
+        group, the map's size and drops are summed over the ranks (a
+        collective)."""
         P = self.P.detach().cpu().numpy()
         nan_state = any(bool(torch.isnan(v).any()) for v in self.x) or bool(
             np.isnan(P).any())
         eig = np.linalg.eigvalsh(0.5 * (P + P.T)) if not nan_state else None
+        size_drops = torch.stack([hm.map_size(self.map),
+                                  self.map.dropped.sum(dtype=torch.int64)])
+        if self.group is not None:
+            size_drops = self.group.all_reduce_sum(size_drops)
+        size, dropped = size_drops.tolist()
         return {
             "nan": nan_state,
             "p_min_eig": float(eig.min()) if eig is not None else float("nan"),
             "p_max_eig": float(eig.max()) if eig is not None else float("nan"),
-            "map_size": int(hm.map_size(self.map)),
-            "map_dropped": int(self.map.dropped),
+            "map_size": size,
+            "map_dropped": dropped,
             "truncated_points": self.truncated_points,
             "scans": len(self.trajectory),
             "imu_initialized": not self.imu_need_init,
@@ -468,7 +509,12 @@ class Pipeline:
     def measure_stage_times(self) -> dict:
         """Device seconds of the search / incremental / delete stage groups
         at this pipeline's shapes against a copy of its live map — the
-        sources of the timing CSV's stage columns (``utils.stage_timing``)."""
+        sources of the timing CSV's stage columns (``utils.stage_timing``).
+        Not for a sharded pipeline: it times the single table's search."""
+        if self.group is not None:
+            raise NotImplementedError(
+                "stage timing times the single map's search; a sharded "
+                "pipeline has none")
         from .utils.stage_timing import measure_stage_times
 
         return measure_stage_times(self)
@@ -588,14 +634,17 @@ class Pipeline:
         imu_mask = torch.arange(M, device=self.device) < n_imu
         imu_t = torch.where(imu_mask, imu[:, 0], torch.full_like(imu[:, 0], 1e9))
 
+        args = (self.x, self.P, self.map, self.imu_carry, self.Q,
+                imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
+                buf[0], buf[1], buf[2],
+                pts, pt_time, pt_mask, pt_int,
+                *self.lm_state, ekf_inited)
+        if self.group is None:
+            out = lio_step(cfg, self.map_cfg, *args, do_update=self.map_built)
+        else:
+            out = sharding.sharded_lio_step(cfg, self.map_cfg, self.group, *args)
         (self.x, self.P, self.map, self.imu_carry, self.lm_state, clouds, d
-         ) = lio_step(
-            cfg, self.map_cfg, self.x, self.P, self.map, self.imu_carry, self.Q,
-            imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
-            buf[0], buf[1], buf[2],
-            pts, pt_time, pt_mask, pt_int,
-            *self.lm_state, ekf_inited, do_update=self.map_built,
-        )
+         ) = out
         if not self.map_built:
             # one-time read during startup: did the first scan seed the map?
             self.map_built = int(d["n_down"]) > 5

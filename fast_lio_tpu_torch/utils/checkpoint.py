@@ -8,8 +8,16 @@ local-map cube, the sync statistics (``SyncBuffer``'s mean scan time, scan
 count, tail IMU sample, last timestamps), the truncation count and the IMU
 static-init statistics, so a resume is exact.  In-flight sensor queues
 (samples pushed but not yet consumed) belong to the transport and are not
-saved, as in the JAX package.  The sharded-map branches wait for the
-port's sharding (ROADMAP.md queue A).
+saved, as in the JAX package.
+
+A sharded pipeline (``Pipeline(cfg, group=...)``) writes the global map
+layout of the JAX package's mesh: ``save_pipeline`` all-gathers the ranks'
+tables (``sharding.gather_global_map``: rank order, ``map_dropped`` of shape
+(n,)) on every rank, and each rank writes the path it is given;
+``load_pipeline`` keeps the rank's own rows.  The keys are the same, so a
+checkpoint of the JAX package's n-device mesh resumes on n ranks of the port
+and the other way round.  A checkpoint of another map layout (sharded
+against single, or another rank count) is refused.
 
 The reference's only persistence is optional world-scan PCD accumulation
 (laserMapping.cpp:1024-1031): ``save_pcd``, ``load_pcd`` and
@@ -85,9 +93,43 @@ def load(path, dtype=None, device=None):
     return x, P, m, carry, meta
 
 
+def local_map(pipe, packed, dropped) -> hm.Map:
+    """The part of a saved map (``packed``, ``dropped``: tensors or arrays)
+    that ``pipe`` holds: all of it, or with a group the rank's rows of the
+    global layout.  Raises ValueError on a map of another shape or layout
+    (a sharded map's ``dropped`` has one counter per rank, a single map's
+    none)."""
+    # arrays are copied: they may be read-only (np.load, a JAX array)
+    packed, dropped = (a if isinstance(a, torch.Tensor)
+                       else torch.from_numpy(np.array(a))
+                       for a in (packed, dropped))
+    group = pipe.group
+    if group is None:
+        if dropped.dim() != 0:
+            raise ValueError(
+                f"the checkpoint's map is sharded {dropped.numel()} ways; "
+                "this pipeline holds a single map")
+        m = hm.Map(packed=packed, dropped=dropped)
+    else:
+        from ..parallel import sharding
+
+        m = sharding.split_global_map(packed, dropped, group.rank, group.world)
+    if tuple(m.packed.shape) != tuple(pipe.map.packed.shape):
+        raise ValueError(
+            f"checkpoint map {tuple(m.packed.shape)} != the pipeline's "
+            f"{tuple(pipe.map.packed.shape)} (map_h_log2 / bucket slots)")
+    return m
+
+
 def save_pipeline(path, pipe):
     """Complete pipeline checkpoint: estimator, map, IMU carry, local-map
-    cube, sync statistics and init bookkeeping."""
+    cube, sync statistics and init bookkeeping.  With a group, a collective
+    (every rank writes the global map to its own ``path``)."""
+    m = pipe.map
+    if pipe.group is not None:
+        from ..parallel import sharding
+
+        m = sharding.gather_global_map(m, pipe.group)
     lm_lo, lm_hi, lm_init = pipe.lm_state
     meta = {
         "acc_scale": pipe.acc_scale,
@@ -116,17 +158,15 @@ def save_pipeline(path, pipe):
         "imu_stats_cov_acc": pipe.imu_stats.cov_acc,
         "imu_stats_cov_gyr": pipe.imu_stats.cov_gyr,
     }
-    save(path, pipe.x, pipe.P, pipe.map, pipe.imu_carry, meta=meta)
+    save(path, pipe.x, pipe.P, m, pipe.imu_carry, meta=meta)
 
 
 def load_pipeline(path, pipe):
     """Restore a pipeline saved by ``save_pipeline`` (either package's) in
-    place, on the pipeline's device and dtype.  Returns the meta dict."""
+    place, on the pipeline's device and dtype; a sharded pipeline takes its
+    rank's rows of the global layout.  Returns the meta dict."""
     x, P, m, carry, meta = load(path, pipe.dtype, pipe.device)
-    if tuple(m.packed.shape) != tuple(pipe.map.packed.shape):
-        raise ValueError(
-            f"checkpoint map {tuple(m.packed.shape)} != the pipeline's "
-            f"{tuple(pipe.map.packed.shape)} (map_h_log2 / bucket slots)")
+    m = local_map(pipe, m.packed, m.dropped)
     pipe.x, pipe.P, pipe.imu_carry = x, P, carry
     pipe.map = hm.Map(packed=m.packed,
                       dropped=m.dropped.to(pipe.map.dropped.dtype))

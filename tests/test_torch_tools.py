@@ -1,7 +1,8 @@
 """The port's measuring tools (``tools/profile_scan.py``,
-``tools/microbench_knn.py``, the bound and the build log): the parts that
-run without a card."""
+``tools/microbench_knn.py``, ``tools/bench_scaling.py``, the bound and the
+build log): the parts that run without a card."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -9,7 +10,7 @@ import torch
 
 from fast_lio_tpu_torch import pipeline, sim
 from fast_lio_tpu_torch.kernels import bounds, build
-from fast_lio_tpu_torch.tools import microbench_knn, profile_scan
+from fast_lio_tpu_torch.tools import bench_scaling, microbench_knn, profile_scan
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -142,3 +143,22 @@ def test_prep_bound_is_its_bytes():
     got = bounds.prep_bound(8192, 1140)
     assert got.nbytes == 8192 * (12 + 4) + 1140 * 4 + 4 and got.by == "bytes"
     assert got.ms == got.nbytes / 3.35e12 * 1e3
+
+
+def test_bench_scaling_trend_prints_a_line_per_configuration(capsys):
+    """``--trend`` at a tiny size: the unsharded run and gloo ranks 1 and 2,
+    each a launch of worker processes, one JSON line each."""
+    assert bench_scaling.main(["--trend", "--ranks", "1,2", "--scans", "2"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [(ln["mode"], ln["n_ranks"]) for ln in lines] == [
+        ("unsharded", 1), ("sharded_full", 1), ("sharded_full", 2)]
+    assert all(ln["scans_per_sec"] > 0 and ln["platform"] == "cpu"
+               and ln["transport"] == "gloo" for ln in lines)
+
+
+def test_bench_scaling_measures_nothing_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("has a CUDA device")
+    assert bench_scaling.main([]) == 1
+    assert bench_scaling.main(["--ablate"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
