@@ -25,7 +25,13 @@ Phases, in order; any failed check exits non-zero:
    the grouped search is held bit for bit (found, sq, and neighbours where
    found) to its plain version and to the per-query kernel, and the prep
    bit for bit to ``group_queries`` (order, the group starts, the group
-   count).  Times: the
+   count); the per-query kernel in float64 (rows ``knn_f64_r8``,
+   ``knn_f64_r27``) on the same maps and queries in float64, moved off the
+   float32 grid by less than half a float32 ulp
+   (``microbench_knn.off_float32``), held bit for bit to its plain version
+   (found, sq, and neighbours where found): a kernel that computed in
+   float32 would fail it.
+   Times: the
    microbenchmark's ``device_us`` (profiler), ``graph_us`` (a CUDA graph of
    100 calls) and ``enqueue_us`` (host clock), with the ptxas registers.
 3. small — the port's pipeline on CUDA against its own CPU path (the plain
@@ -70,6 +76,22 @@ Phases, in order; any failed check exits non-zero:
    checks (global map drops), the R = 8 and R = 27 kernels launched on each
    rank.  Prints the global map size and drops beside phase 5's, and the
    transport.
+11. ouster64_f64 — phase 5's run with ``compute_dtype="float64"``: the
+   float64 R = 8 and R = 27 kernels ran (and the float32 one did not), phase
+   5's health checks, map drops within 10% of the JAX package's float64 run,
+   ATE within 1 cm of its ATE and, closer, within 0.1 mm of it (phase 5's
+   float32 run is about 2 mm from it).  Prints the positions' largest
+   difference from phase 5's float32 run.
+12. oracle — the first ``ORACLE_PACKETS`` packets of the oracle-trace stream
+   (tests/test_oracle_trace.py's config and sim) through the port's
+   pipeline on the card in float64 and float32, and through the f64 oracle
+   in intended mode (``oracle.py``, ``quirks=False,
+   plane_fit="orthogonal"``: a reference that shares no code with either
+   package).  Float32: per-scan positions within 10 mm (max) and 5 mm
+   (median), rotations within 5 mrad (tests/test_oracle_trace.py's bounds).
+   Float64: within its own bounds from tests/test_torch_oracle.py, 3 mm,
+   0.7 mm and 0.7 mrad, which the float32 run does not meet (about
+   1.5 mrad); the float64 R = 8 kernel ran.
 
 Phases 4 and 5 also print how many distinct bucket rows each tile of their
 searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
@@ -96,15 +118,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# The JAX package's ATE (raw, aligned) and map drops on the runs of phases 4
-# and 5 (same presets, same sim data; phase 6 is held to phase 5's) and of
+# The JAX package's ATE (raw, aligned) and map drops on the runs of phases 4,
+# 5 and 11 (same presets, same sim data; phase 6 is held to phase 5's) and of
 # phase 7's bag replay, computed once on a CPU by tests/torch_reference_ate.py.
 JAX_ATE_M = {
     "avia": (0.03469561611056514, 0.013552656768317909),
     "ouster64": (0.03198349476697826, 0.01154589455923144),
     "cli_bag": (0.034757444004670235, 0.013331892125377977),
+    "ouster64_f64": (0.03385058027489391, 0.011881821316236246),
 }
-JAX_MAP_DROPPED = {"avia": 0, "ouster64": 307}
+JAX_MAP_DROPPED = {"avia": 0, "ouster64": 307, "ouster64_f64": 279}
 # positions: the CUDA path against the CPU path (phase 3); the same run
 # twice on the card, resumed or batched (phases 6-8)
 POS_TOL_M = 5e-3
@@ -113,12 +136,23 @@ POS_TOL_M = 5e-3
 CLI_BAG_FLAGS = ["--preset", "avia", "--point-filter-num", "1",
                  "--blind", "0.3"]
 ATE_SLACK_M = 0.01
+# phase 11: the float64 run's ATE against the JAX package's float64 ATE;
+# phase 5's float32 run is 1.9 mm from it, so this holds the card to f64
+F64_ATE_TOL_M = 1e-4
 # which points overflow a full bucket depends on f32 rounding of the poses,
 # so the port's drop count may differ a little from the JAX package's
 DROPPED_SLACK = 0.1
 
 SQ_RTOL, SQ_ATOL = 1e-5, 1e-6
 TIMING_REPS = 25  # profiler calls and enqueue samples per search
+# phase 12: packets of the oracle-trace stream (the oracle's brute-force kNN
+# takes about 2.5 s a packet on a CPU as the map grows: about 30 s), and the
+# bounds against the intended-math oracle (pos max m, pos median m, rot max
+# rad): tests/test_oracle_trace.py's for float32, and for float64
+# tests/test_torch_oracle.py's BOUNDS["float64"]["intended"]
+ORACLE_PACKETS = 12
+ORACLE_BOUNDS = {"float32": (0.010, 0.005, 0.005),
+                 "float64": (0.003, 0.0007, 0.0007)}
 
 
 def log(obj) -> None:
@@ -182,23 +216,26 @@ def equal_groups(got, want, what) -> None:
           f"{what}: starts differ")
 
 
-# kernel row kind -> (source, ptxas library and entry)
+# kernel row kind -> (source, ptxas library, entry and mangled scalar type)
 KERNEL_ROWS = {
-    "knn": ("fast_lio_tpu_torch/csrc/knn.cu", "knn", "knn_tile_kernel"),
+    "knn": ("fast_lio_tpu_torch/csrc/knn.cu", "knn", "knn_tile_kernel", "f"),
     "grouped": ("fast_lio_tpu_torch/csrc/knn_grouped.cu", "knn_grouped",
-                "knn_grouped_search_kernel"),
+                "knn_grouped_search_kernel", ""),
     "grouped_prep": ("fast_lio_tpu_torch/csrc/knn_grouped.cu", "knn_grouped",
-                     "knn_grouped_prep_kernel"),
+                     "knn_grouped_prep_kernel", ""),
+    "knn_f64": ("fast_lio_tpu_torch/csrc/knn.cu", "knn", "knn_tile_kernel",
+                "d"),
 }
 REPLACES = {"knn": "tools/knn_pallas.py:193",
             "grouped": "tools/knn_grouped.py:217",
-            "grouped_prep": "tools/knn_grouped.py:217"}
+            "grouped_prep": "tools/knn_grouped.py:217",
+            "knn_f64": "tools/knn_pallas.py:193"}
 TIMES = ("device_us", "prep_device_us", "graph_us", "enqueue_us")
 
 
 def kernel_row(mb, kind, tag, t, err) -> dict:
     """The kernels line's row of one kernel from its main-order times."""
-    source, lib, entry = KERNEL_ROWS[kind]
+    source, lib, entry, scalar = KERNEL_ROWS[kind]
     N, R = t["shape"]["N"], t["shape"]["R"]
     # the prep kernel is instantiated by block size, the others by R
     inst = (1024 if N > 2048 else 256) if kind == "grouped_prep" else R
@@ -209,7 +246,7 @@ def kernel_row(mb, kind, tag, t, err) -> dict:
         bound_ms=1e-3 * t["bound_us"], bound_by=t["bound_by"],
         library_ms=None, shape=t["shape"], **{k: t[k] for k in TIMES},
         distinct_rows=t["distinct_rows"],
-        ptxas=mb.registers(lib, entry, inst))
+        ptxas=mb.registers(lib, entry, inst, scalar))
 
 
 def phase_kernels(pkg):
@@ -236,6 +273,20 @@ def phase_kernels(pkg):
             times = mb.measure(case, TIMING_REPS, with_plain=order == "main")
             log({"phase": "kernels", "case": tag, "order": order,
                  "times": times})
+            # the per-query kernel in float64 on the same map and queries,
+            # moved off the float32 grid; bit-equal to its plain version
+            case64 = mb.make_case(tag, order, dtype=torch.float64)
+            got = knn.knn_search_cuda(case64.m.packed, map_cfg,
+                                      case64.queries, wide=wide)
+            ref = hm.knn_search(case64.m, map_cfg, case64.queries, wide=wide)
+            torch.cuda.synchronize()
+            check(got[1].dtype == torch.float64, f"knn_f64_{tag}: not float64")
+            err["knn_f64"] = equal_where_found(got, ref,
+                                               f"knn_f64_{tag} vs plain")
+            times.update(mb.measure(case64, TIMING_REPS,
+                                    with_plain=order == "main"))
+            log({"phase": "kernels", "case": f"f64_{tag}", "order": order,
+                 "times": times[f"knn_f64_{tag}"]})
             for kind in KERNEL_ROWS:
                 t = times[f"{kind}_{tag}"]
                 if order == "main":
@@ -324,7 +375,8 @@ def phase_small(pkg):
 def launch_counters(pkg) -> dict:
     kg = pkg["kg"]
     return {"knn": pkg["knn"].launches, "grouped": kg.launches,
-            "grouped_prep": kg.prep_launches}
+            "grouped_prep": kg.prep_launches,
+            "knn_f64": pkg["knn"].launches_f64}
 
 
 def reset_launches(pkg) -> None:
@@ -633,6 +685,54 @@ def phase_sharded(pkg, name, cfg, sim_cfg, world, backend, n_scans, ref_name):
     return out, ranks
 
 
+# --------------------------------------------------------------------------
+# phase 12: the float64 pipeline against the f64 oracle
+# --------------------------------------------------------------------------
+
+
+def phase_oracle(pkg):
+    """The oracle-trace stream's first ORACLE_PACKETS packets through the
+    port on the card, in float64 and float32, and through the oracle in
+    intended mode.  Returns the launches of the two runs."""
+    oc = pkg["oracle_compare"]
+    cfg64 = oc.make_cfg("float64")
+    pkts = oc.packets_of(oc.make_data(), cfg64, ORACLE_PACKETS)
+    runs = {}
+    for dtype, cfg in (("float64", cfg64), ("float32", oc.make_cfg())):
+        reset_launches(pkg)
+        t0 = time.perf_counter()
+        traj = oc.run_pipeline(cfg, pkts)  # CUDA by default
+        torch.cuda.synchronize()
+        runs[dtype] = (traj, read_launches(pkg), time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    traj_o = oc.run_oracle(cfg64, pkts, **oc.MODES["intended"])
+    oracle_s = time.perf_counter() - t0
+    out = {"phase": "oracle", "packets": len(pkts),
+           "oracle_poses": len(traj_o), "oracle_s": oracle_s}
+    keys = ("pos_max_m", "pos_median_m", "rot_max_rad")
+    for dtype, (traj, launches, wall) in runs.items():
+        dp, dr = oc.deltas(traj, traj_o)
+        out[dtype] = {"poses": len(traj), "compared": len(dp),
+                      "pos_max_m": float(dp.max()),
+                      "pos_median_m": float(np.median(dp)),
+                      "rot_max_rad": float(dr.max()),
+                      "rot_median_rad": float(np.median(dr)),
+                      "tol": dict(zip(keys, ORACLE_BOUNDS[dtype])),
+                      "pipeline_s": wall,
+                      "launches": {k: {f"r{r}": n for r, n in v.items()}
+                                   for k, v in launches.items()}}
+    log(out)
+    check(len(traj_o) >= ORACLE_PACKETS - 3,
+          f"oracle: {len(traj_o)} oracle poses")
+    for dtype, bound in ORACLE_BOUNDS.items():
+        got = out[dtype]
+        check(all(got[k] < b for k, b in zip(keys, bound)),
+              f"oracle: {dtype} pipeline left the oracle: {got}")
+    check(runs["float64"][1]["knn_f64"][8] > 0,
+          "oracle: the float64 R=8 kNN kernel never ran")
+    return runs["float64"][1], runs["float32"][1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -652,12 +752,14 @@ def main() -> int:
     from fast_lio_tpu_torch.map import hash_map as hm
     from fast_lio_tpu_torch.parallel import launch, sharding
     from fast_lio_tpu_torch.pipeline import Pipeline
-    from fast_lio_tpu_torch.tools import bench_scaling, microbench_knn
+    from fast_lio_tpu_torch.tools import (bench_scaling, microbench_knn,
+                                          oracle_compare)
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
     pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
                mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt,
-               launch=launch, sharding=sharding, bench_scaling=bench_scaling)
+               launch=launch, sharding=sharding, bench_scaling=bench_scaling,
+               oracle_compare=oracle_compare)
     card = gpu_name_and_power()
     t_start = time.perf_counter()
 
@@ -757,9 +859,30 @@ def main() -> int:
                                            ranks_ouster[0]["positions"])],
              traj_ouster)})
 
+    # 11. phase 5's run in float64
+    f64_cfg = dataclasses.replace(ouster_cfg, compute_dtype="float64")
+    with keeping_queries(knn) as searches:
+        out_f64, l_f64, traj_f64 = run_main_path(pkg, "ouster64_f64",
+                                                 f64_cfg, ouster_sim)
+    ate_diff = [abs(out_f64[key] - ref) for key, ref in zip(
+        ("ate_raw_m", "ate_aligned_m"), JAX_ATE_M["ouster64_f64"])]
+    log({"phase": "ouster64_f64", "tiles": tile_stats(pkg, searches),
+         "max_pos_diff_vs_ouster64_m": max_pos_diff(traj_f64, traj_ouster),
+         "ate_diff_vs_jax_f64_m": ate_diff, "tol_m": F64_ATE_TOL_M})
+    check(max(ate_diff) <= F64_ATE_TOL_M,
+          f"ouster64_f64: ATE {ate_diff} m from JAX's float64 run")
+    check(l_f64["knn_f64"][8] > 0 and l_f64["knn_f64"][27] > 0,
+          f"ouster64_f64: the float64 kernels did not both run ({l_f64})")
+    check(sum(l_f64["knn"].values()) == 0,
+          "ouster64_f64: the float32 kernel ran")
+
+    # 12. the float64 pipeline against the oracle
+    l_oracle, l_oracle_f32 = phase_oracle(pkg)
+
     by_path = {"avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
-               "fleet": l_fleet}
+               "fleet": l_fleet, "ouster64_f64": l_f64, "oracle": l_oracle,
+               "oracle_f32": l_oracle_f32}
     by_rank = {"sharded_avia_1rank": ranks_avia,
                "sharded_ouster64_2ranks": ranks_ouster}
     for path, ranks in by_rank.items():  # the per-query kernel only

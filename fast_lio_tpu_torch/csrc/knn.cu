@@ -15,6 +15,14 @@
 // slot; the global key bucket * B + slot has the same order, so neither the
 // order of the rows nor of the chunks below changes the result.
 //
+// The kernel is a template on the scalar type T: float (compute_dtype
+// float32) and double (float64, what the JAX main path's XLA search computes
+// in that dtype; the TPU kernel only ever searched in f32).  In double a row
+// is 4B doubles (32 bytes a slot), so kernels/knn.py's ring_rows(B) halves
+// the rows a stage holds where two stages would pass 128 KiB; the candidate
+// key is the pair (d2 bits, index) (knn_common.cuh).  Everything else is
+// the same code.
+//
 // Design: one block of 8 warps per tile of consecutive queries, L lanes per
 // query: a half warp (L = 16, a tile of 16) at R = 8, a warp (L = 32, a
 // tile of 8) at R = 27, where a query's 27 cells need a lane each.  On the
@@ -25,7 +33,7 @@
 //      hash table (atomicCAS, linear probing), then numbers the distinct
 //      rows (the tile's union) by a block scan;
 //   2. stages the union's rows into a two-stage ring in shared memory with
-//      1-D bulk copies (TMA: one cp.async.bulk per row, 4B floats, its w and
+//      1-D bulk copies (TMA: one cp.async.bulk per row, 4B scalars, its w and
 //      x/y/z together, completing on an mbarrier), in chunks of at most
 //      ring_rows rows; chunk k + 1 is in flight while chunk k is scored;
 //   3. lists each staged row's live slots once (a ballot per 32 slots), and
@@ -45,8 +53,8 @@
 // chunk at a time.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s): each distinct row once, plus
-// queries (12 N) and outputs (85 N) -- under a microsecond on the sim map
-// (kernels/bounds.py).
+// queries (12 N) and outputs (85 N), twice the scalars' bytes in double --
+// under a microsecond on the sim map (kernels/bounds.py).
 //
 // Bitwise agreement with the plain version: see knn_common.cuh, which holds
 // the hash, the top-5 and the row scoring this kernel shares with
@@ -103,18 +111,19 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* tmp,
 // Winner coordinates: from the ring where the whole union is still staged
 // (at most two chunks: union row u sits at ring row u), else from the map
 // rows in device memory.
+template <class T>
 struct TileCoords {
-  const float* packed;
-  const float* ring;
+  const T* packed;
+  const T* ring;
   const uint32_t* table;
   const uint16_t* row_of_slot;
   int B;
   bool staged;
-  __device__ __forceinline__ void operator()(int idx, float& x, float& y,
-                                             float& z) const {
+  __device__ __forceinline__ void operator()(int idx, T& x, T& y,
+                                             T& z) const {
     const uint32_t b = (uint32_t)idx / (uint32_t)B;
     const int s = idx - (int)(b * (uint32_t)B);
-    const float* row;
+    const T* row;
     if (staged) {
       uint32_t h = table_home(b);
       while (table[h] != b) h = (h + 1) & (TABLE - 1);
@@ -130,34 +139,35 @@ struct TileCoords {
 
 // Warp 0: the union's rows of chunk k into stage k & 1 of the ring, one
 // bulk copy per row (lane), all completing on the stage's barrier.
+template <class T>
 __device__ __forceinline__ void stage_chunk(
-    int k, const float* packed, const uint32_t* union_bucket, int n_union,
-    int B, int ring_rows, float* ring, uint64_t* full, int lane) {
+    int k, const T* packed, const uint32_t* union_bucket, int n_union,
+    int B, int ring_rows, T* ring, uint64_t* full, int lane) {
   const int st = k & 1;
   const int r0 = k * ring_rows;
   const int cnt = min(ring_rows, n_union - r0);
-  const int row_floats = 4 * B;
-  const uint32_t row_bytes = 16u * (uint32_t)B;
+  const int row_elems = 4 * B;
+  const uint32_t row_bytes = 4u * (uint32_t)sizeof(T) * (uint32_t)B;
   if (lane == 0) mbar_arrive_expect_tx(&full[st], (uint32_t)cnt * row_bytes);
   __syncwarp();
   if (lane < cnt) {
     fence_proxy_async();
-    bulk_copy_to_shared(ring + (size_t)(st * ring_rows + lane) * row_floats,
-                        packed + (size_t)union_bucket[r0 + lane] * row_floats,
+    bulk_copy_to_shared(ring + (size_t)(st * ring_rows + lane) * row_elems,
+                        packed + (size_t)union_bucket[r0 + lane] * row_elems,
                         row_bytes, &full[st]);
   }
 }
 
-template <int R>
+template <class T, int R>
 __global__ void __launch_bounds__(32 * WARPS)
-knn_tile_kernel(const float* __restrict__ packed,
-                const float* __restrict__ queries, int n, int B,
-                uint32_t bucket_mask, float cell, float span, int ring_rows,
-                float* __restrict__ nbrs, float* __restrict__ sq,
+knn_tile_kernel(const T* __restrict__ packed, const T* __restrict__ queries,
+                int n, int B, uint32_t bucket_mask, T cell, float span,
+                int ring_rows, T* __restrict__ nbrs, T* __restrict__ sq,
                 uint8_t* __restrict__ found) {
   constexpr int L = Tile<R>::L, TQ = Tile<R>::Q;
   // 2 * ring_rows rows, then the live slots of the chunk being scored
-  extern __shared__ __align__(128) float ring[];
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
   __shared__ int qbase[TQ][3];
   __shared__ uint32_t table[TABLE];
   __shared__ uint16_t row_of_slot[TABLE];
@@ -175,10 +185,10 @@ knn_tile_kernel(const float* __restrict__ packed,
   const int qi = blockIdx.x * TQ + tq;
   const int nq = min(TQ, n - (int)blockIdx.x * TQ);
   const bool active = tq < nq;
-  const float shift = (R == 8) ? 0.5f : 1.0f;
-  const int row_floats = 4 * B;
+  const T shift = (R == 8) ? T(0.5) : T(1.0);
+  const int row_elems = 4 * B;
   uint16_t* live_slot = reinterpret_cast<uint16_t*>(
-      ring + (size_t)2 * ring_rows * row_floats);  // ring_rows lists of B
+      ring + (size_t)2 * ring_rows * row_elems);  // ring_rows lists of B
 
   if (tid == 0) {
     mbar_init(&full[0], 1);
@@ -186,13 +196,14 @@ knn_tile_kernel(const float* __restrict__ packed,
     fence_mbar_init();
   }
   for (int i = tid; i < TABLE; i += blockDim.x) table[i] = EMPTY;
-  float qc = 0.0f;  // lane sub = c < 3 of the group holds coordinate c
+  T qc = T(0);  // lane sub = c < 3 of the group holds coordinate c
   if (active && sub < 3) {
     qc = queries[3 * (size_t)qi + sub];
     qbase[tq][sub] = region_base(qc, cell, shift);
   }
-  const Query q(__shfl_sync(FULL, qc, base), __shfl_sync(FULL, qc, base + 1),
-                __shfl_sync(FULL, qc, base + 2), cell, shift, span);
+  const QueryT<T> q(__shfl_sync(FULL, qc, base),
+                    __shfl_sync(FULL, qc, base + 1),
+                    __shfl_sync(FULL, qc, base + 2), cell, shift, span);
   __syncthreads();
 
   // 1. the tile's distinct buckets
@@ -237,7 +248,7 @@ knn_tile_kernel(const float* __restrict__ packed,
   const uint32_t my_row = (has_cell && first) ? row_of_slot[h] : NO_ROW;
 
   // 2-3. stage the union chunk by chunk and score
-  TopK top;
+  TopKT<T> top;
   top.init();
   const int n_chunks = (n_union + ring_rows - 1) / ring_rows;
   if (warp == 0)
@@ -253,15 +264,15 @@ knn_tile_kernel(const float* __restrict__ packed,
     mbar_wait(&full[st], (uint32_t)(k >> 1) & 1u);
     const uint32_t r0 = (uint32_t)(k * ring_rows);
     const int cnt = min(ring_rows, n_union - (int)r0);
-    const float* stage = ring + (size_t)st * ring_rows * row_floats;
+    const T* stage = ring + (size_t)st * ring_rows * row_elems;
     // the chunk's live slots, listed once for every query of the tile (a
     // warp per row), so that the lanes score live slots only
     for (int j = warp; j < cnt; j += WARPS) {
-      const float* w = stage + (size_t)j * row_floats + 3 * B;
+      const T* w = stage + (size_t)j * row_elems + 3 * B;
       int count = 0;
       for (int s0 = 0; s0 < B; s0 += 32) {
         const int s = s0 + lane;
-        const bool live = s < B && w[s] < W_VALID_MAX;
+        const bool live = s < B && w[s] < W_VALID_MAX<T>;
         const unsigned m = __ballot_sync(FULL, live);
         if (live)
           live_slot[j * B + count + __popc(m & ((1u << lane) - 1u))] =
@@ -279,7 +290,7 @@ knn_tile_kernel(const float* __restrict__ packed,
       todo &= todo - 1;
       const uint32_t u = __shfl_sync(group, my_row, r);
       const int j = (int)(u - r0);
-      const float* row = stage + (size_t)j * row_floats;
+      const T* row = stage + (size_t)j * row_elems;
       for (int i = sub; i < live_count[j]; i += L)
         score_slot(row, live_slot[j * B + i], union_bucket[u], B, q, top);
     }
@@ -288,60 +299,85 @@ knn_tile_kernel(const float* __restrict__ packed,
 
   if (active)
     write_top5<L>(top, sub, group, (size_t)qi,
-                  TileCoords{packed, ring, table, row_of_slot, B,
-                             n_chunks <= 2},
+                  TileCoords<T>{packed, ring, table, row_of_slot, B,
+                                n_chunks <= 2},
                   nbrs, sq, found);
 }
 
-template <int R>
+template <class T, int R>
 int configure() {
   int bytes = 0;
-  int err = max_dynamic_smem(knn_tile_kernel<R>, &bytes);
+  int err = max_dynamic_smem(knn_tile_kernel<T, R>, &bytes);
   if (err) return err;
-  return (int)cudaFuncSetAttribute(
-      knn_tile_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return (int)cudaFuncSetAttribute(knn_tile_kernel<T, R>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bytes);
+}
+
+// The search at R = 8 or, with `wide`, R = 27; the block takes
+// 2 * ring_rows * 4B * sizeof(T) bytes of dynamic shared memory for the
+// ring, and ring_rows * B * 2 for the live lists.
+template <class T>
+int launch(const T* packed, const T* queries, int n, int bucket_slots,
+           unsigned int bucket_mask, T cell, float span, int wide,
+           int ring_rows, T* nbrs, T* sq, unsigned char* found,
+           void* stream) {
+  if (n <= 0) return 0;
+  if (ring_rows < 1 || ring_rows > RING_ROWS_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(32 * WARPS);
+  const size_t smem =
+      (size_t)2 * ring_rows * 4 * sizeof(T) * bucket_slots  // the ring
+      + (size_t)ring_rows * bucket_slots * 2;               // live lists
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    const dim3 grid((n + Tile<27>::Q - 1) / Tile<27>::Q);
+    knn_tile_kernel<T, 27><<<grid, block, smem, s>>>(
+        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
+        nbrs, sq, found);
+  } else {
+    const dim3 grid((n + Tile<8>::Q - 1) / Tile<8>::Q);
+    knn_tile_kernel<T, 8><<<grid, block, smem, s>>>(
+        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
+        nbrs, sq, found);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Raises both kernels' dynamic shared-memory limit to what a block may take
+// Raises the kernels' dynamic shared-memory limit to what a block may take
 // on the current device; call once per device before the first launch.
 int knn_configure() {
-  const int err = configure<8>();
-  return err ? err : configure<27>();
+  int err = configure<float, 8>();
+  if (!err) err = configure<float, 27>();
+  if (!err) err = configure<double, 8>();
+  return err ? err : configure<double, 27>();
 }
 
 // Launches the search on `stream` and returns cudaGetLastError() (0 = ok).
-// packed (H, 4B) f32 (16-byte aligned), queries (n, 3) f32, outputs nbrs
-// (n, 5, 3) f32, sq (n, 5) f32, found (n, 5) uint8; all contiguous on the
-// current device.  ring_rows (1..32) rows of 4B floats per stage of the
-// shared-memory ring; the block takes 2 * ring_rows * 16 * B bytes of
-// dynamic shared memory for it, and ring_rows * B * 2 for the live lists.
+// packed (H, 4B) (16-byte aligned), queries (n, 3), outputs nbrs (n, 5, 3),
+// sq (n, 5), all f32 (knn_search_f32) or all f64 (knn_search_f64), and
+// found (n, 5) uint8; all contiguous on the current device.  ring_rows
+// (1..32) rows of 4B scalars per stage of the shared-memory ring.  The
+// region's AABB is f32 in both: cell and span as f32 (f64: cell rounded to
+// f32 for it, exact for the region's base cell).
 int knn_search_f32(const float* packed, const float* queries, int n,
                    int bucket_slots, unsigned int bucket_mask, float cell,
                    float span, int wide, int ring_rows, float* nbrs, float* sq,
                    unsigned char* found, void* stream) {
-  if (n <= 0) return 0;
-  if (ring_rows < 1 || ring_rows > RING_ROWS_MAX)
-    return (int)cudaErrorInvalidValue;
-  const dim3 block(32 * WARPS);
-  const size_t smem = (size_t)2 * ring_rows * 16 * bucket_slots  // the ring
-                      + (size_t)ring_rows * bucket_slots * 2;  // live lists
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide) {
-    const dim3 grid((n + Tile<27>::Q - 1) / Tile<27>::Q);
-    knn_tile_kernel<27><<<grid, block, smem, s>>>(
-        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
-        nbrs, sq, found);
-  } else {
-    const dim3 grid((n + Tile<8>::Q - 1) / Tile<8>::Q);
-    knn_tile_kernel<8><<<grid, block, smem, s>>>(
-        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
-        nbrs, sq, found);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(packed, queries, n, bucket_slots, bucket_mask, cell,
+                       span, wide, ring_rows, nbrs, sq, found, stream);
+}
+
+int knn_search_f64(const double* packed, const double* queries, int n,
+                   int bucket_slots, unsigned int bucket_mask, double cell,
+                   float span, int wide, int ring_rows, double* nbrs,
+                   double* sq, unsigned char* found, void* stream) {
+  return launch<double>(packed, queries, n, bucket_slots, bucket_mask, cell,
+                        span, wide, ring_rows, nbrs, sq, found, stream);
 }
 
 const char* knn_error_string(int err) {

@@ -5,10 +5,11 @@ beside each kNN kernel's time by ``chip_smoke.py`` and
 Counted as a roofline counts it, for this search's data: the bytes the
 search must move (each distinct bucket row it reads, once; the queries once;
 the outputs once) over the card's memory rate, and the operations it must do
-(for each query, about 15 f32 operations per live slot of its distinct
-region rows, one per free slot) over the card's f32 rate; the larger of the
-two bounds it.  Both kNN kernels compute the same function, so they share
-the bound.
+(for each query, about 15 operations per live slot of its distinct region
+rows, one per free slot) over the card's rate for the search's type; the
+larger of the two bounds it.  In float64 the rows, queries, neighbours and
+distances take twice the bytes and the operations run at the FP64 rate.
+Both kNN kernels compute the same function, so they share the bound.
 """
 from __future__ import annotations
 
@@ -18,15 +19,23 @@ import torch
 
 from ..map import hash_map as hm
 
-# NVIDIA's H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
+# NVIDIA's H100 SXM data sheet: HBM3 rate, and f32 and f64 outside the
+# tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12
+FLOPS = {torch.float32: H100_F32_FLOPS, torch.float64: H100_F64_FLOPS}
 # per live candidate: 3 subtractions, 3 products, 3 sums (w included) and 6
 # compares against the region's AABB
 OPS_PER_LIVE_SLOT = 15
-QUERY_BYTES = 12  # (x, y, z) f32
-# per query: K neighbours (x, y, z) f32, K squared distances f32, K found
-OUT_BYTES_PER_QUERY = hm.NUM_MATCH_POINTS * (12 + 4 + 1)
+QUERY_BYTES = 12  # (x, y, z) f32, as the grouped prep reads them
+
+
+def query_bytes(itemsize: int) -> int:
+    """Bytes a search reads and writes per query: the query (x, y, z) and
+    K neighbours (x, y, z) and squared distances, in scalars of
+    ``itemsize`` bytes, and K found flags."""
+    return (3 + hm.NUM_MATCH_POINTS * 4) * itemsize + hm.NUM_MATCH_POINTS
 
 
 class Bound(NamedTuple):
@@ -39,8 +48,8 @@ class Bound(NamedTuple):
 
 def knn_bound(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
               wide: bool = False) -> Bound:
-    """The bound of ``knn_search(m, cfg, queries, wide=wide)`` on this data
-    (torch ops on the map's device; a few host reads)."""
+    """The bound of ``knn_search(m, cfg, queries, wide=wide)`` on this data,
+    in the map's dtype (torch ops on the map's device; a few host reads)."""
     B = cfg.bucket_slots
     N = queries.shape[0]
     _base, cells, _R = hm.region_cells(queries, cfg, wide)
@@ -51,10 +60,11 @@ def knn_bound(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
     live = int((live_per_bucket[buckets] * distinct).sum())
     slots = int(distinct.sum()) * B
     rows = int(torch.unique(buckets).numel())
-    nbytes = rows * 4 * B * 4 + N * (QUERY_BYTES + OUT_BYTES_PER_QUERY)
+    itemsize = m.packed.element_size()
+    nbytes = rows * 4 * B * itemsize + N * query_bytes(itemsize)
     ops = OPS_PER_LIVE_SLOT * live + (slots - live)
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_FLOPS * 1e3
+    t_ops = ops / FLOPS[m.packed.dtype] * 1e3
     return Bound(max(t_bytes, t_ops),
                  "bytes" if t_bytes >= t_ops else "operations",
                  rows, nbytes, ops)

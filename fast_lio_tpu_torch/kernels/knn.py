@@ -13,9 +13,15 @@ against the staged rows of its own region; see the source's header.
 ``kernels/bounds.py``, each distinct row once, under a microsecond on the
 sim map.
 
+The kernel is built for float32 and float64 (``Config.compute_dtype``; the
+JAX main path searches in XLA in either).  In float64 a row takes twice the
+bytes, so ``ring_rows(B, 8)`` stages at most half as many rows where two
+stages of 16 would pass ``RING_BYTES``.
+
 Routing: a CPU tensor goes to the plain version; a CUDA tensor always goes
 to the kernel (which is built at first use), and anything the kernel does
-not take raises.  ``launches`` counts kernel launches per R.
+not take raises, another dtype included.  ``launches`` counts the float32
+kernel's launches per R, ``launches_f64`` the float64 kernel's.
 """
 from __future__ import annotations
 
@@ -32,16 +38,20 @@ from . import build
 TILE = {8: 16, 27: 8}
 RING_ROWS = 16  # rows per stage of the shared-memory row ring
 RING_BYTES = 128 * 1024  # the most the ring's two stages may take
+DTYPES = (torch.float32, torch.float64)  # the kernel's instantiations
 
-launches = {8: 0, 27: 0}
+launches = {8: 0, 27: 0}  # float32
+launches_f64 = {8: 0, 27: 0}
 
 
-def ring_rows(B: int) -> int:
-    """Rows of 4B floats per stage of the kernel's two-stage ring: 16, or
-    fewer where two stages of 16 would pass ``RING_BYTES``."""
-    rows = min(RING_ROWS, RING_BYTES // (2 * 16 * B))
+def ring_rows(B: int, itemsize: int = 4) -> int:
+    """Rows of 4B scalars of ``itemsize`` bytes per stage of the kernel's
+    two-stage ring: 16, or fewer where two stages of 16 would pass
+    ``RING_BYTES``."""
+    row_bytes = 4 * itemsize * B
+    rows = min(RING_ROWS, RING_BYTES // (2 * row_bytes))
     if rows < 1:
-        raise ValueError(f"a bucket row of B={B} slots ({16 * B} bytes) "
+        raise ValueError(f"a bucket row of B={B} slots ({row_bytes} bytes) "
                          f"does not fit the kernel's ring ({RING_BYTES} B)")
     return rows
 
@@ -64,7 +74,7 @@ def tile_union_stats(queries: torch.Tensor, cfg: hm.MapConfig,
         buckets = torch.cat([buckets, buckets[-1:].expand(pad, -1)])
     per_tile = torch.sort(buckets.reshape(n_tiles, -1), dim=1).values
     rows = 1 + (per_tile[:, 1:] != per_tile[:, :-1]).sum(dim=1)
-    chunks = -(-rows // ring_rows(cfg.bucket_slots))
+    chunks = -(-rows // ring_rows(cfg.bucket_slots, queries.element_size()))
     return {"tiles": n_tiles, "mean_rows": float(rows.double().mean()),
             "max_rows": int(rows.max()),
             "mean_chunks": float(chunks.double().mean())}
@@ -75,9 +85,10 @@ def _lib():
     """The kernel's library, built at first use, with its C signatures."""
     lib = build.load("knn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.knn_search_f32.argtypes = [p, p, i, i, ctypes.c_uint, f, f, i, i,
-                                   p, p, p, p]
-    lib.knn_search_f32.restype = i
+    for fn, cell in ((lib.knn_search_f32, f), (lib.knn_search_f64,
+                                               ctypes.c_double)):
+        fn.argtypes = [p, p, i, i, ctypes.c_uint, cell, f, i, i, p, p, p, p]
+        fn.restype = i
     lib.knn_configure.argtypes = []
     lib.knn_configure.restype = i
     lib.knn_error_string.argtypes = [i]
@@ -108,18 +119,23 @@ def knn_search(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
 
 
 def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
-                 queries: torch.Tensor, k: int) -> None:
-    """Raise ValueError on anything the kNN kernels do not take."""
+                 queries: torch.Tensor, k: int, dtypes=DTYPES) -> None:
+    """Raise ValueError on anything the kNN kernels do not take: packed and
+    queries of one of ``dtypes``, the same for both."""
     H, B = cfg.num_buckets, cfg.bucket_slots
     if k != hm.NUM_MATCH_POINTS:
         raise ValueError(f"the kNN kernel is specialized to k=5 (got k={k})")
     for name, t in (("packed", packed), ("queries", queries)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 (got {t.dtype})")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name} must be {names} (got {t.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if packed.dtype != queries.dtype:
+        raise ValueError(
+            f"packed is {packed.dtype} but queries are {queries.dtype}")
     if packed.device != queries.device:
         raise ValueError(
             f"packed on {packed.device} but queries on {queries.device}")
@@ -136,10 +152,11 @@ def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
 
 def empty_outputs(queries: torch.Tensor, k: int):
     """Uninitialised (nbrs (N, k, 3), sq (N, k), found (N, k)) on the
-    queries' device, for a kernel to fill."""
-    N, dev = queries.shape[0], queries.device
-    return (torch.empty((N, k, 3), dtype=torch.float32, device=dev),
-            torch.empty((N, k), dtype=torch.float32, device=dev),
+    queries' device and, but for found, of their dtype, for a kernel to
+    fill."""
+    N, dev, dt = queries.shape[0], queries.device, queries.dtype
+    return (torch.empty((N, k, 3), dtype=dt, device=dev),
+            torch.empty((N, k), dtype=dt, device=dev),
             torch.empty((N, k), dtype=torch.bool, device=dev))
 
 
@@ -149,7 +166,8 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
     """Launch the kernel on ``torch.cuda.current_stream()``; no sync."""
     check_inputs(packed, cfg, queries, k)
     H, B = cfg.num_buckets, cfg.bucket_slots
-    rows = ring_rows(B)
+    f64 = queries.dtype == torch.float64
+    rows = ring_rows(B, queries.element_size())
     nbrs, sq, found = empty_outputs(queries, k)
     N = queries.shape[0]
     if N == 0:
@@ -159,14 +177,15 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
     span = (3 if wide else 2) * cfg.cell_size
     lib = _lib()
     _configure(queries.device.index)
+    search = lib.knn_search_f64 if f64 else lib.knn_search_f32
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.knn_search_f32(
+        err = search(
             packed.data_ptr(), queries.data_ptr(), N, B, H - 1,
             float(cfg.cell_size), float(span), int(wide), rows,
             nbrs.data_ptr(), sq.data_ptr(), found.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"knn kernel launch failed: {lib.knn_error_string(err).decode()}")
-    launches[R] += 1
+    (launches_f64 if f64 else launches)[R] += 1
     return nbrs, sq, found

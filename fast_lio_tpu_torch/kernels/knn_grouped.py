@@ -31,8 +31,11 @@ that real query sets give about 1.3 queries per region on the TPU
 
 Routing: a CPU tensor goes to ``knn_search_grouped_plain``; a CUDA tensor
 always goes to the kernels (built at first use), and anything they do not
-take raises.  ``launches`` counts search launches per R, ``prep_launches``
-prep launches per R.
+take raises, float64 included: the kernels are float32 only (the JAX
+package has no grouped backend to follow in float64, and ``Pipeline``
+refuses ``knn_backend="grouped"`` with ``compute_dtype="float64"``).
+``launches`` counts search launches per R, ``prep_launches`` prep launches
+per R.
 """
 from __future__ import annotations
 
@@ -237,7 +240,7 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
     N = queries.shape[0]
     if N:
         check_prep_size(N)
-    check_inputs(packed, cfg, queries, k)
+    check_inputs(packed, cfg, queries, k, dtypes=(torch.float32,))
     H, B = cfg.num_buckets, cfg.bucket_slots
     R = 27 if wide else 8
     stages = search_stages(R, B)

@@ -64,6 +64,12 @@ def _check_knn_backend(cfg: Config):
             f"knn_backend='grouped' with n_ds_max={cfg.n_ds_max}: its prep "
             f"kernel groups at most {knn_grouped.PREP_MAX_QUERIES} queries "
             "(one block); use the default backend")
+    if cfg.knn_backend == "grouped" and cfg.compute_dtype != "float32":
+        # the JAX package has no grouped backend to follow in float64
+        raise ValueError(
+            f"knn_backend='grouped' with compute_dtype={cfg.compute_dtype!r}:"
+            " the grouped kernels search in float32 only; use the default "
+            "backend, whose per-query kernel searches in float64 too")
     if cfg.rescore_research:
         if cfg.knn_wide_fallback:
             # the cached-candidate rescore re-ranks the 2x2x2 block only

@@ -1,7 +1,7 @@
 """Microbenchmark of the port's two kNN searches on the card: the per-query
-kernel (``kernels/knn.py``) and the region-grouped search
-(``kernels/knn_grouped.py``), each at the shapes of the main path, on the
-queries in the main path's order and shuffled.
+kernel (``kernels/knn.py``), in float32 and float64, and the region-grouped
+search (``kernels/knn_grouped.py``, float32 only), each at the shapes of
+the main path, on the queries in the main path's order and shuffled.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -35,8 +35,10 @@ scan's voxel centroids from the pipeline's downsample, in its voxel order
 and padded as it pads, N = 8192 at R = 8, B = 64 (the avia preset); and
 those that search leaves unsaturated, compacted into 2048 slots as the
 partial-wide search does, at R = 27, B = 128 (the ouster64 preset); H =
-2^15.  Prints one JSON line per search and query order, then the card's
-name and power limit.
+2^15.  The float64 rows (``knn_f64_r8``, ``knn_f64_r27``) search the same
+map and queries in float64, moved off the float32 grid by less than half a
+float32 ulp (``off_float32``).  Prints one JSON line per search and
+query order, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -122,11 +124,34 @@ def main_path_queries(preset: config.Config, cfg: hm.MapConfig, m: hm.Map,
     return q[torch.cat([idx, pad])].contiguous()
 
 
-def make_case(tag: str, order: str = "main", device="cuda") -> Case:
+def off_float32(m: hm.Map, queries: torch.Tensor, seed: int):
+    """The map and queries in float64, each point coordinate scaled by
+    1 + u·2^-26 with u uniform in [-1, 1) from a seeded numpy generator:
+    less than half a float32 ulp, so the values round back to the float32
+    ones, yet float32 cannot hold them.  A float64 search that casts them to
+    float32, or computes in float32, then leaves the plain float64 version
+    in its low bits.  The w channel (0 live, 1e18 free) is kept."""
+    rng = np.random.default_rng(seed)
+
+    def nudge(x: torch.Tensor) -> torch.Tensor:
+        u = torch.from_numpy(rng.uniform(-1.0, 1.0, tuple(x.shape)))
+        return x.double() * (1.0 + u.to(x.device) * 2.0**-26)
+
+    packed = m.packed.double()
+    B = packed.shape[-1] // 4
+    packed[:, :3 * B] = nudge(packed[:, :3 * B])
+    return hm.Map(packed, m.dropped), nudge(queries).contiguous()
+
+
+def make_case(tag: str, order: str = "main", device="cuda",
+              dtype=torch.float32) -> Case:
     """A map filled from 5 simulated scans (world frame, true poses) and
     the queries of the main path's search of the 6th (``main_path_queries``)
     in its order ("main") or permuted by a seeded numpy permutation
-    ("shuffled")."""
+    ("shuffled").  Built in float32; a float64 case holds those values moved
+    off the float32 grid (``off_float32``)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype}: torch.float32 or torch.float64")
     if order not in ("main", "shuffled"):
         raise ValueError(f"order {order!r}: 'main' or 'shuffled'")
     preset, sim_cfg, wide, seed = CASES[tag]
@@ -140,9 +165,11 @@ def make_case(tag: str, order: str = "main", device="cuda") -> Case:
         m = hm.insert(m, cfg, p, on, on)
     q = main_path_queries(preset, cfg, m, data.scans[SCAN],
                           data.gt_rot[SCAN], data.gt_pos[SCAN], wide)
+    if dtype == torch.float64:
+        m, q = off_float32(m, q, seed + 200)
     if order == "shuffled":
         perm = np.random.default_rng(seed + 100).permutation(q.shape[0])
-        q = q[torch.from_numpy(perm).to(device)]
+        q = q[torch.from_numpy(perm).to(device)].contiguous()
     return Case(tag, order, m, cfg, q, wide)
 
 
@@ -244,8 +271,13 @@ def time_search(fn: Callable, reps: int,
 
 def searches(case: Case) -> dict:
     """name -> (kernel wrapper call, plain version call, kernel-name test)
-    of the case."""
+    of the case: in float64 the per-query kernel only."""
     m, cfg, q, wide = case.m, case.cfg, case.queries, case.wide
+    if q.dtype == torch.float64:
+        return {f"knn_f64_{case.tag}": (
+            lambda: knn.knn_search_cuda(m.packed, cfg, q, wide=wide),
+            lambda: hm.knn_search(m, cfg, q, wide=wide),
+            is_knn_search_kernel)}
     return {
         f"knn_{case.tag}": (
             lambda: knn.knn_search_cuda(m.packed, cfg, q, wide=wide),
@@ -262,10 +294,12 @@ def searches(case: Case) -> dict:
     }
 
 
-def registers(lib: str, kernel: str, R: int) -> Optional[dict]:
-    """ptxas usage of ``kernel<R>`` in ``csrc/<lib>.cu``'s build log."""
+def registers(lib: str, kernel: str, R: int, scalar: str = ""
+              ) -> Optional[dict]:
+    """ptxas usage of ``kernel<R>`` (``kernel<T, R>`` with ``scalar`` the
+    mangled T: "f" float, "d" double) in ``csrc/<lib>.cu``'s build log."""
     for entry, use in build.kernel_usage(lib).items():
-        if f"{kernel}ILi{R}E" in entry:
+        if f"{kernel}I{scalar}Li{R}E" in entry:
             return use
     return None
 
@@ -276,12 +310,14 @@ def measure(case: Case, reps: int, with_plain: bool = True) -> dict:
     N = case.queries.shape[0]
     search_bound = bounds.knn_bound(case.m, case.cfg, case.queries,
                                     case.wide)
-    n_groups = int(kg.group_queries(case.queries, case.cfg,
-                                    case.wide).n_groups[0])
     rows = {}
     for name, (fn, plain, is_kernel) in searches(case).items():
-        bound = (bounds.prep_bound(N, n_groups)
-                 if is_kernel is is_knn_prep_kernel else search_bound)
+        if is_kernel is is_knn_prep_kernel:
+            n_groups = int(kg.group_queries(case.queries, case.cfg,
+                                            case.wide).n_groups[0])
+            bound = bounds.prep_bound(N, n_groups)
+        else:
+            bound = search_bound
         row = {"name": name, "order": case.order,
                "shape": dict(N=N, R=27 if case.wide else 8,
                              B=case.cfg.bucket_slots,
@@ -311,10 +347,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     build.build_all(["knn", "knn_grouped"])
-    for tag in CASES:
-        for order in ("main", "shuffled"):
-            for row in measure(make_case(tag, order), args.reps).values():
-                print(json.dumps(row), flush=True)
+    for dtype in (torch.float32, torch.float64):
+        for tag in CASES:
+            for order in ("main", "shuffled"):
+                case = make_case(tag, order, dtype=dtype)
+                for row in measure(case, args.reps).values():
+                    print(json.dumps(row), flush=True)
     for lib in ("knn", "knn_grouped"):
         print(json.dumps({"ptxas": lib, "kernels": build.kernel_usage(lib)}),
               flush=True)

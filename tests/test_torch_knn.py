@@ -10,6 +10,7 @@ distances are distinct, since tie order may differ.  Against the XLA search,
 which does the same arithmetic in the same order, found and sq must also be
 bit-equal.
 """
+import dataclasses
 import functools
 import importlib.util
 from pathlib import Path
@@ -180,6 +181,70 @@ def test_ring_rows_per_bucket_width(B, rows):
 def test_ring_refuses_a_row_wider_than_its_stage():
     with pytest.raises(ValueError, match="does not fit"):
         tknn.ring_rows(8192)
+    with pytest.raises(ValueError, match="does not fit"):
+        tknn.ring_rows(4096, 8)
+
+
+@pytest.mark.parametrize("B, rows", [(16, 16), (64, 16), (128, 16),
+                                     (256, 8), (512, 4), (2048, 1)])
+def test_ring_rows_in_float64(B, rows):
+    """A float64 row takes twice the bytes: two stages of 16 rows fill the
+    ring's 128 KB at B = 128, and wider rows halve the rows a stage."""
+    assert tknn.ring_rows(B, 8) == rows
+    assert 2 * rows * 32 * B <= tknn.RING_BYTES
+
+
+def test_knn_bound_in_float64_counts_twice_the_bytes():
+    """The same map and queries in float64: the same rows and operations;
+    rows, queries, neighbours and distances at 8 bytes (found flags stay 1
+    byte), and the operations at the FP64 rate."""
+    from fast_lio_tpu_torch.kernels import bounds
+
+    rng = np.random.default_rng(67)
+    pts, q = _scene("dense", rng)
+    cfg, tm = _port_map(pts, 64)
+    qt = torch.tensor(q)
+    b32 = bounds.knn_bound(tm, cfg, qt)
+    b64 = bounds.knn_bound(thm.Map(tm.packed.double(), tm.dropped), cfg,
+                           qt.double())
+    n, k = len(q), thm.NUM_MATCH_POINTS
+    assert b64.distinct_rows == b32.distinct_rows and b64.ops == b32.ops
+    rows32 = b32.distinct_rows * 4 * 64 * 4
+    assert b32.nbytes == rows32 + n * (12 + 17 * k)
+    assert b64.nbytes == 2 * rows32 + n * (24 + 33 * k)
+    assert b64.ms == max(b64.nbytes / bounds.H100_HBM_BYTES_PER_S,
+                         b64.ops / bounds.H100_F64_FLOPS) * 1e3
+    assert bounds.H100_F64_FLOPS == 34e12
+
+
+def test_wrapper_routes_float64_cpu_tensors_to_the_plain_version():
+    rng = np.random.default_rng(68)
+    pts, q = _scene("wide", rng)
+    cfg, tm = _port_map(pts, 16)
+    m64 = thm.Map(tm.packed.double(), tm.dropped)
+    q64 = torch.tensor(q, dtype=torch.float64)
+    before = (dict(tknn.launches), dict(tknn.launches_f64))
+    for wide in (False, True):
+        got = tknn.knn_search(m64, cfg, q64, wide=wide)
+        want = thm.knn_search(m64, cfg, q64, wide=wide)
+        assert got[0].dtype == got[1].dtype == torch.float64
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert (tknn.launches, tknn.launches_f64) == before
+
+
+def test_pipeline_refuses_the_grouped_backend_in_float64():
+    """At construction, naming the dtype (the grouped kernels are float32
+    only); the default backend takes float64."""
+    from fast_lio_tpu_torch import config as tcfg
+    from fast_lio_tpu_torch import pipeline as tpipe
+
+    cfg = tcfg.Config(n_points_max=1024, n_ds_max=512, map_h_log2=10,
+                      compute_dtype="float64")
+    with pytest.raises(ValueError, match="float64"):
+        tpipe.Pipeline(dataclasses.replace(cfg, knn_backend="grouped"),
+                       device="cpu")
+    assert tpipe.Pipeline(cfg, device="cpu").map.packed.dtype == torch.float64
 
 
 def test_tile_union_stats_on_a_scene():
@@ -268,3 +333,132 @@ def test_cuda_tile_kernel_matches_plain_version_on_scenes(scene, B, wide):
         _rule(_np(got), _np(thm.knn_search(tm, cfg, qn, wide=wide)))
         if n >= 33:
             assert got[2].any()
+
+
+def _f64(tm, q, seed=69):
+    """The map and queries in float64, off the float32 grid."""
+    from fast_lio_tpu_torch.tools.microbench_knn import off_float32
+
+    return off_float32(tm, q, seed)
+
+
+def _bit_equal(got, ref):
+    """Found and sq bit-equal, and neighbours bit-equal where found."""
+    nb_g, sq_g, f_g = (np.asarray(a) for a in got)
+    nb_r, sq_r, f_r = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(f_g, f_r)
+    np.testing.assert_array_equal(sq_g, sq_r)
+    np.testing.assert_array_equal(nb_g[f_r], nb_r[f_r])
+
+
+def test_float64_scenes_hold_values_float32_cannot():
+    """``_f64`` moves every nonzero coordinate of the map and the queries
+    off the float32 grid, by less than half a float32 ulp (they round back
+    to the float32 values), and keeps the w channel."""
+    cfg, tm, q = cuda_scene("coherent", 16, n=256, device="cpu")
+    m64, q64 = _f64(tm, q)
+    B = cfg.bucket_slots
+    xyz32, xyz64 = tm.packed[:, :3 * B], m64.packed[:, :3 * B]
+    assert torch.equal(m64.packed[:, 3 * B:], tm.packed[:, 3 * B:].double())
+    for v32, v64 in ((xyz32, xyz64), (q, q64)):
+        assert v64.dtype == torch.float64
+        assert torch.equal(v64.float(), v32)
+        nz = v32 != 0
+        assert nz.sum() > 100
+        assert bool((v64.float().double() != v64)[nz].all())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_bit_equality_fails_a_float64_search_done_in_float32(wide):
+    """The float64 kernel's check catches the fault it is there for: the
+    plain search run in float32 on the same off-grid inputs and returned in
+    float64 (what a kernel that casts, or computes in float32, gives) is
+    not bit-equal to the float64 search."""
+    cfg, tm, q = cuda_scene("coherent", 16, n=256, device="cpu")
+    m64, q64 = _f64(tm, q)
+    want = thm.knn_search(m64, cfg, q64, wide=wide)
+    _bit_equal(want, want)
+    in_f32 = thm.knn_search(thm.Map(m64.packed.float(), m64.dropped), cfg,
+                            q64.float(), wide=wide)
+    assert torch.equal(in_f32[2], want[2]) and bool(want[2].any())
+    with pytest.raises(AssertionError):
+        _bit_equal(tuple(t.double() if t.is_floating_point() else t
+                         for t in in_f32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("B", [16, 64, 128])
+@pytest.mark.parametrize("scene", CUDA_SCENES)
+def test_cuda_float64_kernel_matches_plain_version_on_scenes(scene, B, wide):
+    """The float64 instantiation on the scenes moved off the float32 grid
+    (``_f64``), at N = 1 .. 8193, bit-equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
+    cfg, tm, q = cuda_scene(scene, B)
+    m64, q64 = _f64(tm, q)
+    r = 27 if wide else 8
+    for n in CUDA_N:
+        qn = q64[:n].contiguous()
+        before = (tknn.launches_f64[r], tknn.launches[r])
+        got = tknn.knn_search(m64, cfg, qn, wide=wide)
+        torch.cuda.synchronize()
+        assert (tknn.launches_f64[r], tknn.launches[r]) == (before[0] + 1,
+                                                            before[1])
+        assert got[0].dtype == got[1].dtype == torch.float64
+        _bit_equal(_np(got), _np(thm.knn_search(m64, cfg, qn, wide=wide)))
+        if n >= 33:
+            assert got[2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_other_dtypes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
+    cfg, tm, q = cuda_scene("coherent", 16, n=64)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tknn.knn_search(tm, cfg, q.half())
+    with pytest.raises(ValueError, match="queries are torch.float64"):
+        tknn.knn_search(tm, cfg, q.double())
+
+
+@pytest.mark.cuda
+def test_cuda_float64_pipeline_runs_on_the_float64_kernel():
+    """A few scans of Pipeline(compute_dtype="float64") on the card: the
+    float64 kernel ran and the float32 one did not; positions within 5 mm
+    of the CPU run (the downsample's index_add_ sums in another order on
+    the card, which can move a voxel winner)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
+    from fast_lio_tpu_torch import config as tcfg
+    from fast_lio_tpu_torch import pipeline as tpipe
+    from fast_lio_tpu_torch import sim as tsim
+
+    cfg = tcfg.Config(lidar_type=tcfg.LidarType.AVIA, filter_size_surf=0.3,
+                      filter_size_map=0.3, n_points_max=2048, n_ds_max=1024,
+                      n_imu_max=32, map_h_log2=12, det_range=40.0,
+                      compute_dtype="float64")
+    data = tsim.generate(tsim.SimConfig(duration=0.8, n_rings=8,
+                                        n_azimuth=200, range_noise=0.01))
+    with pytest.raises(ValueError, match="float64"):
+        tpipe.Pipeline(dataclasses.replace(cfg, knn_backend="grouped"))
+    pos = {}
+    before = (dict(tknn.launches), dict(tknn.launches_f64))
+    for dev in ("cuda", "cpu"):
+        pipe = tpipe.Pipeline(cfg, device=dev)
+        imu_i = 0
+        for k in range(len(data.scans)):
+            stamp = data.scan_stamps[k]
+            while (imu_i < len(data.imu_t)
+                   and data.imu_t[imu_i] <= stamp + 0.1 + 1e-9):
+                pipe.push_imu(data.imu_t[imu_i], data.imu_acc[imu_i],
+                              data.imu_gyr[imu_i])
+                imu_i += 1
+            pipe.push_lidar(stamp, data.scans[k], data.scan_pt_times[k])
+            while pipe.spin_once():
+                pass
+        pos[dev] = np.stack([p for _, p, _ in pipe.get_trajectory()])
+    assert tknn.launches == before[0]
+    assert tknn.launches_f64[8] > before[1][8]
+    assert pos["cuda"].shape == pos["cpu"].shape and len(pos["cpu"]) >= 5
+    np.testing.assert_allclose(pos["cuda"], pos["cpu"], rtol=0, atol=5e-3)

@@ -1,17 +1,29 @@
-"""The port's measuring tools (``tools/profile_scan.py``,
-``tools/microbench_knn.py``, ``tools/bench_scaling.py``, the bound and the
-build log): the parts that run without a card."""
+"""The port's tools (``fast_lio_tpu_torch/tools/``: ``profile_scan``,
+``microbench_knn``, ``bench_scaling``, ``scenarios``, ``oracle_compare``,
+``oracle_ab``, ``eval_traj``, ``plot``, ``microbench_device``,
+``profile_stages``; the bound and the build log): the parts that run
+without a card, the tools that time the card at a tiny size on the CPU
+(``--device cpu``), and the rule that the port imports no JAX."""
+import ast
 import dataclasses
+import importlib.util
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from fast_lio_tpu_torch import pipeline, sim
+from fast_lio_tpu_torch import cli, pipeline, sim
 from fast_lio_tpu_torch.kernels import bounds, build
-from fast_lio_tpu_torch.tools import bench_scaling, microbench_knn, profile_scan
+from fast_lio_tpu_torch.math import so3
+from fast_lio_tpu_torch.tools import (bench_scaling, eval_traj,
+                                      microbench_device, microbench_knn,
+                                      oracle_ab, oracle_compare, plot,
+                                      profile_scan, profile_stages, scenarios)
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("intervals, busy", [
@@ -99,6 +111,29 @@ def test_microbench_shuffles_the_main_path_queries():
         microbench_knn.make_case("r8", "sorted", device="cpu")
 
 
+def test_microbench_float64_case_is_the_float32_case_off_its_grid():
+    """The float64 case holds the float32 case's map and queries moved off
+    the float32 grid (they round back to them), and its shuffled case the
+    same queries in the float32 case's shuffled order."""
+    f32 = microbench_knn.make_case("r27", "main", device="cpu")
+    f64 = microbench_knn.make_case("r27", "main", device="cpu",
+                                   dtype=torch.float64)
+    s32 = microbench_knn.make_case("r27", "shuffled", device="cpu")
+    s64 = microbench_knn.make_case("r27", "shuffled", device="cpu",
+                                   dtype=torch.float64)
+    assert f64.m.packed.dtype == f64.queries.dtype == torch.float64
+    assert torch.equal(f64.m.packed.float(), f32.m.packed)
+    assert torch.equal(f64.queries.float(), f32.queries)
+    assert torch.equal(s64.queries.float(), s32.queries)
+    assert torch.equal(s64.m.packed, f64.m.packed)
+    key = lambda q: q[np.lexsort(q.numpy().T)]  # noqa: E731
+    assert torch.equal(key(f64.queries), key(s64.queries))
+    nz = f32.queries != 0
+    assert bool((f64.queries.float().double() != f64.queries)[nz].all())
+    with pytest.raises(ValueError, match="dtype"):
+        microbench_knn.make_case("r8", device="cpu", dtype=torch.float16)
+
+
 @pytest.mark.parametrize("tag", ["r8", "r27"])
 def test_microbench_searches_what_the_main_path_searches(tag, monkeypatch):
     """The main case's queries are those ``pipeline.make_knn_fn`` hands its
@@ -162,3 +197,153 @@ def test_bench_scaling_measures_nothing_without_a_card(capsys):
     assert bench_scaling.main([]) == 1
     assert bench_scaling.main(["--ablate"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def _load_root_module(name):
+    """A module of the repository root (``bench.py``, ``tools/*.py``) by
+    path: they are scripts, not packages."""
+    spec = importlib.util.spec_from_file_location(
+        f"root_{name.replace('/', '_')}", ROOT / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", scenarios.NAMES)
+def test_scenarios_are_benchs(name):
+    """Every Config field equal, and the sim runs bit-equal, to the JAX
+    package's ``bench._scenario``."""
+    want_cfg, want = _load_root_module("bench")._scenario(name)
+    got_cfg, got = scenarios.scenario(name)
+    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(want_cfg)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        else:
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="unknown scenario"):
+        scenarios.scenario("kitti")
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """The port's runner on a 1 s sim run (CPU, pose log on), and the sim's
+    ground truth as a TUM file."""
+    out = tmp_path_factory.mktemp("cli")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli.main(["--sim", "--duration", "1.0", "--platform", "cpu",
+                         "--runtime-pos-log", "--out", str(out)]) == 0
+    finally:
+        torch.set_num_threads(n)
+    data = sim.generate(sim.SimConfig(duration=1.0))
+    quat = so3.matrix_to_quat(torch.tensor(data.gt_rot)).numpy()
+    cli._write_tum(out / "gt_tum.txt",
+                   zip(data.scan_stamps + 0.1, data.gt_pos, quat))
+    return out
+
+
+@pytest.mark.parametrize("align", [[], ["--align"]])
+def test_eval_traj_prints_the_jax_tools_numbers(cli_run, capsys, align):
+    args = [str(cli_run / "trajectory_tum.txt"), str(cli_run / "gt_tum.txt"),
+            *align]
+    assert eval_traj.main(args) == 0
+    got = capsys.readouterr().out
+    assert _load_root_module("tools/eval_traj").main(args) == 0
+    want = capsys.readouterr().out
+    assert got == want and "ATE RMSE" in got and "pairs: " in got
+
+
+def test_plot_writes_its_pngs(cli_run, capsys):
+    pytest.importorskip("matplotlib")
+    assert plot.main(["--out", str(cli_run)]) == 0
+    for png in ("state_evolution.png", "timing.png"):
+        assert (cli_run / png).stat().st_size > 0
+    assert "wrote" in capsys.readouterr().out
+    assert plot.main([]) == 1
+
+
+def test_oracle_compare_prints_the_jax_tools_lines(capsys):
+    assert oracle_compare.main(["1", "--device", "cpu", "--dtype",
+                                "float64"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == [
+        "pipeline", "oracle[intended]", "oracle[reference]",
+        "pipe vs oracle[intended]", "pipe vs oracle[reference]"]
+    assert all(" mm p50 " in ln and " mrad p50 " in ln for ln in lines[3:])
+
+
+def test_oracle_ab_prints_the_jax_tools_keys(capsys):
+    assert oracle_ab.main(["mid360", "0.05", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert set(out) == {"scenario", "scans", "duration_s", "pipeline",
+                        "oracle_quirks_f64", "ratio_aligned"}
+    assert set(out["pipeline"]) == {"ate_aligned_m", "ate_raw_m", "wall_s"}
+    assert set(out["oracle_quirks_f64"]) == {"ate_aligned_m", "ate_raw_m",
+                                             "wall_s", "map_size"}
+    assert out["scenario"] == "mid360" and out["scans"] >= 4
+
+
+def test_microbench_device_prints_the_jax_tools_rows(capsys):
+    assert microbench_device.main(["--device", "cpu", "--reps", "1"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    names = ["knn XLA (gather+d2+top5+extract)", "gather 32768 rows 1KB",
+             "elementwise 2MB r/w", "sort 32k int32",
+             "top_k(5) of (4096,512)", "scatter 4096 scalars"]
+    assert [ln[:48].rstrip() for ln in lines[:-1]] == names
+    out = json.loads(lines[-1])
+    assert list(out["rows"]) == names and out["device"] == "cpu"
+    # no device time is claimed for a CPU run
+    assert all(r["device_ms"] is None and r["host_ms"] > 0
+               for r in out["rows"].values())
+
+
+def test_profile_stages_prints_the_jax_tools_rows(capsys):
+    assert profile_stages.main(["mid360", "--device", "cpu", "--reps", "1"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("scenario=mid360  pads: raw=1024 ds=512 imu=8")
+    stages = [ln[:46].rstrip() for ln in lines[1:-2]]
+    assert stages == [
+        "imu propagate+deskew (8 knots, 1024 pts)",
+        "voxel downsample (1024 -> 512)",
+        "knn search (512 q, configured backend)",
+        "measurement (knn+fit+H, 1 eval)", "full iterated update (3 iters)",
+        "map insert (512)", "map prune (gated, rarely fires)"]
+    assert lines[-2].startswith("host-bound total (imu+ds+update+insert)")
+    out = json.loads(lines[-1])
+    assert out["total_host_ms"] > 0 and "total_device_ms" not in out
+
+
+def test_card_tools_run_on_cuda_by_default(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("has a CUDA device")
+    assert microbench_device.main([]) == 1
+    assert profile_stages.main([]) == 1
+    assert capsys.readouterr().err.count("no CUDA device") == 2
+    for tool, argv in ((oracle_compare, ["1"]), (oracle_ab, ["mid360", "0.05"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main(argv)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports jax or
+    fast_lio_tpu: they run on a card's host that has no JAX."""
+    files = [*sorted((ROOT / "fast_lio_tpu_torch").rglob("*.py")),
+             ROOT / "chip_smoke.py"]
+    assert len(files) > 40
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "fast_lio_tpu"), (
+                    f"{path.relative_to(ROOT)} imports {name}")

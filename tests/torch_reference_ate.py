@@ -3,15 +3,17 @@
 chip_smoke.py holds the port's ATE on the card against these numbers (plus
 1 cm), and imports no JAX itself, so they are computed here once, on a CPU,
 and written into chip_smoke.py as constants: the avia and ouster64 runs
-(phases 4-6) and the bag replay of phase 7 (the avia run written as a ROS1
-bag by the port's ``sim.write_avia_bag``, replayed by the JAX package's
-runner with the same flags).  Not a test (pytest does not
+(phases 4-6), the ouster64 run in float64 (phase 11; JAX's x64 mode on for
+that run only) and the bag replay of phase 7 (the avia run written as a
+ROS1 bag by the port's ``sim.write_avia_bag``, replayed by the JAX
+package's runner with the same flags).  Not a test (pytest does not
 collect this file); run it from the repository root:
 
-    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py
+    JAX_PLATFORMS=cpu python tests/torch_reference_ate.py [run ...]
 
 It runs the JAX pipeline at the presets' full size (a few GB of host memory,
-about a minute) and prints one JSON line per run.
+about a minute a run) and prints one JSON line per run; name runs to run
+only those.
 """
 import dataclasses
 import json
@@ -40,6 +42,10 @@ RUNS = {
                  simlib.SimConfig(duration=2.0, n_rings=64, n_azimuth=688,
                                   elev_min=-22.5, elev_max=22.5)),
 }
+# chip_smoke.py phase 11: phase 5's run in float64
+RUNS["ouster64_f64"] = (
+    dataclasses.replace(RUNS["ouster64"][0], compute_dtype="float64"),
+    RUNS["ouster64"][1])
 
 
 def run(cfg, sim_cfg):
@@ -81,7 +87,12 @@ def run_cli_bag(sim_cfg):
 
 
 if __name__ == "__main__":
-    for name, (cfg, sim_cfg) in RUNS.items():
-        print(json.dumps({"run": name, **run(cfg, sim_cfg)}), flush=True)
-    print(json.dumps({"run": "cli_bag", **run_cli_bag(RUNS["avia"][1])}),
-          flush=True)
+    names = sys.argv[1:] or [*RUNS, "cli_bag"]
+    for name in names:
+        if name == "cli_bag":
+            out = run_cli_bag(RUNS["avia"][1])
+        else:
+            cfg, sim_cfg = RUNS[name]
+            with jax.enable_x64(cfg.compute_dtype == "float64"):
+                out = run(cfg, sim_cfg)
+        print(json.dumps({"run": name, **out}), flush=True)
