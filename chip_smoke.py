@@ -12,7 +12,8 @@ Phases, in order; any failed check exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version on the card,
    at the shapes of the main path: the per-query kNN search (rows
    ``knn_r8``: R = 8, H = 2^15, B = 64, N = 8192; ``knn_r27``: R = 27,
-   H = 2^15, B = 128, N = 2048), the region-grouped search on the same
+   H = 2^15, B = 128, N = 8192, the wide fallback's search of every
+   downsampled point), the region-grouped search on the same
    maps and queries (``grouped_r8``, ``grouped_r27``) and its prep kernel
    (``grouped_prep_r8``, ``grouped_prep_r27``), over a map filled from a few
    simulated scans (``fast_lio_tpu_torch/tools/microbench_knn.py``), with
@@ -43,7 +44,7 @@ Phases, in order; any failed check exits non-zero:
    drops than the JAX package's on the same run (none), ATE within 1 cm of
    its ATE.
 5. ouster64 — the OUSTER64 preset (n_points_max 45056, 2^15 x 128-slot map,
-   wide fallback with partial-wide compaction): 20 scans.  Checks: the R = 27
+   wide fallback): 20 scans.  Checks: the R = 27
    kernel ran, and the checks of phase 4, with map drops within 10% of the
    JAX package's (it drops 307 points on this run).
 6. ouster64_grouped — phase 5's run with ``knn_backend="grouped"``: the
@@ -92,6 +93,22 @@ Phases, in order; any failed check exits non-zero:
    Float64: within its own bounds from tests/test_torch_oracle.py, 3 mm,
    0.7 mm and 0.7 mrad, which the float32 run does not meet (about
    1.5 mrad); the float64 R = 8 kernel ran.
+
+13. graph — avia, ouster64 and ouster64_grouped (phases 4-6's runs), each
+   through ``Pipeline(cfg, graphs=False)`` (the same sync-free step, eager)
+   and through the default, captured one, on the same scans.  The first
+   ``GRAPH_WARM_SCANS`` scans (IMU init, the map seeded, the capture) run
+   one by one; the rest run in one window under
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+   synchronising call, with the device drained at its end.  Prints scans/s
+   of the window for each mode, the graphs captured, their replays and
+   kernel launches per replay, and the waits of the pinned feed ring.
+   Checks: no sync in either window, positions within 5 mm, and the kNN
+   launch counts of the captured run (replays included) equal to the eager
+   run's (every scan launches the same kernels: every pass and arm runs).
+
+Phases 3-12 run the captured step (``Pipeline``'s default on CUDA); phase
+13 holds it against the eager one.
 
 Phases 4 and 5 also print how many distinct bucket rows each tile of their
 searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
@@ -151,6 +168,9 @@ TIMING_REPS = 25  # profiler calls and enqueue samples per search
 # rad): tests/test_oracle_trace.py's for float32, and for float64
 # tests/test_torch_oracle.py's BOUNDS["float64"]["intended"]
 ORACLE_PACKETS = 12
+# phase 13: scans run one by one before the window with no sync (IMU init,
+# the first step, which seeds the map, and the capture are among them)
+GRAPH_WARM_SCANS = 6
 ORACLE_BOUNDS = {"float32": (0.010, 0.005, 0.005),
                  "float64": (0.003, 0.0007, 0.0007)}
 
@@ -330,12 +350,10 @@ def rank_tables(pkg, case, world=2) -> dict:
 # --------------------------------------------------------------------------
 
 
-def feed(pipe, data):
-    """Push a sim run through the packet API; returns per-scan wall times."""
+def scan_pusher(pipe, data):
+    """Generator: each next() pushes one scan (with its IMU) and runs it."""
     imu_i = 0
-    times = []
     for k in range(len(data.scans)):
-        t0 = time.perf_counter()
         stamp = data.scan_stamps[k]
         while imu_i < len(data.imu_t) and data.imu_t[imu_i] <= stamp + 0.1 + 1e-9:
             pipe.push_imu(data.imu_t[imu_i], data.imu_acc[imu_i],
@@ -344,10 +362,20 @@ def feed(pipe, data):
         pipe.push_lidar(stamp, data.scans[k], data.scan_pt_times[k])
         while pipe.spin_once():
             pass
+        yield k
+
+
+def feed(pipe, data):
+    """Push a sim run through the packet API; returns per-scan wall times."""
+    times = []
+    push = scan_pusher(pipe, data)
+    while True:
+        t0 = time.perf_counter()
+        if next(push, None) is None:
+            return times
         if pipe.device.type == "cuda":
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return times
 
 
 def phase_small(pkg):
@@ -733,6 +761,74 @@ def phase_oracle(pkg):
     return runs["float64"][1], runs["float32"][1]
 
 
+# --------------------------------------------------------------------------
+# phase 13: the captured step against the eager one
+# --------------------------------------------------------------------------
+
+
+def run_unsynced(pkg, cfg, data, graphs: bool) -> dict:
+    """The run through ``Pipeline(cfg, graphs=graphs)``: GRAPH_WARM_SCANS
+    scans one by one, then the rest in one window under
+    ``set_sync_debug_mode("error")``, the device drained at its end."""
+    pipe = pkg["Pipeline"](cfg, graphs=graphs)
+    reset_launches(pkg)
+    push = scan_pusher(pipe, data)
+    for _ in range(GRAPH_WARM_SCANS):
+        next(push)
+        torch.cuda.synchronize()
+    n = len(data.scans) - GRAPH_WARM_SCANS
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        for _ in push:
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"scans_per_s": n / wall, "window_scans": n,
+           "launches": read_launches(pkg), "feed_waits": pipe.feed.waits,
+           "traj": pipe.get_trajectory()}
+    if graphs:
+        stats = pipe.graphs.stats()
+        out["graphs"] = {"captured": len(stats),
+                         "per_graph": {str(k): v for k, v in stats.items()}}
+    check(not pipe.health_check()["nan"], "graph: NaN in the state")
+    return out
+
+
+def phase_graph(pkg, runs) -> dict:
+    """Each run eager and captured on the same scans; returns the captured
+    runs' launches by run."""
+    by_run = {}
+    for name, cfg, sim_cfg in runs:
+        data = pkg["sim"].generate(sim_cfg)
+        eager = run_unsynced(pkg, cfg, data, graphs=False)
+        captured = run_unsynced(pkg, cfg, data, graphs=True)
+        dpos = max_pos_diff(captured["traj"], eager["traj"])
+        row = {"phase": "graph", "run": name, "max_pos_diff_m": dpos,
+               "tol_m": POS_TOL_M, "speedup": (captured["scans_per_s"]
+                                               / eager["scans_per_s"])}
+        for mode, r in (("eager", eager), ("captured", captured)):
+            row[mode] = {k: v for k, v in r.items() if k not in ("traj",
+                                                                 "launches")}
+            row[mode]["launches"] = {k: {f"r{q}": n for q, n in v.items()}
+                                     for k, v in r["launches"].items()}
+        log(row)
+        check(dpos <= POS_TOL_M, f"graph {name}: positions differ {dpos} m")
+        check(captured["launches"] == eager["launches"],
+              f"graph {name}: captured launches {captured['launches']} != "
+              f"eager {eager['launches']}")
+        check(sum(sum(v.values()) for v in captured["launches"].values()) > 0,
+              f"graph {name}: no kNN launch")
+        check(captured["graphs"]["captured"] >= 1
+              and all(g["replays"] > 0 for g in
+                      captured["graphs"]["per_graph"].values()),
+              f"graph {name}: no replay")
+        by_run[name] = captured["launches"]
+    return by_run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -879,10 +975,16 @@ def main() -> int:
     # 12. the float64 pipeline against the oracle
     l_oracle, l_oracle_f32 = phase_oracle(pkg)
 
+    # 13. the captured step against the eager one
+    l_graph = phase_graph(pkg, [("avia", config.PRESETS["avia"], avia_sim),
+                                ("ouster64", ouster_cfg, ouster_sim),
+                                ("ouster64_grouped", grouped_cfg, ouster_sim)])
+
     by_path = {"avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
                "fleet": l_fleet, "ouster64_f64": l_f64, "oracle": l_oracle,
-               "oracle_f32": l_oracle_f32}
+               "oracle_f32": l_oracle_f32,
+               **{f"graph_{k}": v for k, v in l_graph.items()}}
     by_rank = {"sharded_avia_1rank": ranks_avia,
                "sharded_ouster64_2ranks": ranks_ouster}
     for path, ranks in by_rank.items():  # the per-query kernel only

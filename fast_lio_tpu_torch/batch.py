@@ -14,12 +14,11 @@ via ``mark_done(i)``; the IMU static-init phase completes per stream on the
 host, and the rounds start when every live stream is initialized.
 
 How a round runs: the JAX package ``vmap``s the per-scan step over the
-streams, one batched device program per round.  The port's ``lio_step``
-reads the device inside the filter loop (the exit test) and in the
-wide-fallback arm, and lanes converge in different numbers of iterations,
-so a written-out batch dimension is not possible yet (ROADMAP.md queue A,
-the host-sync item).  So the lanes of a round run one after another on the
-card, each through its own single-stream ``Pipeline``: every stream is the
+streams, one batched device program per round.  The port's step reads
+nothing on the host, so a written-out batch dimension is possible now; it
+is the next slice (ROADMAP.md A.21).  Until then the lanes of a round run
+one after another on the card, each through its own single-stream
+``Pipeline`` (on CUDA each captures its own graphs): every stream is the
 single-stream code and matches a single ``Pipeline`` exactly.  A stream
 that has ended runs nothing (the JAX package carries it as a zero-point
 no-op lane of the batched step, which leaves its state untouched).  Unlike

@@ -104,11 +104,11 @@ class Config:
     # paid only on scans that need it.
     map_cell_multiplier: int = 4  # storage cell = N x map voxel; 5 with
     # knn_wide_fallback gives full sqrt(5)-gate coverage at 0.5 m voxels.
-    knn_wide_max_queries: int = 2048  # partial-wide compaction budget: the
-    # wide 3x3x3 re-search runs only for the unsaturated queries, compacted
-    # into this many slots (EXACT — saturated narrow results are provably
-    # exact; see pipeline.make_knn_fn).  When more queries are unsaturated
-    # the full wide search runs instead.  0 disables compaction.
+    knn_wide_max_queries: int = 2048  # partial-wide budget: with at most
+    # this many unsaturated queries only they take the wide 3x3x3 rows
+    # (EXACT — saturated narrow results are provably exact; the JAX package
+    # re-searches just them, compacted); with more, every row does.  0: every
+    # row whenever one query is unsaturated (pipeline.wide_fallback).
     rescore_research: bool = False  # converged-iteration re-searches re-rank
     # the scan's cached candidate block instead of re-gathering the map:
     # ~exact (pose moves mm between iterates) and saves 1-2 gathers/scan.

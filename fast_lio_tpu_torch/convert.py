@@ -15,7 +15,6 @@ import torch
 
 from . import state as st
 from .imu import ImuCarry
-from .map.hash_map import Map
 from .utils.checkpoint import local_map
 
 STATE_FIELDS = st.State._fields
@@ -31,7 +30,8 @@ def load_numpy_state(pipe, arrays: dict) -> None:
     """Load ``arrays`` (every key of ``KEYS``) into ``pipe`` in place.
 
     Float arrays are copied in the pipeline's compute dtype, the map in its
-    map dtype; nothing aliases the caller's numpy memory.  A sharded
+    map dtype, into the pipeline's own tensors (``Pipeline.load_state``);
+    nothing aliases the caller's numpy memory.  A sharded
     pipeline takes a sharded JAX pipeline's global layout (``map_packed``
     (n * H_local, 4B), ``map_dropped`` (n,)) and keeps its rank's rows.
     Raises KeyError on a missing key and ValueError on a map of the wrong
@@ -46,13 +46,12 @@ def load_numpy_state(pipe, arrays: dict) -> None:
 
     m = local_map(pipe, np.asarray(arrays["map_packed"]),
                   np.asarray(arrays["map_dropped"]))
-    pipe.x = st.State(*(t(arrays[f]) for f in STATE_FIELDS))
-    pipe.P = t(arrays["P"])
-    pipe.map = Map(packed=m.packed.to(dev, pipe.map.packed.dtype),
-                   dropped=m.dropped.to(dev, torch.int32))
-    pipe.imu_carry = ImuCarry(t(arrays["angvel_last"]), t(arrays["acc_s_last"]))
-    pipe.lm_state = (t(arrays["lm_lo"]), t(arrays["lm_hi"]),
-                     t(arrays["lm_init"], torch.bool))
+    pipe.load_state(
+        x=st.State(*(t(arrays[f]) for f in STATE_FIELDS)), P=t(arrays["P"]),
+        map=m, imu_carry=ImuCarry(t(arrays["angvel_last"]),
+                                  t(arrays["acc_s_last"])),
+        lm_state=(t(arrays["lm_lo"]), t(arrays["lm_hi"]),
+                  t(arrays["lm_init"], torch.bool)))
     pipe.acc_scale = float(arrays["acc_scale"])
     first = arrays["first_lidar_time"]
     pipe.first_lidar_time = None if first is None else float(first)

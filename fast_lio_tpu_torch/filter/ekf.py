@@ -8,10 +8,10 @@ Port of ``fast_lio_tpu/filter/ekf.py`` (the esekfom engine, esekfom.hpp):
   in the 23x23 information form, where the only reductions over the N
   measurement rows are H^T H (12x12) and H^T h (12,).
 
-The JAX ``while_loop`` becomes a Python loop with the same control flow; its
-exit test needs the iteration's ``valid`` and ``converged`` flags on the
-host, read together once per iteration (ROADMAP queue A: a CUDA-graph item
-removes that sync later).
+The JAX ``while_loop`` becomes a fixed count of passes, the most the loop can
+make, with its carry held in device tensors and every pass after the exit (or
+with no valid point) masked off by ``torch.where``: no host read, so the
+update records into a CUDA graph whole.
 
 Deviations carried over from the JAX package: the predict-step exp factors
 use the mathematically intended scale (the reference's ``scalar(1/2)`` is 0,
@@ -20,8 +20,10 @@ esekfom.hpp:312,344), and the solves use a jittered Cholesky instead of
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from .. import state as st
@@ -41,8 +43,8 @@ class MeasOut(NamedTuple):
     carry: Any  # opaque state threaded through iterations
 
 
-MeasFn = Callable[[st.State, bool, Any], MeasOut]
-# signature: (x_iterate, converge_flag, carry) -> MeasOut
+MeasFn = Callable[[st.State, torch.Tensor, Any], MeasOut]
+# signature: (x_iterate, converge_flag () bool, carry) -> MeasOut
 
 
 def _dt_tensor(dt, ref: torch.Tensor) -> torch.Tensor:
@@ -137,8 +139,32 @@ class UpdateResult(NamedTuple):
     x: st.State
     P: torch.Tensor
     carry: Any  # final measurement carry (neighbor caches etc.)
-    iterations: int  # number of h_fn evaluations performed
-    valid: bool  # whether any update was applied
+    iterations: torch.Tensor  # () int32, number of h_fn evaluations
+    valid: torch.Tensor  # () bool, whether any update was applied
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(epsi, dtype: torch.dtype, device: torch.device):
+    """(epsi, eye(DOF)) on the device, made once per (value, dtype, device):
+    no host-to-device copy per call (none may run inside a CUDA graph).
+    Read-only."""
+    epsi = torch.as_tensor(epsi, dtype=dtype, device=device)
+    return epsi, torch.eye(st.DOF, dtype=dtype, device=device)
+
+
+def _hashable(v):
+    """A float or a tuple of floats: the cache key of a scalar or vector."""
+    a = np.asarray(v, dtype=np.float64)
+    return float(a) if a.ndim == 0 else tuple(a.tolist())
+
+
+def select(flag: torch.Tensor, new, old):
+    """``torch.where(flag, new, old)`` leaf by leaf over tensors, numbers and
+    (named) tuples of them: ``lax.cond``'s pick of a carry, on the device."""
+    if isinstance(new, tuple):
+        leaves = [select(flag, a, b) for a, b in zip(new, old)]
+        return type(new)(*leaves) if hasattr(new, "_fields") else tuple(leaves)
+    return torch.where(flag, new, old)
 
 
 def update_iterated(
@@ -153,40 +179,51 @@ def update_iterated(
 ) -> UpdateResult:
     """The modified iterated update (esekfom.hpp:1619-1931).
 
-    ``h_fn(x, converge, carry)`` plays ``h_dyn_share``; ``converge`` (a host
-    bool) gates the kNN re-search exactly like ``ekfom_data.converge``
-    (laserMapping.cpp:667).  Control flow is the JAX ``while_loop``'s
-    (``fast_lio_tpu/filter/ekf.py:277-350``): ``converge`` starts True, the
+    ``h_fn(x, converge, carry)`` plays ``h_dyn_share``; ``converge`` (a ()
+    bool tensor) gates the kNN re-search exactly like ``ekfom_data.converge``
+    (laserMapping.cpp:667).  The passes follow the JAX ``while_loop``
+    (``fast_lio_tpu/filter/ekf.py:256-350``): ``converge`` starts True, the
     C++ loop variable ``i`` starts at -1, a re-search is forced at
     ``i == max_iter-2`` if no iteration has converged, the loop exits on
     ``t > 1`` or ``i == max_iter-1``, and a pass with ``valid`` False leaves
-    the iterate unchanged (but still counts as an evaluation).
+    the iterate unchanged (but still counts as an evaluation).  Here all
+    ``max_iter + 1`` passes run (``i`` from -1 while ``i < max_iter``: the
+    most the loop makes), the carry (``i``, ``t``, ``converge``, ``done``,
+    ``any_valid``, ``n_evals``, the iterate) lives in device tensors, and a
+    pass after ``done`` leaves every carried value as it was, the
+    measurement carry included: the results are the loop's, with no host
+    read.
 
     ``group`` (a ``parallel.ShardGroup``): the measurement rows are split
-    across its ranks, and each iteration sums H^T H, H^T h and the ranks'
+    across its ranks, and each pass sums H^T H, H^T h and the ranks'
     ``valid`` flags over them in one ``all_reduce_sum`` — the JAX package's
     two ``psum`` (``fast_lio_tpu/filter/ekf.py:294-298``), elementwise sums
-    alike.  ``valid`` joins the sum because the loop's host read decides
-    whether the ranks meet again: it must read a value that is the same on
-    every rank, and a rank's own ``valid`` comes from its own downsample,
-    whose atomic sums on CUDA may differ from another rank's in the last
-    bit.  (It is the same flag wherever the ranks' selections agree.)
-    Without a group nothing changes.
+    alike.  ``valid`` joins the sum so that every rank masks the same
+    passes: a rank's own ``valid`` comes from its own downsample, whose
+    atomic sums on CUDA may differ from another rank's in the last bit.
+    (It is the same flag wherever the ranks' selections agree.)  Every rank
+    runs every pass, so the collectives match across ranks.  Without a
+    group nothing changes.
     """
     dtype, device = P.dtype, P.device
-    epsi = torch.as_tensor(epsi, dtype=dtype, device=device)
+    epsi, eye = _constants(_hashable(epsi), dtype, device)
     x_prop, P_prop = x, P
     n = st.DOF
-    eye = torch.eye(n, dtype=dtype, device=device)
 
-    i, t, converge = -1, 0, True
-    done, any_valid, n_evals = False, False, 0
+    def scalar(v, dt):
+        return torch.full((), v, dtype=dt, device=device)
+
+    i32 = torch.int32
+    i, t = scalar(-1, i32), scalar(0, i32)
+    n_evals = scalar(0, i32)
+    converge = scalar(True, torch.bool)
+    done, any_valid = scalar(False, torch.bool), scalar(False, torch.bool)
     h_carry = carry0
     P_post = P_prop
     dx_final = torch.zeros(n, dtype=dtype, device=device)
-    while not done and i < max_iter:
+    for _ in range(max_iter + 1):
         out = h_fn(x, converge, h_carry)
-        i_cpp = i  # value of the C++ iteration variable for this pass
+        active = ~done
 
         mrows = out.mask.to(dtype)
         h_x = out.h_x * mrows[:, None]
@@ -199,11 +236,11 @@ def update_iterated(
 
         HTH = h_x.T @ h_x  # (12,12) — the only N-reductions
         HTh = h_x.T @ h  # (12,)
-        valid_t = torch.as_tensor(out.valid, device=device).reshape(())
+        valid = out.valid.reshape(())
         if group is not None:
             red = group.all_reduce_sum(torch.cat(
-                [HTH.reshape(-1), HTh, valid_t.to(dtype).reshape(1)]))
-            HTH, HTh, valid_t = red[:144].reshape(12, 12), red[144:156], red[156] > 0
+                [HTH.reshape(-1), HTh, valid.to(dtype).reshape(1)]))
+            HTH, HTh, valid = red[:144].reshape(12, 12), red[144:156], red[156] > 0
 
         # info-form gain: P_temp = (P_w/R)^{-1} + blockdiag(HTH, 0)
         P_temp = _spd_solve(P_w / R, eye).clone()
@@ -214,34 +251,28 @@ def update_iterated(
 
         dx_ = K_h + K_x12 @ dx_new[:12] - dx_new
         x_new = st.boxplus(x, dx_)
-        converged_t = torch.all(torch.abs(dx_) <= epsi)
+        converged = torch.all(torch.abs(dx_) <= epsi)
 
-        # the loop's one host read: (valid, converged)
-        valid, converged = torch.stack([valid_t, converged_t]).tolist()
-
-        t_new = t + int(converged)
+        t_new = t + converged.to(i32)
         # force re-search on the second-to-last lap if never converged
         # (esekfom.hpp:1829-1832)
-        force = t_new == 0 and i_cpp == max_iter - 2
-        done_now = t_new > 1 or i_cpp == max_iter - 1
-        if valid:
-            x = x_new
-            t = t_new
-            converge = bool(converged) or force
-            P_post = R * P_inv
-            dx_final = dx_
-        h_carry = out.carry
-        done = bool(valid) and done_now
-        any_valid = any_valid or bool(valid)
-        i += 1
-        n_evals += 1
+        force = (t_new == 0) & (i == max_iter - 2)
+        done_now = (t_new > 1) | (i == max_iter - 1)
+        take = active & valid  # the loop ran this pass and it was valid
+        x = select(take, x_new, x)
+        t = torch.where(take, t_new, t)
+        converge = torch.where(take, converged | force, converge)
+        P_post = torch.where(take, R * P_inv, P_post)
+        dx_final = torch.where(take, dx_, dx_final)
+        h_carry = select(active, out.carry, h_carry)
+        done = done | (take & done_now)
+        any_valid = any_valid | take
+        i = i + active.to(i32)
+        n_evals = n_evals + active.to(i32)
 
     # Final covariance: (I - K_x) P_w = R * P_inv in exact arithmetic, so
     # P = T (R P_inv) T^T (SPD by construction; see the JAX package's note)
-    if any_valid:
-        T = _block_transform(dx_final, x, x_prop)
-        P_new = _sym(T @ P_post @ T.T)
-    else:
-        P_new = P_prop
+    T = _block_transform(dx_final, x, x_prop)
+    P_new = torch.where(any_valid, _sym(T @ P_post @ T.T), P_prop)
     return UpdateResult(x=x, P=P_new, carry=h_carry, iterations=n_evals,
                         valid=any_valid)

@@ -22,9 +22,19 @@ Unlike the JAX package (pure functions over donated buffers), ``insert`` and
 ``prune_outside`` update ``Map.packed`` in place: the map is the one large
 tensor of the system (32-64 MB at the presets), and a copy per scan would
 double its traffic.
+
+The dump row: ``make_map`` allocates one row more than the H buckets and
+``Map.packed`` is the view of the first H.  The insert's scatter writes the
+rows it masks off into that trailing row, the counterpart of JAX's
+``mode="drop"`` (torch's ``index_put_`` has no such mode), so it writes
+through a fixed-size index with no host read.  Nothing reads the dump row:
+not ``map_size``, not the kNN kernels (they address H buckets), not the
+checkpoints (they save ``packed``).  ``from_packed`` builds a map with the
+row from any ``(H, 4B)`` tensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -71,12 +81,36 @@ class Map(NamedTuple):
 
 
 def make_map(cfg: MapConfig, dtype=torch.float32, device=None) -> Map:
+    """An empty map: ``packed`` (H, 4B) is the view of the first H rows of
+    an (H + 1, 4B) tensor whose last row is the insert's dump row."""
     H, B = cfg.num_buckets, cfg.bucket_slots
-    packed = torch.zeros((H, 4 * B), dtype=dtype, device=device)
-    packed[:, 3 * B:] = W_FREE
-    return Map(packed=packed,
+    rows = torch.zeros((H + 1, 4 * B), dtype=dtype, device=device)
+    rows[:, 3 * B:] = W_FREE
+    return Map(packed=rows[:H],
                dropped=torch.zeros((), dtype=torch.int32, device=device))
 
+
+def from_packed(packed: torch.Tensor, dropped: torch.Tensor) -> Map:
+    """A map with a dump row holding a copy of ``packed`` (H, 4B) and
+    ``dropped`` (any shape): what ``insert`` takes from a saved or cloned
+    table."""
+    H, W = packed.shape
+    rows = torch.empty((H + 1, W), dtype=packed.dtype, device=packed.device)
+    rows[:H] = packed
+    rows[H] = 0.0
+    return Map(packed=rows[:H], dropped=dropped.clone())
+
+
+def _with_dump_row(packed: torch.Tensor) -> torch.Tensor:
+    """The (H + 1, 4B) rows behind ``packed`` (H, 4B): its buckets and the
+    dump row after them.  Raises ValueError on a table with no dump row."""
+    H, W = packed.shape
+    need = (packed.storage_offset() + (H + 1) * W) * packed.element_size()
+    if not packed.is_contiguous() or packed.untyped_storage().nbytes() < need:
+        raise ValueError(
+            "the map has no dump row after its buckets: build it with "
+            "make_map or from_packed")
+    return packed.as_strided((H + 1, W), (W, 1))
 
 def channels(m: Map, cfg: MapConfig = None):
     """(x, y, z, w) channel views of the packed rows, each (H, B)."""
@@ -173,9 +207,16 @@ def region_cells(queries: torch.Tensor, cfg: MapConfig, wide: bool = False):
     Standard: round-to-corner 2x2x2 (coverage radius cell_size/2).
     Wide: centered 3x3x3 (coverage radius cell_size)."""
     base = region_base(queries, cfg, wide)
+    off = _region_offsets(wide, queries.device)
+    return base, base[:, None, :] + off[None], off.shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _region_offsets(wide: bool, device: torch.device) -> torch.Tensor:
+    """The region's cell offsets (R, 3) int32, made once per device: no
+    host-to-device copy per search (none may run inside a CUDA graph)."""
     offsets = (_WIDE_OFFSETS + 1) if wide else _NEIGHBOR_OFFSETS
-    off = torch.as_tensor(offsets, device=queries.device)
-    return base, base[:, None, :] + off[None], len(offsets)
+    return torch.as_tensor(offsets, device=device)
 
 
 def dedup_buckets(buckets: torch.Tensor, sentinel: int):
@@ -337,6 +378,8 @@ def insert(
     Same algorithm as the JAX package: one stable sort of two int32 keys
     (bucket | rel_x, rel_y | rel_z; 15 bits per axis) serves both the
     per-voxel dedup (segment min of d_mid) and the per-bucket append ranks.
+    Every point is scattered: those that write nothing go to the map's dump
+    row (see the module docstring), so no host read sizes the scatter.
     """
     if cfg.h_log2 > 15:
         raise ValueError(
@@ -430,14 +473,15 @@ def insert(
     overflow = torch.sum(do_append & (rank >= free_count), dtype=i32)
 
     # ---- scatter: replace and append are disjoint, and every written slot
-    # is distinct, so one flat index_put of (x, y, z, w=0) per point
+    # is distinct, so one flat index_put of (x, y, z, w=0) per point; the
+    # points that write nothing all land in the dump row at H * W
     write_on = do_replace | app_ok
     write_slot = torch.where(do_replace, same_slot, app_slot)
-    base = bucket[write_on] * W + write_slot[write_on]
+    base = torch.where(write_on, bucket * W + write_slot, H * W)
     idx = torch.stack([base, base + B, base + 2 * B, base + 3 * B], -1)
-    p_on = pts[write_on].to(dtype)
-    vals = torch.cat([p_on, torch.zeros_like(p_on[:, :1])], dim=-1)
-    m.packed.view(-1)[idx.reshape(-1)] = vals.reshape(-1)
+    p_all = pts.to(dtype)
+    vals = torch.cat([p_all, torch.zeros_like(p_all[:, :1])], dim=-1)
+    _with_dump_row(m.packed).view(-1)[idx.reshape(-1)] = vals.reshape(-1)
     return Map(packed=m.packed, dropped=m.dropped + overflow)
 
 
@@ -447,18 +491,18 @@ def insert(
 
 
 def prune_outside(m: Map, lo: torch.Tensor, hi: torch.Tensor,
-                  active=True) -> Map:
+                  active: torch.Tensor = None) -> Map:
     """Invalidate every point outside the box [lo, hi], in place.
 
     Pruning to the *new* cube replaces the vacated-slab ``Delete_Point_Boxes``
-    bookkeeping (laserMapping.cpp:254-275).  ``active`` (a bool or a () bool
-    tensor) gates the whole pass without a host read: with it False the map
-    is unchanged.
+    bookkeeping (laserMapping.cpp:254-275).  ``active`` (a () bool tensor)
+    gates the whole pass without a host read: with it False the map is
+    unchanged.  None prunes unconditionally.
     """
     B = m.packed.shape[-1] // 4
     x, y, z, w = channels(m)
     inside = ((x >= lo[0]) & (x <= hi[0]) & (y >= lo[1]) & (y <= hi[1])
               & (z >= lo[2]) & (z <= hi[2]))
-    keep = inside | ~torch.as_tensor(active, device=m.packed.device)
+    keep = inside if active is None else inside | ~active
     m.packed[:, 3 * B:] = torch.where(keep, w, torch.full_like(w, W_FREE))
     return m

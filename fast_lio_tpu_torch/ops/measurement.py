@@ -5,7 +5,9 @@ batched pass over a fixed-size padded point block —
 
 * body->world transform by quaternion rotation (laserMapping.cpp:656-661);
 * convergence-gated kNN re-search with cached neighborhoods and plane fits
-  (laserMapping.cpp:667-672);
+  (laserMapping.cpp:667-672): the search and the fit run on every call and
+  ``converge`` (a () bool tensor) picks them or the cache with
+  ``torch.where``, the counterpart of JAX's ``lax.cond`` with no host read;
 * plane fit + robust gate s = 1 - 0.9 |pd2| / sqrt(|p|) > 0.9
   (laserMapping.cpp:678-691);
 * no compaction: the effective-point set is a row mask, since H^T H and
@@ -68,23 +70,27 @@ def compute_measurement(
     mask: torch.Tensor,  # (N,) live points
     knn_fn,  # (queries (N,3), mask (N,)) -> (nbrs (N,K,3), sq (N,K), found)
     cache: NeighborCache,
-    converge: bool,  # re-search gate (a host bool)
+    converge: torch.Tensor,  # () bool: the re-search's result is kept
     extrinsic_est: bool = True,
     row_mask: torch.Tensor = None,  # optional extra mask on H rows
 ):
     """One h_share_model evaluation.  Returns (h_x, h, rows, cache', valid,
-    p_world) with h_x (N, 12), h = -pd2 (N,), ``valid`` a () bool tensor."""
+    p_world) with h_x (N, 12), h = -pd2 (N,), ``valid`` a () bool tensor.
+
+    The re-search runs on every call; where ``converge`` is False the cache
+    is kept, bit for bit."""
     dtype = pts_body.dtype
     p_world = body_to_world(x, pts_body)
 
-    if converge:
-        nbrs, sq, found = knn_fn(p_world, mask)
-        all_found = torch.all(found, dim=-1)
-        close = sq[:, NUM_MATCH - 1] <= MAX_NN_SQ_DIST
-        selected = all_found & close & mask
-        pabcd, plane_ok = fit_plane(nbrs, found, PLANE_THRESHOLD)
-        cache = NeighborCache(nbrs.to(dtype), found, selected,
-                              pabcd.to(dtype), plane_ok)
+    nbrs, sq, found = knn_fn(p_world, mask)
+    all_found = torch.all(found, dim=-1)
+    close = sq[:, NUM_MATCH - 1] <= MAX_NN_SQ_DIST
+    selected = all_found & close & mask
+    pabcd, plane_ok = fit_plane(nbrs, found, PLANE_THRESHOLD)
+    fresh = NeighborCache(nbrs.to(dtype), found, selected, pabcd.to(dtype),
+                          plane_ok)
+    cache = NeighborCache(*(torch.where(converge, new, old)
+                            for new, old in zip(fresh, cache)))
 
     pabcd, plane_ok = cache.pabcd, cache.plane_ok
     pd2 = torch.sum(pabcd[:, :3] * p_world, dim=-1) + pabcd[:, 3]

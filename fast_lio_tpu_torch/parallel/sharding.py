@@ -16,10 +16,11 @@ filter is replicated:
 
 The JAX package runs this under ``shard_map``; here every rank runs
 ``sharded_lio_step`` eagerly in its own process, with the collectives of
-its ``ShardGroup``.  Every host decision that leads to a collective reads a
-replicated value, so all ranks enter the same collectives in the same order:
-the wide-fallback arm is chosen from the merged (all-gathered) results, and
-the filter loop's exit from the summed reductions (``filter/ekf.py``).  The
+its ``ShardGroup``.  The step reads nothing on the host: every rank runs
+every arm of the wide fallback and every pass of the filter loop, and picks
+on the device from replicated values (the merged kNN results, the summed
+reductions: ``filter/ekf.py``), so all ranks enter the same collectives in
+the same order.  The
 per-rank search is the per-query CUDA kernel (``kernels.knn.knn_search``, its
 plain version on CPU tensors) whatever ``Config.knn_backend`` says, as the
 JAX sharded path always runs the single-table search: ``"grouped"`` does not
@@ -87,8 +88,8 @@ def split_global_map(packed, dropped, rank: int, world: int) -> hm.Map:
             f"a global map of {tuple(packed.shape)} rows with drop counters "
             f"{tuple(dropped.shape)} is not sharded {world} ways")
     h = packed.shape[0] // world
-    return hm.Map(packed=packed[rank * h:(rank + 1) * h].clone(),
-                  dropped=dropped[rank:rank + 1].to(torch.int32).clone())
+    return hm.from_packed(packed[rank * h:(rank + 1) * h],
+                          dropped[rank:rank + 1].to(torch.int32))
 
 
 def owner_of(cell: torch.Tensor, lcfg: hm.MapConfig, n: int) -> torch.Tensor:
@@ -121,44 +122,28 @@ def merge(group: ShardGroup, nbrs, sq, k):
 def merged_knn(group: ShardGroup, m_local: hm.Map, lcfg: hm.MapConfig,
                queries: torch.Tensor, k: int, cfg: Config, mask: torch.Tensor):
     """The exact global kNN over every rank's table, with the single map's
-    adaptive wide-region fallback and partial-wide compaction
-    (``Config.knn_wide_fallback``; ``pipeline.make_knn_fn``).
+    adaptive wide-region fallback (``Config.knn_wide_fallback``):
+    ``pipeline.wide_fallback`` around the merged search.  Both searches run
+    on every rank and a device-side choice picks, so all ranks enter the
+    same collectives with no host read."""
+    from ..pipeline import wide_fallback
 
-    The fallback's arm is a host branch on ``n_unsat``, which is read from
-    the merged results, bit-identical on every rank: all ranks take the same
-    arm and so enter the same collectives."""
-    def base(q, wide=False):
+    def local(q, wide=False):
         return knn_kernel.knn_search(m_local, lcfg, q, k=k, wide=wide)
 
-    nbrs, sq, found = base(queries)
     if ABLATE_NO_MERGE:  # exact at n = 1 only (the union is the local set)
         if cfg.knn_wide_fallback:
             raise ValueError("ABLATE_NO_MERGE skips the wide fallback")
-        return nbrs, sq, found
-    nbrs_m, sq_m, found_m = merge(group, nbrs, sq, k)
-    if not cfg.knn_wide_fallback:
-        return nbrs_m, sq_m, found_m
+        return local(queries)
 
-    rcov2 = (0.5 * lcfg.cell_size) ** 2
-    unsat = (~found_m[:, -1] | (sq_m[:, -1] > rcov2)) & mask
-    n_unsat = int(torch.sum(unsat))  # host read of a replicated value
-    if n_unsat == 0:
-        return nbrs_m, sq_m, found_m
-    N, K_w = queries.shape[0], cfg.knn_wide_max_queries
-    if not (K_w and K_w < N and n_unsat <= K_w):
-        nw, sw, _ = base(queries, wide=True)
-        return merge(group, nw, sw, k)
-    # partial wide (exact, see make_knn_fn): the unsaturated queries,
-    # compacted into K_w slots padded with N; the pads are dropped
-    idx = torch.nonzero(unsat)[:, 0]
-    pad = torch.full((K_w - n_unsat,), N, dtype=idx.dtype, device=idx.device)
-    qsub = queries[torch.clamp_max(torch.cat([idx, pad]), N - 1)]
-    nw, sw, _ = base(qsub, wide=True)
-    nw_m, sw_m, fw_m = merge(group, nw, sw, k)
-    nbrs_m[idx] = nw_m[:n_unsat]
-    sq_m[idx] = sw_m[:n_unsat]
-    found_m[idx] = fw_m[:n_unsat]
-    return nbrs_m, sq_m, found_m
+    def base(q, wide=False):
+        nbrs, sq, _found = local(q, wide)
+        return merge(group, nbrs, sq, k)
+
+    if not cfg.knn_wide_fallback:
+        return base(queries)
+    return wide_fallback(base, queries, mask, (0.5 * lcfg.cell_size) ** 2,
+                         cfg.knn_wide_max_queries)
 
 
 def sharded_lio_step(
@@ -230,7 +215,8 @@ def sharded_lio_step(
             cfg.epsi, group=None if ABLATE_NO_PSUM else group)
         x, P_, cache, iters = res.x, res.P, res.carry, res.iterations
     else:
-        cache, iters = cache0, 0
+        cache = cache0
+        iters = torch.zeros((), dtype=torch.int32, device=P_.device)
     n_eff = torch.sum(cache.selected)
 
     # 5: insert routed to the owning rank
@@ -291,7 +277,7 @@ def example_inputs(cfg: Config, map_cfg: hm.MapConfig, dtype, device):
         t(1.0), t(0.0), t(0.1), t(pts), t(np.linspace(0, 0.1, N)),
         torch.as_tensor(np.arange(N) < 3 * n_per, device=device), t(pt_int),
         t([-half] * 3), t([half] * 3),
-        torch.tensor(True, device=device), True,
+        torch.tensor(True, device=device), torch.tensor(True, device=device),
     )
 
 
@@ -332,9 +318,11 @@ def dryrun_rank(group: ShardGroup) -> dict:
     args[2] = make_sharded_map(map_cfg, group)
     out = _chain(lambda *a: sharded_lio_step(cfg, map_cfg, group, *a), args)
     refs = []
+    update = torch.ones((), dtype=torch.bool, device=group.device)
     for _ in range(2):
         args[2] = hm.make_map(map_cfg, torch.float32, group.device)
-        refs.append(_chain(lambda *a: lio_step(cfg, map_cfg, *a), args))
+        refs.append(_chain(lambda *a: lio_step(cfg, map_cfg, *a,
+                                               do_update=update), args))
     ref = refs[0]
 
     size_m, size_s = int(out[6]["map_size"]), int(ref[6]["map_size"])

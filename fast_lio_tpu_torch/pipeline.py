@@ -9,24 +9,29 @@ laserMapping.cpp:865-1019):
         downsample -> iterated point-to-plane iEKF update -> map insert,
         all at fixed shapes
 
-PyTorch runs eagerly, so ``lio_step`` is plain Python around tensor ops.
-The host reads the device a few times per scan: once per filter iteration
-(the exit test), once per wide-fallback search (which arm to run), once in
-the map insert's scatter, and once to know whether the first scan seeded the
-map.  ROADMAP.md queue A lists the CUDA-graph work that removes them.
+The step reads nothing on the host: every data-dependent choice of the JAX
+package's jitted step (``lax.cond``, ``lax.while_loop``, ``mode="drop"``
+scatters) runs every arm on the device and picks with ``torch.where``, and
+the scan's counts and flags reach it as scalars of one feed buffer.  So on
+CUDA ``Pipeline`` captures the step in one CUDA graph per pad bucket
+(``step_graph.StepGraphs``, the counterpart of ``jax.jit``'s one compile per
+input shape) and replays it for every scan; ``Pipeline(graphs=False)`` runs
+the same step eagerly (the counterpart of ``jax.disable_jit()``), and the
+CPU always does.  Two host reads remain, as in the JAX package: once during
+startup, whether the first scan seeded the map, and with
+``Config.stage_timing`` the wait for each scan's outputs.
 
 With the map sharded across ranks (``Pipeline(cfg, group=...)``,
-``parallel/sharding.py``) two of those reads decide whether the ranks meet
-in a collective: the fallback arm, read from the merged kNN results, and the
-filter's exit test, read from the summed reductions.  Both are results of a
-collective, so they are the same bits on every rank, and every rank enters
-the same collectives in the same order.  The insert's read stays on the
-rank's own table; the seeding read counts the downsampled points, the same
-integer on every rank.
+``parallel/sharding.py``) the step is the same sync-free program with the
+ranks' collectives in it; every rank runs every pass and every arm, so the
+ranks enter the same collectives in the same order.  It runs eagerly: a
+graph of NCCL collectives needs every rank to capture one, and gloo's
+cannot be captured (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import List, Optional, Tuple
@@ -45,6 +50,7 @@ from .math import so3
 from .ops import measurement as meas
 from .ops.voxel_grid import voxel_downsample
 from .parallel import sharding
+from .step_graph import PinnedFeed, StepGraphs
 
 MOV_THRESHOLD = 1.5  # laserMapping.cpp:78
 
@@ -92,11 +98,10 @@ def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
     kernel on CUDA tensors, its plain version on CPU tensors.  With
     ``Config.knn_wide_fallback``, queries left unsaturated by the 2x2x2
     search (fewer than 5 neighbors, or the 5th beyond the guaranteed
-    coverage radius cell_size/2) are searched again over the centered 3x3x3
-    region.  Partial-wide compaction (exact, see the JAX package): when at
-    most ``knn_wide_max_queries`` (K_w) queries are unsaturated, only those
-    are re-searched, compacted into K_w slots padded with N; the padded rows
-    are dropped on scatter.  Otherwise the full wide search runs.
+    coverage radius cell_size/2) take the rows of the centered 3x3x3 search,
+    or every row does when more than ``knn_wide_max_queries`` are
+    unsaturated (``wide_fallback``: both searches run, the device picks, no
+    host read).
 
     With ``Config.rescore_research`` the function instead returns the plain
     search with its candidate block, ``(nbrs, sq, found, cand_pts,
@@ -118,28 +123,38 @@ def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
 
     rcov2 = (0.5 * map_cfg.cell_size) ** 2
     K_w = cfg.knn_wide_max_queries
+    return lambda q, mask: wide_fallback(base, q, mask, rcov2, K_w)
 
-    def with_fallback(queries, mask):
-        N = queries.shape[0]
-        nbrs, sq, found = base(queries)
-        unsat = (~found[:, -1] | (sq[:, -1] > rcov2)) & mask
-        n_unsat = int(torch.sum(unsat))  # host read: which arm runs
-        if n_unsat == 0:
-            return nbrs, sq, found
-        if not (K_w and K_w < N and n_unsat <= K_w):
-            return base(queries, wide=True)
-        idx = torch.nonzero(unsat)[:, 0]
-        pad = torch.full((K_w - n_unsat,), N, dtype=idx.dtype, device=idx.device)
-        idx_pad = torch.cat([idx, pad])
-        qsub = queries[torch.clamp_max(idx_pad, N - 1)]
-        nw, sw, fw = base(qsub, wide=True)
-        # rows n_unsat.. are the padding (index N): dropped
-        nbrs[idx] = nw[:n_unsat]
-        sq[idx] = sw[:n_unsat]
-        found[idx] = fw[:n_unsat]
-        return nbrs, sq, found
 
-    return with_fallback
+def wide_fallback(base, queries: torch.Tensor, mask: torch.Tensor,
+                  rcov2: float, K_w: int):
+    """The adaptive wide-region fallback with no host read: JAX's
+    ``make_knn_fn`` fallback (``fast_lio_tpu/pipeline.py:92-125``) with each
+    ``lax.cond`` turned into a ``torch.where`` on the device.
+
+    ``base(q, wide=False) -> (nbrs, sq, found)`` is the search (the sharded
+    step passes its merged search).  The live queries (``mask``) that the
+    2x2x2 search leaves unsaturated (fewer than 5 neighbours, or the 5th
+    beyond the coverage radius, ``sq > rcov2``) take the centred 3x3x3
+    search's rows; when more than ``K_w`` are, every row takes them (with
+    ``K_w`` 0 or at least N, which JAX never compacts, as soon as one query
+    is unsaturated).  JAX re-searches only
+    the unsaturated queries, compacted into K_w slots, when there are at
+    most K_w of them; a query's search does not depend on the other queries
+    of the batch, so those rows are the full wide search's rows, and the
+    one full wide search that runs on every call serves both of JAX's wide
+    arms.  A device-side gate that skips it when no query needs it is in
+    ROADMAP.md."""
+    N = queries.shape[0]
+    narrow = base(queries)
+    nbrs, sq, found = narrow
+    unsat = (~found[:, -1] | (sq[:, -1] > rcov2)) & mask
+    n_unsat = torch.sum(unsat)
+    every = n_unsat > (K_w if K_w and K_w < N else 0)
+    pick = unsat | every
+    wide = base(queries, wide=True)
+    return tuple(torch.where(pick.view((N,) + (1,) * (a.dim() - 1)), a, b)
+                 for a, b in zip(wide, narrow))
 
 
 @dataclasses.dataclass
@@ -265,13 +280,22 @@ class StepDiag:
     preprocess_time: float = 0.0
 
 
+@functools.lru_cache(maxsize=None)
+def _fov_constants(cube_side_length: float, det_range: float,
+                   dtype: torch.dtype, device: torch.device):
+    """The cube's side and the detection range as () tensors in the state
+    dtype, rounded as the JAX package rounds them; made once per value,
+    dtype and device (no host-to-device copy may run inside a CUDA graph).
+    Read-only."""
+    return (torch.tensor(cube_side_length, dtype=dtype, device=device),
+            torch.tensor(det_range, dtype=dtype, device=device))
+
+
 def fov_segment(cfg: Config, pos_lid, lm_lo, lm_hi, lm_init):
     """lasermap_fov_segment (laserMapping.cpp:231-277) on device: slide the
     local-map cube when the LiDAR nears a face."""
-    # constants in the state dtype, rounded as the JAX package rounds them
-    cube = torch.tensor(cfg.cube_side_length, dtype=pos_lid.dtype,
-                        device=pos_lid.device)
-    det = torch.tensor(cfg.det_range, dtype=pos_lid.dtype, device=pos_lid.device)
+    cube, det = _fov_constants(cfg.cube_side_length, cfg.det_range,
+                               pos_lid.dtype, pos_lid.device)
     half = cube / 2.0
     init_lo = pos_lid - half
     init_hi = pos_lid + half
@@ -309,13 +333,18 @@ def lio_step(
     lm_lo,
     lm_hi,
     lm_init,
-    ekf_inited,
-    do_update: bool = True,
+    ekf_inited: torch.Tensor,
+    do_update: torch.Tensor,
 ):
     """One full per-scan LIO step: IMU propagate + deskew -> local-map cube
     slide + prune -> voxel downsample -> iterated point-to-plane iEKF update
     -> map insert.  Returns (x, P, map, imu_carry, (lm_lo, lm_hi, lm_init),
-    clouds, diag).  The map is updated in place."""
+    clouds, diag).  The map is updated in place.
+
+    ``ekf_inited`` and ``do_update`` are () bool tensors.  The update runs
+    and its result is kept where ``do_update`` is True (JAX's ``lax.cond``
+    between ``run_update`` and ``skip_update``).  Nothing here reads the
+    device on the host."""
     deskew = cfg.lidar_type != LidarType.MARSIM
 
     # 1. IMU propagate + deskew
@@ -341,7 +370,7 @@ def lio_step(
     # 4. iterated point-to-plane update
     cache0 = meas.empty_cache(cfg.n_ds_max, pts_ds.dtype, pts_ds.device)
     knn_fn = make_knn_fn(cfg, map_cfg, m)
-    if cfg.rescore_research and do_update:
+    if cfg.rescore_research:
         # one map gather per scan: the full search runs here at the
         # predicted pose (what the loop's first iteration would search), and
         # every re-search in the loop re-ranks its candidate block
@@ -354,12 +383,12 @@ def lio_step(
             x_i, pts_ds, ds_mask, knn_fn, cache, converge, cfg.extrinsic_est_en)
         return ekf.MeasOut(h_x, h, sel, valid, cache)
 
-    if do_update:
-        res = ekf.update_iterated(x, P, h_fn, cache0, cfg.laser_point_cov,
-                                  cfg.max_iteration, cfg.epsi)
-        x, P, cache, iters = res.x, res.P, res.carry, res.iterations
-    else:
-        cache, iters = cache0, 0
+    res = ekf.update_iterated(x, P, h_fn, cache0, cfg.laser_point_cov,
+                              cfg.max_iteration, cfg.epsi)
+    # skip_update where the flag is False
+    x, P, cache = ekf.select(do_update, (res.x, res.P, res.carry),
+                             (x, P, cache0))
+    iters = torch.where(do_update, res.iterations, 0)
     n_eff = torch.sum(cache.selected)
 
     # 5. map insert with hysteresis
@@ -387,6 +416,13 @@ class Pipeline:
     ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
     unless the caller passes ``device="cpu"`` explicitly.
 
+    ``graphs``: on CUDA (the default None) the step is captured in a CUDA
+    graph at the first scan of each pad bucket and replayed for every later
+    one (``step_graph.StepGraphs``); ``graphs=False`` runs the same step
+    eagerly, the counterpart of ``jax.disable_jit()``.  The CPU never
+    captures (``graphs=True`` there raises), nor does a sharded pipeline.
+    A capture that fails raises; nothing falls back to the eager step.
+
     ``group`` (a ``parallel.ShardGroup``, from ``init_distributed``) shards
     the map across the group's ranks, on the group's device: the counterpart
     of the JAX package's ``Pipeline(cfg, mesh)``.  Every rank builds its own
@@ -395,9 +431,15 @@ class Pipeline:
     JAX sharded path (on the first, empty map it finds no point and changes
     nothing).  ``health_check`` and the checkpoints are collectives: every
     rank calls them.
+
+    The estimator state (``x``, ``P``, ``map``, ``imu_carry``, ``lm_state``)
+    lives in tensors the pipeline owns for its life: each scan writes into
+    them in place, and ``load_state`` copies a state in.  What a scan keeps
+    (trajectory poses, ``state_log``, the ``last_pts_*`` clouds, ``diags``)
+    is a copy made on the device, so a later scan never changes it.
     """
 
-    def __init__(self, cfg: Config, device=None, group=None):
+    def __init__(self, cfg: Config, device=None, group=None, graphs=None):
         if group is not None:
             if cfg.rescore_research:
                 # candidate blocks are per rank; re-ranking them across ranks
@@ -414,6 +456,16 @@ class Pipeline:
             raise RuntimeError(
                 "Pipeline runs on CUDA by default and no CUDA device is "
                 "available; pass device='cpu' to run the plain CPU path")
+        if graphs is None:
+            graphs = device.type == "cuda" and group is None
+        elif graphs and group is not None:
+            raise NotImplementedError(
+                "graphs=True with a sharded map: capturing the ranks' "
+                "collectives needs every rank to capture one graph "
+                "(ROADMAP.md); the sharded step runs eagerly")
+        elif graphs and device.type != "cuda":
+            raise ValueError("graphs=True: CUDA graphs need a CUDA device; "
+                             "the CPU runs the step eagerly")
         _check_knn_backend(cfg)
         self.cfg = cfg
         self.device = device
@@ -449,6 +501,9 @@ class Pipeline:
             cfg.pad_buckets or (cfg.n_points_max,))))
         self.truncated_points = 0
         self._warned_truncation = False
+        # the scan's feed buffer: pinned host memory on CUDA
+        self.feed = PinnedFeed() if device.type == "cuda" else None
+        self.graphs = StepGraphs(device) if graphs else None
 
         # host state
         self.imu_stats = imu_mod.empty_stats()
@@ -468,11 +523,82 @@ class Pipeline:
         self.last_pts_body_mask = None
         self.last_pts_body_intensity = None
 
+    def load_state(self, x: st.State = None, P: torch.Tensor = None,
+                   map: hm.Map = None, imu_carry: imu_mod.ImuCarry = None,
+                   lm_state: tuple = None) -> None:
+        """Copy the given parts of the estimator state into the pipeline's
+        own tensors, in place, in their dtype and on their device.  Every
+        write of the state goes through here (IMU init, the JAX handover in
+        ``convert``, a checkpoint resume, and each scan's step): a captured
+        step reads and writes those tensors, so rebinding them would leave
+        it on stale memory.  Raises ValueError on a shape that differs."""
+        pairs = []
+        if x is not None:
+            pairs += zip(self.x, x)
+        if P is not None:
+            pairs.append((self.P, P))
+        if map is not None:
+            pairs += [(self.map.packed, map.packed),
+                      (self.map.dropped, map.dropped)]
+        if imu_carry is not None:
+            pairs += zip(self.imu_carry, imu_carry)
+        if lm_state is not None:
+            pairs += zip(self.lm_state, lm_state)
+        for dst, src in pairs:
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(f"state of shape {tuple(src.shape)} loaded "
+                                 f"into {tuple(dst.shape)}")
+            dst.copy_(src)
+
     def _pad_for(self, n: int) -> int:
         """Smallest configured pad >= n (largest if none fits; the overflow
         is counted, never silent — see process_packet)."""
         pads = [p for p in self.pad_buckets if p >= n]
         return min(pads) if pads else max(self.pad_buckets)
+
+    # ------------------------------------------------------------------
+    # the step on the device
+    # ------------------------------------------------------------------
+
+    def _packed_step(self, buf: torch.Tensor) -> dict:
+        """One scan from the flat feed buffer (``_pack_buf``'s layout): the
+        JAX package's ``packed`` (``fast_lio_tpu/pipeline.py:541-564``).
+        The masks are rebuilt on the device from the counts in scalars 3-4
+        and the flags read from scalars 5-6, so no value of the scan is a
+        host constant of the program; the new state is written into the
+        pipeline's tensors (``load_state``).  Returns the scan's outputs:
+        ``pose`` (7,) = [pos | quat], ``diag`` (4,) int64 = [n_down, n_eff,
+        iterations, map_size], and the clouds of ``lio_step``.  Reads
+        nothing on the host, so ``StepGraphs`` captures it."""
+        cfg, dev = self.cfg, self.device
+        M = cfg.n_imu_max
+        N = (buf.shape[0] - 8 - M * 7) // 5
+        scalars = buf[:8]
+        imu = buf[8:8 + M * 7].reshape(M, 7)
+        o = 8 + M * 7
+        pts = buf[o:o + N * 3].reshape(N, 3)
+        pt_time = buf[o + N * 3:o + N * 4]
+        pt_int = buf[o + N * 4:o + N * 5]
+        pt_mask = torch.arange(N, device=dev) < scalars[3].to(torch.int32)
+        imu_mask = torch.arange(M, device=dev) < scalars[4].to(torch.int32)
+        imu_t = torch.where(imu_mask, imu[:, 0], torch.full_like(imu[:, 0], 1e9))
+        ekf_inited = scalars[5] > 0.5
+        args = (self.x, self.P, self.map, self.imu_carry, self.Q,
+                imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
+                scalars[0], scalars[1], scalars[2],
+                pts, pt_time, pt_mask, pt_int, *self.lm_state, ekf_inited)
+        if self.group is None:
+            out = lio_step(cfg, self.map_cfg, *args, do_update=scalars[6] > 0.5)
+        else:  # the sharded step updates on every scan, as JAX's does
+            out = sharding.sharded_lio_step(cfg, self.map_cfg, self.group, *args)
+        x, P, m, imu_carry, lm_state, clouds, d = out
+        self.load_state(x, P, m, imu_carry, lm_state)
+        diag = torch.stack([d[k].to(torch.int64).reshape(()) for k in
+                            ("n_down", "n_eff", "iters", "map_size")])
+        keep = ("world", "world_mask", "world_intensity", "body", "body_mask",
+                "body_intensity")
+        return dict(pose=torch.cat([x.pos, x.rot]), diag=diag,
+                    **{k: clouds[k] for k in keep})
 
     # ------------------------------------------------------------------
     # host orchestration
@@ -563,16 +689,28 @@ class Pipeline:
         self.process_packet(pkt)
         return True
 
-    def _pack_buf(self, pkt: ScanPacket, last_end_rel, pcl_end_rel, n_max):
+    def _pack_buf(self, pkt: ScanPacket, last_end_rel, pcl_end_rel,
+                  ekf_inited, do_update, n_max=None, out=None):
         """One flat f32 feed buffer: [scalars(8) | imu(M,7) | pts(N*3) |
         time(N) | intensity(N)], the JAX package's layout, so every input is
-        rounded to f32 exactly as there.  Fresh each scan (no aliasing of an
-        in-flight copy)."""
+        rounded to f32 exactly as there.  Scalars: acc_scale, last_end_rel,
+        pcl_end_rel, n_pts, n_imu, ekf_inited, do_update, 0.  Written into
+        ``out`` (a host array of the buffer's length) when given, else into
+        a fresh array."""
+        if n_max is None:
+            n_max = self.cfg.n_points_max
         m_max = self.cfg.n_imu_max
         n = min(len(pkt.pts), n_max)
         m = min(len(pkt.imu_t), m_max)
-        buf = np.zeros(8 + m_max * 7 + n_max * 5, np.float32)
-        buf[0:3] = (self.acc_scale, last_end_rel, pcl_end_rel)
+        size = 8 + m_max * 7 + n_max * 5
+        if out is None:
+            buf = np.zeros(size, np.float32)
+        else:
+            buf = out
+            buf.fill(0.0)
+        buf[0:8] = (self.acc_scale, last_end_rel, pcl_end_rel, n, m,
+                    1.0 if ekf_inited else 0.0, 1.0 if do_update else 0.0,
+                    0.0)
         imu = buf[8:8 + m_max * 7].reshape(m_max, 7)
         imu[:m, 0] = pkt.imu_t[:m] - pkt.lidar_beg_time
         imu[:m, 1:4] = pkt.imu_acc[:m]
@@ -583,7 +721,31 @@ class Pipeline:
         buf[o + n_max * 3:o + n_max * 3 + n] = pkt.pt_time[:n]
         if pkt.intensity is not None:
             buf[o + n_max * 4:o + n_max * 4 + n] = pkt.intensity[:n]
-        return buf, n, m
+        return buf
+
+    def _run_step(self, pkt, last_end_rel, pcl_end_rel, ekf_inited,
+                  pad) -> dict:
+        """Pack the scan, hand it to the device and run the step: a graph
+        replay (its first scan in a bucket runs eagerly, then the capture),
+        or the eager step.  Returns the step's outputs, copied off the
+        graph's tensors where a graph ran."""
+        args = (pkt, last_end_rel, pcl_end_rel, ekf_inited, self.map_built,
+                pad)
+        if self.feed is None:  # the CPU: a fresh buffer, no copy
+            return self._packed_step(torch.from_numpy(self._pack_buf(*args)))
+        host = self.feed.take(8 + self.cfg.n_imu_max * 7 + pad * 5)
+        self._pack_buf(*args, out=host.numpy())
+        if self.graphs is not None:
+            # the next replay overwrites the graph's outputs, and the next
+            # scan its input buffer (which the intensity cloud views)
+            out = {k: v.clone()
+                   for k, v in self.graphs.run(host, self._packed_step).items()}
+        else:
+            buf = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            buf.copy_(host, non_blocking=True)
+            out = self._packed_step(buf)
+        self.feed.copied()
+        return out
 
     def process_packet(self, pkt: ScanPacket):
         t0 = time.perf_counter()
@@ -599,9 +761,10 @@ class Pipeline:
                 self.imu_stats = imu_mod.update_stats(
                     self.imu_stats, pkt.imu_acc, pkt.imu_gyr)
                 if self.imu_stats.n > cfg.max_ini_count:
-                    self.x, self.P = imu_mod.make_init_state(
+                    x, P = imu_mod.make_init_state(
                         self.imu_stats, cfg.extrinsic_R_mat,
                         cfg.extrinsic_T_vec, self.dtype, self.device)
+                    self.load_state(x=x, P=P)
                     self.acc_scale = float(
                         st.G_M_S2 / np.linalg.norm(self.imu_stats.mean_acc))
                     self.imu_need_init = False
@@ -610,9 +773,7 @@ class Pipeline:
 
         last_end_rel = self.last_lidar_end_time - pkt.lidar_beg_time
         pcl_end_rel = pkt.lidar_end_time - pkt.lidar_beg_time
-        # bool(): a numpy stamp gives np.bool_, which torch takes as a float
-        ekf_inited = bool(
-            (pkt.lidar_beg_time - self.first_lidar_time) >= cfg.init_time)
+        ekf_inited = (pkt.lidar_beg_time - self.first_lidar_time) >= cfg.init_time
         pad = self._pad_for(len(pkt.pts))
         truncated = max(0, len(pkt.pts) - pad)
         if truncated:
@@ -625,54 +786,35 @@ class Pipeline:
                     "counted in health_check()['truncated_points'] — raise "
                     "Config.n_points_max or add a pad bucket)")
         diag.n_truncated = truncated
-        host_buf, n_pts, n_imu = self._pack_buf(pkt, last_end_rel, pcl_end_rel,
-                                                pad)
 
-        # one host->device copy, unpacked on the device
-        buf = torch.from_numpy(host_buf).to(self.device)
-        M, N = cfg.n_imu_max, pad
-        imu = buf[8:8 + M * 7].reshape(M, 7)
-        o = 8 + M * 7
-        pts = buf[o:o + N * 3].reshape(N, 3)
-        pt_time = buf[o + N * 3:o + N * 4]
-        pt_int = buf[o + N * 4:o + N * 5]
-        pt_mask = torch.arange(N, device=self.device) < n_pts
-        imu_mask = torch.arange(M, device=self.device) < n_imu
-        imu_t = torch.where(imu_mask, imu[:, 0], torch.full_like(imu[:, 0], 1e9))
-
-        args = (self.x, self.P, self.map, self.imu_carry, self.Q,
-                imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
-                buf[0], buf[1], buf[2],
-                pts, pt_time, pt_mask, pt_int,
-                *self.lm_state, ekf_inited)
-        if self.group is None:
-            out = lio_step(cfg, self.map_cfg, *args, do_update=self.map_built)
-        else:
-            out = sharding.sharded_lio_step(cfg, self.map_cfg, self.group, *args)
-        (self.x, self.P, self.map, self.imu_carry, self.lm_state, clouds, d
-         ) = out
+        # no host<->device sync below but the startup read and, with
+        # stage_timing, the wait for the outputs
+        out = self._run_step(pkt, last_end_rel, pcl_end_rel, ekf_inited, pad)
+        n_down, n_eff, iters, map_size = out["diag"]
         if not self.map_built:
             # one-time read during startup: did the first scan seed the map?
-            self.map_built = int(d["n_down"]) > 5
+            self.map_built = int(n_down) > 5
 
         self.last_lidar_end_time = pkt.lidar_end_time
-        self.last_pts_world = clouds["world"]
-        self.last_pts_world_mask = clouds["world_mask"]
-        self.last_pts_world_intensity = clouds["world_intensity"]
-        self.last_pts_body = clouds["body"]
-        self.last_pts_body_mask = clouds["body_mask"]
-        self.last_pts_body_intensity = clouds["body_intensity"]
+        self.last_pts_world = out["world"]
+        self.last_pts_world_mask = out["world_mask"]
+        self.last_pts_world_intensity = out["world_intensity"]
+        self.last_pts_body = out["body"]
+        self.last_pts_body_mask = out["body_mask"]
+        self.last_pts_body_intensity = out["body_intensity"]
 
-        diag.n_effective = d["n_eff"]
-        diag.iterations = d["iters"]
-        diag.n_down = d["n_down"]
-        diag.map_size = d["map_size"]
+        diag.n_effective = n_eff
+        diag.iterations = iters
+        diag.n_down = n_down
+        diag.map_size = map_size
         if cfg.stage_timing:
             # real per-scan latency: wait for the step's outputs
-            float(self.x.pos[0])
-            int(d["map_size"])
+            float(out["pose"][0])
+            int(map_size)
         diag.total_time = time.perf_counter() - t0
         self.diags.append(diag)
-        self.trajectory.append((pkt.lidar_end_time, self.x.pos, self.x.rot))
+        pose = out["pose"]
+        self.trajectory.append((pkt.lidar_end_time, pose[:3], pose[3:]))
         if cfg.runtime_pos_log:
-            self.state_log.append((pkt.lidar_beg_time, self.x))
+            self.state_log.append(
+                (pkt.lidar_beg_time, st.State(*(v.clone() for v in self.x))))

@@ -8,7 +8,8 @@ repository root:
     python3 -m fast_lio_tpu_torch.tools.bench_scaling --trend    # CPU
 
 * default, the intercept: the same scans through the unsharded pipeline and
-  through one NCCL rank of the sharded one, in turns; the ratio of their
+  through one NCCL rank of the sharded one, in turns, both eager (the
+  sharded step is not captured in a CUDA graph); the ratio of their
   scans/s is what the sharded path costs at n = 1.
 * ``--ablate``: its split: five variants in interleaved rounds (unsharded;
   sharded; sharded without the kNN merge; without the sums of the
@@ -93,8 +94,10 @@ def timed_pass(group, variant: str, cfg, pkts) -> float:
     sharded, no_merge, no_psum = VARIANTS[variant]
     sharding.ABLATE_NO_MERGE, sharding.ABLATE_NO_PSUM = no_merge, no_psum
     try:
+        # the sharded step runs eagerly, so the unsharded one does too: the
+        # ratio is then the cost of the sharded path, not of the graph
         pipe = (Pipeline(cfg, group=group) if sharded
-                else Pipeline(cfg, device=group.device))
+                else Pipeline(cfg, device=group.device, graphs=False))
         for p in pkts[:N_WARM]:
             pipe.process_packet(p)
         float(pipe.P[0, 0])

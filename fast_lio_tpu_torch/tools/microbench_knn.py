@@ -32,10 +32,9 @@ The map holds 5 simulated scans; the queries are those the main path
 searches for a 6th, at its true pose ("main"), and the same queries
 permuted by a seeded numpy permutation ("shuffled", incoherent order): the
 scan's voxel centroids from the pipeline's downsample, in its voxel order
-and padded as it pads, N = 8192 at R = 8, B = 64 (the avia preset); and
-those that search leaves unsaturated, compacted into 2048 slots as the
-partial-wide search does, at R = 27, B = 128 (the ouster64 preset); H =
-2^15.  The float64 rows (``knn_f64_r8``, ``knn_f64_r27``) search the same
+and padded as it pads, N = 8192 (``n_ds_max``), at R = 8, B = 64 (the avia
+preset) and at R = 27, B = 128 (the ouster64 preset, whose wide fallback
+searches all of them); H = 2^15.  The float64 rows (``knn_f64_r8``, ``knn_f64_r27``) search the same
 map and queries in float64, moved off the float32 grid by less than half a
 float32 ulp (``off_float32``).  Prints one JSON line per search and
 query order, then the card's name and power limit.
@@ -94,34 +93,21 @@ def map_config(preset: config.Config) -> hm.MapConfig:
                           cell_multiplier=preset.map_cell_multiplier)
 
 
-def main_path_queries(preset: config.Config, cfg: hm.MapConfig, m: hm.Map,
-                      scan: np.ndarray, rot: np.ndarray, pos: np.ndarray,
-                      wide: bool) -> torch.Tensor:
+def main_path_queries(preset: config.Config, scan: np.ndarray,
+                      rot: np.ndarray, pos: np.ndarray,
+                      device) -> torch.Tensor:
     """The queries the main path searches for one scan (LiDAR frame) at
-    pose (rot, pos): the voxel centroids of ``lio_step``'s downsample (the
-    preset's leaf, pad and key bound; voxel order, zero pads) moved to the
-    world.  Wide: the queries the narrow search leaves unsaturated, in
-    order, in the preset's ``knn_wide_max_queries`` slots, padded with the
-    last query as ``pipeline.make_knn_fn`` pads them (any beyond the slots
-    are left out, where the main path would search all wide)."""
-    dev = m.packed.device
-    pts = torch.tensor(scan, dtype=torch.float32, device=dev)
-    ds, ds_mask = voxel_downsample(
-        pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
+    pose (rot, pos), narrow and wide alike: the voxel centroids of
+    ``lio_step``'s downsample (the preset's leaf, pad and key bound; voxel
+    order, zero pads) moved to the world."""
+    pts = torch.tensor(scan, dtype=torch.float32, device=device)
+    ds, _ds_mask = voxel_downsample(
+        pts, torch.ones(len(pts), dtype=torch.bool, device=device),
         preset.filter_size_surf, preset.n_ds_max,
         coord_bound=preset.det_range * 1.25 + 5.0)
-    rot_t = torch.tensor(rot, dtype=torch.float32, device=dev)
-    q = ds @ rot_t.T + torch.tensor(pos, dtype=torch.float32, device=dev)
-    if not wide:
-        return q
-    _nbrs, sq, found = hm.knn_search(m, cfg, q)
-    unsat = (~found[:, -1] | (sq[:, -1] > (0.5 * cfg.cell_size) ** 2)) \
-        & ds_mask
-    K_w, N = preset.knn_wide_max_queries, q.shape[0]
-    idx = torch.nonzero(unsat)[:K_w, 0]
-    pad = torch.full((K_w - idx.shape[0],), N - 1, dtype=idx.dtype,
-                     device=dev)
-    return q[torch.cat([idx, pad])].contiguous()
+    rot_t = torch.tensor(rot, dtype=torch.float32, device=device)
+    return ds @ rot_t.T + torch.tensor(pos, dtype=torch.float32,
+                                       device=device)
 
 
 def off_float32(m: hm.Map, queries: torch.Tensor, seed: int):
@@ -163,8 +149,8 @@ def make_case(tag: str, order: str = "main", device="cuda",
         p = torch.tensor(pw, dtype=torch.float32, device=device)
         on = torch.ones(len(p), dtype=torch.bool, device=device)
         m = hm.insert(m, cfg, p, on, on)
-    q = main_path_queries(preset, cfg, m, data.scans[SCAN],
-                          data.gt_rot[SCAN], data.gt_pos[SCAN], wide)
+    q = main_path_queries(preset, data.scans[SCAN], data.gt_rot[SCAN],
+                          data.gt_pos[SCAN], device)
     if dtype == torch.float64:
         m, q = off_float32(m, q, seed + 200)
     if order == "shuffled":

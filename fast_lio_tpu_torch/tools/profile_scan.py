@@ -6,24 +6,31 @@ Run from the repository root on a machine with a CUDA device:
     python3 -m fast_lio_tpu_torch.tools.profile_scan [avia|ouster64 ...]
 
 For each preset it feeds the same simulated run as ``chip_smoke.py`` through
-``Pipeline`` on the card and, after ``--warm`` scans, measures three windows
-of ``--scans`` scans each, one after the other:
+``Pipeline`` on the card twice, in turns: the eager step
+(``graphs=False``) and the captured one (the default: one CUDA graph per pad
+bucket, replayed).  After ``--warm`` scans (the capture among them) it
+measures, one after the other, windows of ``--scans`` scans each:
 
-* a plain window: host clock around the scans, nothing added;
+* a plain window: host clock around the scans, nothing added, the device
+  drained at the end (scans/s);
 * a ``torch.profiler`` window (CPU + CUDA activities): the
   union of device activity intervals (kernels and copies) over
   the window's wall time gives the device's busy and idle share; kernels are
   summed by name; ``cudaStreamSynchronize`` calls count the host syncs, by
-  the op that made them.  The profiler slows the host, so
-  this window's wall time is longer than the plain one's;
-* a stage-timing window, where each stage function of ``lio_step`` is
-  wrapped with ``torch.cuda.synchronize()`` on both sides.  The syncs stop
-  the host from running ahead of the device, so the stages sum to more than
-  a plain scan: read them as shares.  The same window runs under
-  ``torch.cuda.set_sync_debug_mode("warn")``, which names the line of the
-  package behind each synchronising call.
+  the op that made them, and ``cudaEventSynchronize`` calls the waits of
+  the pinned feed ring (``step_graph.PinnedFeed``: the host ran that many
+  scans ahead of the device).  The profiler slows the host, so this
+  window's wall time is longer than the plain one's;
+* eager only, a stage-timing window, where each stage function of
+  ``lio_step`` is wrapped with ``torch.cuda.synchronize()`` on both sides.
+  The syncs stop the host from running ahead of the device, so the stages
+  sum to more than a plain scan: read them as shares.  The same window runs
+  under ``torch.cuda.set_sync_debug_mode("warn")``, which names the line of
+  the package behind each synchronising call.  A replay calls no stage
+  function, so the captured step has no such window.
 
-Prints one JSON line per preset, then the card's name and power limit.
+Prints one JSON line per preset and mode, then the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -149,6 +156,7 @@ def profile_window(step, n_scans: int) -> dict:
     dev_type = torch.autograd.DeviceType.CUDA
     intervals, by_kernel, calls = [], defaultdict(float), defaultdict(int)
     syncs_by_op = defaultdict(int)  # by the op that synchronised
+    feed_waits = 0
     for ev in prof.events():
         if ev.device_type == dev_type:
             intervals.append((ev.time_range.start, ev.time_range.end))
@@ -156,6 +164,8 @@ def profile_window(step, n_scans: int) -> dict:
             calls[ev.name] += 1
         elif ev.name == "cudaStreamSynchronize":
             syncs_by_op[_outermost_op(ev)] += 1
+        elif ev.name == "cudaEventSynchronize":
+            feed_waits += 1
     syncs = sum(syncs_by_op.values())
     # no device activity in the trace means the profiler did not see the
     # card: the device numbers are then not measured (None), not zero
@@ -167,6 +177,7 @@ def profile_window(step, n_scans: int) -> dict:
         "device_idle_share": busy_s and 1.0 - busy_s / wall_s,
         "device_activities_per_scan": len(intervals) / n_scans,
         "host_syncs_per_scan": syncs / n_scans,
+        "feed_waits_per_scan": feed_waits / n_scans,
         "host_syncs_by_op_per_scan": {
             k: v / n_scans for k, v in sorted(syncs_by_op.items(),
                                               key=lambda kv: -kv[1])},
@@ -228,12 +239,14 @@ def stage_window(step, n_scans: int) -> dict:
                 k: v / n_scans for k, v in lines.most_common()}}
 
 
-def run(name: str, n_scans: int, warm: int) -> dict:
+def run(name: str, n_scans: int, warm: int, graphs: bool) -> dict:
     cfg, sim_cfg = RUNS[name]
     data = sim.generate(sim_cfg)
-    if warm + 3 * n_scans > len(data.scans):
-        raise ValueError(f"{name}: {len(data.scans)} scans < warm + 3 * scans")
-    pipe = pipeline.Pipeline(cfg)
+    windows = 3 if not graphs else 2
+    if warm + windows * n_scans > len(data.scans):
+        raise ValueError(f"{name}: {len(data.scans)} scans < warm + "
+                         f"{windows} * scans")
+    pipe = pipeline.Pipeline(cfg, graphs=graphs)
     feeder = _scan_feeder(pipe, data)
     step = functools.partial(next, feeder)
     for _ in range(warm):
@@ -249,9 +262,15 @@ def run(name: str, n_scans: int, warm: int) -> dict:
     # the device's work per scan grows with the update's iterations
     profile["iterations_per_scan"] = statistics.mean(
         int(d.iterations) for d in pipe.diags[n_done:])
-    out = {"tool": "profile_scan", "preset": name, "scans": n_scans,
+    out = {"tool": "profile_scan", "preset": name,
+           "mode": "captured" if graphs else "eager", "scans": n_scans,
            "warm_scans": warm, "plain_wall_ms_per_scan": plain_ms,
-           "profile": profile, "stages": stage_window(step, n_scans)}
+           "scans_per_s": 1e3 / plain_ms, "profile": profile}
+    if graphs:
+        out["graphs"] = pipe.graphs.stats()
+    else:
+        out["stages"] = stage_window(step, n_scans)
+    out["feed_waits"] = pipe.feed.waits
     hc = pipe.health_check()
     if hc["nan"]:
         raise RuntimeError(f"{name}: NaN in the state")
@@ -273,7 +292,9 @@ def main(argv=None) -> int:
         print("profile_scan: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     for name in args.presets or RUNS:
-        print(json.dumps(run(name, args.scans, args.warm)), flush=True)
+        for graphs in (False, True):
+            print(json.dumps(run(name, args.scans, args.warm, graphs)),
+                  flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip(), flush=True)

@@ -16,8 +16,7 @@ the configured backend with the wide fallback.  Per row
 (``microbench_device.per_call``): on a card ``device_ms``
 (``torch.profiler``'s device activities per call: what the
 stage costs the card once host dispatch is gone) and ``enqueue_ms`` (host
-clock around one call, no synchronize inside: for the update, whose exit
-test reads the device once an iteration, the wait is in it); on the CPU
+clock around one call, no synchronize inside); on the CPU
 ``host_ms`` only.  The last row sums the stages a scan runs once (imu,
 downsample, update, insert): the per-scan device floor.  Prints the JAX
 tool's lines, then one JSON line with every row.  ``tools/profile_scan.py``
@@ -81,7 +80,8 @@ def stages(cfg, device: torch.device) -> dict:
     scalars = t([1.0, -0.005, 0.1])  # acc_scale, last end, scan end
     knn_fn = make_knn_fn(cfg, map_cfg, m)
     cache0 = meas.empty_cache(N_DS, dt, device)
-    m_ins = hm.Map(m.packed.clone(), m.dropped.clone())  # insert's own map
+    research = torch.ones((), dtype=torch.bool, device=device)
+    m_ins = hm.from_packed(m.packed, m.dropped)  # insert's own map
     no_nbrs = torch.zeros((N_DS, 5, 3), **f32)
     no_found = torch.zeros((N_DS, 5), dtype=torch.bool, device=device)
     box = (t([-150.0, -150, -150]), t([150.0, 150, 150]))
@@ -111,7 +111,7 @@ def stages(cfg, device: torch.device) -> dict:
             lambda: knn_fn(pts_ds, ds_mask), False),
         "measurement (knn+fit+H, 1 eval)": (
             lambda: meas.compute_measurement(x0, pts_ds, ds_mask, knn_fn,
-                                             cache0, True, True), False),
+                                             cache0, research, True), False),
         f"full iterated update ({cfg.max_iteration} iters)": (
             lambda: ekf.update_iterated(x0, P0, h_fn, cache0,
                                         cfg.laser_point_cov,

@@ -167,16 +167,10 @@ def load_pipeline(path, pipe):
     rank's rows of the global layout.  Returns the meta dict."""
     x, P, m, carry, meta = load(path, pipe.dtype, pipe.device)
     m = local_map(pipe, m.packed, m.dropped)
-    pipe.x, pipe.P, pipe.imu_carry = x, P, carry
-    pipe.map = hm.Map(packed=m.packed,
-                      dropped=m.dropped.to(pipe.map.dropped.dtype))
+    pipe.load_state(x=x, P=P, map=m, imu_carry=carry)
     if "lm_lo" in meta:  # full checkpoint
-        dev, dt = pipe.device, pipe.dtype
-        pipe.lm_state = (
-            torch.tensor(np.asarray(meta["lm_lo"]), dtype=dt, device=dev),
-            torch.tensor(np.asarray(meta["lm_hi"]), dtype=dt, device=dev),
-            torch.tensor(bool(meta["lm_init"]), device=dev),
-        )
+        pipe.load_state(lm_state=tuple(torch.as_tensor(np.asarray(meta[k]))
+                                       for k in ("lm_lo", "lm_hi", "lm_init")))
         pipe.acc_scale = float(meta["acc_scale"])
         pipe.imu_need_init = bool(meta["imu_need_init"])
         pipe.map_built = bool(meta["map_built"])

@@ -74,7 +74,7 @@ def measure_stage_times(pipe, n: int = N_REPS) -> dict:
                           device=dev)
     ds_mask = torch.ones(N, dtype=torch.bool, device=dev)
     x = pipe.x
-    m = hm.Map(packed=pipe.map.packed.clone(), dropped=pipe.map.dropped)
+    m = hm.from_packed(pipe.map.packed, pipe.map.dropped)
 
     # the CONFIGURED backend + wide fallback, not a bare knn_search: on the
     # sparse presets the wide re-search is where the search cost differs.
@@ -85,10 +85,11 @@ def measure_stage_times(pipe, n: int = N_REPS) -> dict:
     def knn_fn(q, mask):
         return full_search(q, mask)[:3]
     cache0 = meas.empty_cache(N, dtype, dev)
+    research = torch.ones((), dtype=torch.bool, device=dev)
 
     def search():
-        meas.compute_measurement(x, pts_ds, ds_mask, knn_fn, cache0, True,
-                                 cfg.extrinsic_est_en)
+        meas.compute_measurement(x, pts_ds, ds_mask, knn_fn, cache0,
+                                 research, cfg.extrinsic_est_en)
 
     no_nbrs = torch.zeros((N, 5, 3), dtype=dtype, device=dev)
     no_found = torch.zeros((N, 5), dtype=torch.bool, device=dev)

@@ -114,7 +114,8 @@ def test_compute_measurement_matches_jax(extrinsic_est, dt):
         jout = j_step(jx, jc, jnp.asarray(conv), jnp.asarray(nbrs),
                       jnp.asarray(sq), jnp.asarray(found))
         tout = tmeas.compute_measurement(
-            tx, torch.tensor(pts), torch.tensor(mask), t_knn, tc, conv,
+            tx, torch.tensor(pts), torch.tensor(mask), t_knn, tc,
+            torch.tensor(conv),
             extrinsic_est, torch.tensor(row_mask))
         jh_x, jh, jsel, jc, jvalid, jpw = jout
         th_x, th, tsel, tc, tvalid, tpw = tout

@@ -87,8 +87,8 @@ def test_small_avia_run_matches_jax(dtype):
 def test_sparse_outdoor_run_with_wide_fallback_matches_jax(monkeypatch):
     """The tests/test_sparse_regime.py outdoor geometry (far walls, sparse
     returns) with cell = 5 voxels and the wide fallback, cut to 1.5 s.  A
-    small partial-wide budget makes both wide arms run: the compacted
-    sub-batch and the full wide search."""
+    small partial-wide budget makes the fallback take both wide arms: the
+    unsaturated rows only (at most the budget) and every row (more)."""
     world = simlib.World(
         room_lo=np.array([-40.0, -20.0, 0.0]),
         room_hi=np.array([50.0, 70.0, 12.0]),
@@ -116,14 +116,34 @@ def test_sparse_outdoor_run_with_wide_fallback_matches_jax(monkeypatch):
             wide_sizes.append(q.shape[0])
         return search(m, cfg, q, k=k, wide=wide)
 
+    arms = []
+    fallback = tpipe.wide_fallback
+
+    def recording(base, queries, mask, rcov2, K_w):
+        narrow = []
+
+        def base_kept(q, wide=False):
+            out = base(q, wide)
+            if not wide:
+                narrow.append(out)
+            return out
+
+        out = fallback(base_kept, queries, mask, rcov2, K_w)
+        _nb, sq, found = narrow[0]
+        arms.append((int(torch.sum((~found[:, -1] | (sq[:, -1] > rcov2))
+                                   & mask)), K_w))
+        return out
+
     monkeypatch.setattr(tpipe.knn_kernel, "knn_search", counting)
+    monkeypatch.setattr(tpipe, "wide_fallback", recording)
     pj, pt = JPipeline(jc), tpipe.Pipeline(tc, device="cpu")
     _feed(pj, data)
     _feed(pt, data)
     np.testing.assert_allclose(_positions(pt), _positions(pj), rtol=0,
                                atol=POS_TOL["float32"])
-    assert 512 in wide_sizes  # the compacted partial-wide arm
-    assert 4096 in wide_sizes  # the full wide search
+    assert any(0 < n <= k for n, k in arms)  # the unsaturated rows only
+    assert any(n > k for n, k in arms)  # every row
+    assert set(wide_sizes) == {4096}  # the full wide search serves both
     assert pt.health_check()["map_dropped"] == pj.health_check()["map_dropped"]
 
 

@@ -102,7 +102,7 @@ def test_microbench_shuffles_the_main_path_queries():
     the same map."""
     main = microbench_knn.make_case("r27", "main", device="cpu")
     shuffled = microbench_knn.make_case("r27", "shuffled", device="cpu")
-    assert main.queries.shape == (2048, 3) and main.wide
+    assert main.queries.shape == (8192, 3) and main.wide
     assert torch.equal(main.m.packed, shuffled.m.packed)
     assert not torch.equal(main.queries, shuffled.queries)
     key = lambda q: q[np.lexsort(q.numpy().T)]  # noqa: E731
@@ -137,12 +137,12 @@ def test_microbench_float64_case_is_the_float32_case_off_its_grid():
 @pytest.mark.parametrize("tag", ["r8", "r27"])
 def test_microbench_searches_what_the_main_path_searches(tag, monkeypatch):
     """The main case's queries are those ``pipeline.make_knn_fn`` hands its
-    search for the downsampled scan: all n_ds_max slots at R = 8, and the
-    compacted unsaturated ones at R = 27."""
+    search for the downsampled scan: all n_ds_max slots, at R = 8 and, in
+    the wide fallback, at R = 27."""
     case = microbench_knn.make_case(tag, device="cpu")
     preset, sim_cfg, wide, _seed = microbench_knn.CASES[tag]
-    narrow = microbench_knn.main_path_queries(
-        preset, case.cfg, case.m, *_scan(sim_cfg), wide=False)
+    narrow = microbench_knn.main_path_queries(preset, *_scan(sim_cfg),
+                                              device="cpu")
     seen = []
     search = pipeline.knn_kernel.knn_search
 
@@ -156,8 +156,7 @@ def test_microbench_searches_what_the_main_path_searches(tag, monkeypatch):
     pipeline.make_knn_fn(preset, case.cfg, case.m)(narrow, valid)
     searched = [q for q, w in seen if w == wide]
     assert len(searched) == 1 and torch.equal(searched[0], case.queries)
-    assert case.queries.shape[0] == (preset.knn_wide_max_queries if wide
-                                     else preset.n_ds_max)
+    assert case.queries.shape[0] == preset.n_ds_max
 
 
 def _scan(sim_cfg):

@@ -102,7 +102,8 @@ def _torch_inputs(ins, device):
         a = np.asarray(a)
         out.append(torch.tensor(a, device=device) if a.dtype == bool
                    else torch.tensor(a, dtype=DT, device=device))
-    out[-1] = bool(ins[-1])  # ekf_inited, a host bool as Pipeline passes it
+    # ekf_inited, a () bool tensor as Pipeline passes it
+    out[-1] = torch.tensor(bool(ins[-1]), device=device)
     return out
 
 
@@ -187,7 +188,8 @@ def sharding_cases(group: ShardGroup, init, ins1, ins2) -> dict:
                 tshd.make_sharded_map(map_cfg, one, DT), init, ins1, ins2, dev)
             xu, Pu, mu, du = _two_rounds(
                 lambda *a, do_update: tpipe.lio_step(
-                    cfg, map_cfg, *a, do_update=do_update),
+                    cfg, map_cfg, *a,
+                    do_update=torch.tensor(do_update, device=dev)),
                 thm.make_map(map_cfg, DT, dev), init, ins1, ins2, dev,
                 lambda m: single.setdefault("packed", m.packed.cpu().numpy().copy()))
             out["one_rank"][name] = dict(
