@@ -31,7 +31,15 @@ Phases, in order; any failed check exits non-zero:
    float32 grid by less than half a float32 ulp
    (``microbench_knn.off_float32``), held bit for bit to its plain version
    (found, sq, and neighbours where found): a kernel that computed in
-   float32 would fail it.
+   float32 would fail it; the per-query kernel over its stream axis (rows
+   ``knn_batched_r8``, ``knn_batched_r27``, ``knn_batched_f64_r8``,
+   ``knn_batched_f64_r27``): S = 4 maps of the case's preset, each from
+   the sim run of another seed (0-3, with range noise, so the maps differ),
+   each stream its own scan's 8192 queries, in one launch
+   (``knn_search_cuda_batched``, the batched step's search), held bit for
+   bit (found, sq, and neighbours where found) to each stream's plain
+   search and to the single launch on its map; its bound is the streams'
+   bounds added (``kernels/bounds.knn_bound_streams``).
    Times: the
    microbenchmark's ``device_us`` (profiler), ``graph_us`` (a CUDA graph of
    100 calls) and ``enqueue_us`` (host clock), with the ptxas registers.
@@ -62,8 +70,10 @@ Phases, in order; any failed check exits non-zero:
    The launch counts are read when the replay ends, before the stage timer
    searches again; its launches are printed apart.
 8. fleet — the runner with two ``--bag``s (sim seeds 0 and 1, the second
-   shorter): each stream's trajectory within 5 mm of the single-stream
-   replay of its bag.
+   shorter): ``BatchPipeline``'s batched step, captured, with a no-op lane
+   after stream 1 ends.  Checks: each stream's trajectory within 5 mm of
+   the single-stream replay of its bag, the batched kNN launch ran and no
+   single one.
 9. sharded_avia_1rank — the map sharded (``Pipeline(cfg, group=...)``,
    ``parallel/sharding.py``) on one rank over NCCL, a worker process
    (``parallel.launch`` running ``tools/bench_scaling.drive``): the first 20
@@ -107,8 +117,34 @@ Phases, in order; any failed check exits non-zero:
    launch counts of the captured run (replays included) equal to the eager
    run's (every scan launches the same kernels: every pass and arm runs).
 
-Phases 3-12 run the captured step (``Pipeline``'s default on CUDA); phase
-13 holds it against the eager one.
+14. fleet_batch4 — ``tools/scenarios.py``'s ``avia_batch4`` (bench.py's
+   four-stream fleet at the AVIA preset's full width), cut to
+   ``BATCH_ROUNDS`` rounds, through ``BatchPipeline`` (one vmapped step a
+   round, captured in one graph for the fleet) and each stream through its
+   own captured ``Pipeline``.  After ``BATCH_WARM_ROUNDS`` rounds (IMU
+   init, the maps seeded, the capture), a window of
+   ``BATCH_WINDOW_ROUNDS`` rounds runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, drained at its end: the
+   batch's aggregate scans/s; each single pipeline times the same scans in
+   a window of its own, drained at its end: the time-sliced aggregate
+   scans/s.  The rest of the rounds run under ``torch.profiler``
+   (``tools/profile_scan.profile_window``): device busy ms, activities and
+   kNN launches per round, and the idle share; stream 0's single pipeline
+   the same, per scan.  Checks: no sync in the window, no host sync in the
+   profiled rounds, each lane within 5 mm per scan of its single run, ATE
+   per lane within the JAX package's (its ``BatchPipeline`` over the same
+   rounds) + 1 cm, one graph, the batched kNN kernel launched and no
+   single launch, no NaN, no drop, no truncation.
+
+15. fleet_ouster64 — phase 5's run as a two-stream ``BatchPipeline`` (stream
+   1 the same run cut to three quarters, so its lane ends early and runs
+   no-op packets), in float32 and float64: the batched kNN kernel at R = 8
+   and R = 27 (the wide fallback) in both types.  Checks: each lane within
+   5 mm per scan of phase 5's single run (float32) or phase 11's
+   (float64), the batched launches of both R and no single launch.
+
+Phases 3-12, 14 and 15 run the captured step (``Pipeline``'s default on
+CUDA); phase 13 holds it against the eager one.
 
 Phases 4 and 5 also print how many distinct bucket rows each tile of their
 searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
@@ -136,9 +172,13 @@ import numpy as np
 import torch
 
 # The JAX package's ATE (raw, aligned) and map drops on the runs of phases 4,
-# 5 and 11 (same presets, same sim data; phase 6 is held to phase 5's) and of
-# phase 7's bag replay, computed once on a CPU by tests/torch_reference_ate.py.
+# 5 and 11 (same presets, same sim data; phase 6 is held to phase 5's), of
+# phase 7's bag replay and of phase 14's fleet (the JAX BatchPipeline over
+# the same rounds), computed once on a CPU by tests/torch_reference_ate.py.
 JAX_ATE_M = {
+    # phase 14, one (raw, aligned) per lane (the four streams carry the
+    # same data: the sim's seed draws only noise, and avia_batch4 has none)
+    "fleet_batch4": [(0.04399723603866697, 0.01610946273729861)] * 4,
     "avia": (0.03469561611056514, 0.013552656768317909),
     "ouster64": (0.03198349476697826, 0.01154589455923144),
     "cli_bag": (0.034757444004670235, 0.013331892125377977),
@@ -173,6 +213,12 @@ ORACLE_PACKETS = 12
 GRAPH_WARM_SCANS = 6
 ORACLE_BOUNDS = {"float32": (0.010, 0.005, 0.005),
                  "float64": (0.003, 0.0007, 0.0007)}
+# phase 14: rounds of the avia_batch4 fleet (tests/torch_reference_ate.py's
+# BATCH_ROUNDS), the warm-up rounds and the window without a sync among
+# them; the rest run under the profiler
+BATCH_ROUNDS = 30
+BATCH_WARM_ROUNDS = 6
+BATCH_WINDOW_ROUNDS = 12
 
 
 def log(obj) -> None:
@@ -245,11 +291,17 @@ KERNEL_ROWS = {
                      "knn_grouped_prep_kernel", ""),
     "knn_f64": ("fast_lio_tpu_torch/csrc/knn.cu", "knn", "knn_tile_kernel",
                 "d"),
+    "knn_batched": ("fast_lio_tpu_torch/csrc/knn.cu", "knn",
+                    "knn_tile_kernel", "f"),
+    "knn_batched_f64": ("fast_lio_tpu_torch/csrc/knn.cu", "knn",
+                        "knn_tile_kernel", "d"),
 }
 REPLACES = {"knn": "tools/knn_pallas.py:193",
             "grouped": "tools/knn_grouped.py:217",
             "grouped_prep": "tools/knn_grouped.py:217",
-            "knn_f64": "tools/knn_pallas.py:193"}
+            "knn_f64": "tools/knn_pallas.py:193",
+            "knn_batched": "tools/knn_pallas.py:193",
+            "knn_batched_f64": "tools/knn_pallas.py:193"}
 TIMES = ("device_us", "prep_device_us", "graph_us", "enqueue_us")
 
 
@@ -307,7 +359,7 @@ def phase_kernels(pkg):
                                     with_plain=order == "main"))
             log({"phase": "kernels", "case": f"f64_{tag}", "order": order,
                  "times": times[f"knn_f64_{tag}"]})
-            for kind in KERNEL_ROWS:
+            for kind in ("knn", "grouped", "grouped_prep", "knn_f64"):
                 t = times[f"{kind}_{tag}"]
                 if order == "main":
                     rows[f"{kind}_{tag}"] = kernel_row(mb, kind, tag, t,
@@ -326,7 +378,41 @@ def phase_kernels(pkg):
               f"{row['name']}: not timed on the device")
     for tag in mb.CASES:
         rows[f"knn_{tag}"]["rank_tables"] = rank_tables(pkg, mb.make_case(tag))
+        for dtype in (torch.float32, torch.float64):
+            rows.update(batched_kernel_rows(pkg, tag, dtype))
     return rows
+
+
+def batched_kernel_rows(pkg, tag, dtype) -> dict:
+    """The per-query kernel over its stream axis on S = 4 maps: each
+    stream's rows bit-equal to its plain search and to the single launch on
+    its map; the row of ``microbench_knn.measure_batched``."""
+    hm, knn, mb = pkg["hm"], pkg["knn"], pkg["mb"]
+    case = mb.make_batched_case(tag, dtype=dtype)
+    got = knn.knn_search_cuda_batched(case.packed, case.cfg, case.queries,
+                                      wide=case.wide)
+    torch.cuda.synchronize()
+    kind = "knn_batched" + ("_f64" if dtype == torch.float64 else "")
+    err = 0.0
+    for s, m in enumerate(case.maps):
+        mine = tuple(g[s] for g in got)
+        ref = hm.knn_search(m, case.cfg, case.queries[s], wide=case.wide)
+        err = max(err, equal_where_found(mine, ref,
+                                         f"{kind}_{tag} stream {s} vs plain"))
+        single = knn.knn_search_cuda(m.packed, case.cfg, case.queries[s],
+                                     wide=case.wide)
+        equal_where_found(mine, single, f"{kind}_{tag} stream {s} vs single")
+        check(bool(ref[2].any()), f"{kind}_{tag}: stream {s} found nothing")
+    check(not torch.equal(case.queries[0], case.queries[1]),
+          f"{kind}_{tag}: the streams' queries are the same")
+    torch.cuda.synchronize()
+    t = mb.measure_batched(case, TIMING_REPS)[f"{kind}_{tag}"]
+    log({"phase": "kernels", "case": f"batched_{tag}",
+         "dtype": str(dtype).removeprefix("torch."), "times": t})
+    row = kernel_row(mb, kind, tag, t, err)
+    check(row["device_us"] is not None and row["graph_us"] > 0,
+          f"{row['name']}: not timed on the device")
+    return {row["name"]: row}
 
 
 def rank_tables(pkg, case, world=2) -> dict:
@@ -402,9 +488,12 @@ def phase_small(pkg):
 
 def launch_counters(pkg) -> dict:
     kg = pkg["kg"]
-    return {"knn": pkg["knn"].launches, "grouped": kg.launches,
+    knn = pkg["knn"]
+    return {"knn": knn.launches, "grouped": kg.launches,
             "grouped_prep": kg.prep_launches,
-            "knn_f64": pkg["knn"].launches_f64}
+            "knn_f64": knn.launches_f64,
+            "knn_batched": knn.batched_launches,
+            "knn_batched_f64": knn.batched_launches_f64}
 
 
 def reset_launches(pkg) -> None:
@@ -674,6 +763,8 @@ def phase_fleet(pkg, tmp: Path, bag0: Path, traj0, sim_cfg1):
                       for k, v in launches.items()}})
     check(len(singles[1]) < len(singles[0]), "fleet: stream 1 is not shorter")
     check(max(diffs) <= POS_TOL_M, f"fleet: streams left their replays {diffs}")
+    check(launches["knn_batched"][8] > 0 and sum(launches["knn"].values()) == 0,
+          f"fleet: not the batched kNN launch ({launches})")
     return launches
 
 
@@ -829,6 +920,198 @@ def phase_graph(pkg, runs) -> dict:
     return by_run
 
 
+# --------------------------------------------------------------------------
+# phase 14: the avia_batch4 fleet through the batched step
+# --------------------------------------------------------------------------
+
+
+def round_feeder(bp, datas):
+    """Generator: each next() pushes every stream's next scan (with its
+    IMU; a stream with no scan left is marked done) and runs the rounds
+    that fire."""
+    imu_i = [0] * len(datas)
+    for k in range(max(len(d.scans) for d in datas)):
+        for i, d in enumerate(datas):
+            if k >= len(d.scans):
+                bp.mark_done(i)  # its lane runs no-op packets from here
+                continue
+            stamp = d.scan_stamps[k]
+            while (imu_i[i] < len(d.imu_t)
+                   and d.imu_t[imu_i[i]] <= stamp + 0.1 + 1e-9):
+                bp.push_imu(i, d.imu_t[imu_i[i]], d.imu_acc[imu_i[i]],
+                            d.imu_gyr[imu_i[i]])
+                imu_i[i] += 1
+            bp.push_lidar(i, stamp, d.scans[k], d.scan_pt_times[k])
+        while bp.spin_once():
+            pass
+        yield k
+
+
+def time_sliced(pkg, cfg, data) -> dict:
+    """One stream through its own captured ``Pipeline`` for BATCH_ROUNDS
+    estimates: the window of the batch's (estimates BATCH_WARM_ROUNDS to
+    BATCH_WARM_ROUNDS + BATCH_WINDOW_ROUNDS) timed and drained at its
+    end.  Returns the window's scans and seconds, the trajectory, and the
+    pipeline and its feeder (for a profiled window after)."""
+    pipe = pkg["Pipeline"](cfg)
+    push = scan_pusher(pipe, data)
+    while len(pipe.trajectory) < BATCH_WARM_ROUNDS:
+        next(push)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(pipe.trajectory) < BATCH_WARM_ROUNDS + BATCH_WINDOW_ROUNDS:
+        next(push)
+    torch.cuda.synchronize()
+    return dict(scans=len(pipe.trajectory) - BATCH_WARM_ROUNDS,
+                seconds=time.perf_counter() - t0, pipe=pipe, push=push)
+
+
+def phase_fleet_batch4(pkg, card: str):
+    """avia_batch4 through the batched step against its streams
+    time-sliced through single captured pipelines.  Returns the batch's
+    launches."""
+    cfg, datas = pkg["scenarios"].batch_scenario("avia_batch4")
+    S, n_profiled = len(datas), BATCH_ROUNDS - BATCH_WARM_ROUNDS - (
+        BATCH_WINDOW_ROUNDS)
+    profile_window = pkg["profile_scan"].profile_window
+    singles = []
+    for i, d in enumerate(datas):
+        one = time_sliced(pkg, cfg, d)
+        if i == 0:  # stream 0's single pipeline on the profiled scans
+            one["profile"] = profile_window(lambda: next(one["push"]),
+                                            n_profiled)
+        while len(one["pipe"].trajectory) < BATCH_ROUNDS:
+            next(one["push"])
+        singles.append(one)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    bp = pkg["BatchPipeline"](cfg, S)  # CUDA, captured, by default
+    reset_launches(pkg)
+    feed_it = round_feeder(bp, datas)
+    while bp.rounds < BATCH_WARM_ROUNDS:
+        next(feed_it)
+    torch.cuda.synchronize()
+    before = read_launches(pkg)
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        while bp.rounds < BATCH_WARM_ROUNDS + BATCH_WINDOW_ROUNDS:
+            next(feed_it)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window_rounds = bp.rounds - BATCH_WARM_ROUNDS
+    window_launches = {k: {r: n - before[k][r] for r, n in v.items()}
+                       for k, v in read_launches(pkg).items()}
+    prof = profile_window(lambda: next(feed_it), n_profiled)
+    launches = read_launches(pkg)
+    check(bp.rounds == BATCH_ROUNDS, f"fleet_batch4: {bp.rounds} rounds")
+
+    trajs = [bp.get_trajectory(i) for i in range(S)]
+    diffs = [max_pos_diff(t, one["pipe"].get_trajectory())
+             for t, one in zip(trajs, singles)]
+    simlib = pkg["sim"]
+    ate = [(simlib.ate_rmse(t, d), simlib.ate_rmse_aligned(t, d))
+           for t, d in zip(trajs, datas)]
+    graphs = bp.graphs.stats()
+    sliced_s = sum(one["seconds"] for one in singles)
+    sliced_scans = sum(one["scans"] for one in singles)
+    out = {
+        "phase": "fleet_batch4", "card": card, "streams": S,
+        "rounds": bp.rounds, "window_rounds": window_rounds,
+        "batch_scans_per_s": S * window_rounds / wall,
+        "batch_round_ms": 1e3 * wall / window_rounds,
+        "time_sliced_scans_per_s": sliced_scans / sliced_s,
+        "time_sliced_scans_per_s_by_stream": [
+            one["scans"] / one["seconds"] for one in singles],
+        "batch_over_time_sliced": (S * window_rounds / wall)
+        / (sliced_scans / sliced_s),
+        "knn_launches_per_round": {
+            k: {f"r{r}": n / window_rounds for r, n in v.items() if n}
+            for k, v in window_launches.items() if sum(v.values())},
+        "profile_per_round": {k: v for k, v in prof.items()
+                              if k != "host_syncs_by_op_per_scan"},
+        "single_stream0_profile_per_scan": {
+            k: v for k, v in singles[0]["profile"].items()
+            if k != "host_syncs_by_op_per_scan"},
+        "graphs": {str(k): v for k, v in graphs.items()},
+        "feed_waits": bp.feed.waits,
+        "max_pos_diff_m": diffs, "tol_m": POS_TOL_M,
+        "ate_m": ate, "jax_ate_m": JAX_ATE_M["fleet_batch4"],
+        "map_dropped": bp.map.dropped.tolist(),
+        "truncated_points": bp.truncated_points,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {k: {f"r{r}": n for r, n in v.items()}
+                     for k, v in launches.items()},
+    }
+    log(out)
+    check(max(diffs) <= POS_TOL_M,
+          f"fleet_batch4: lanes left their single runs {diffs}")
+    for i, (got, ref) in enumerate(zip(ate, JAX_ATE_M["fleet_batch4"])):
+        check(all(g <= r + ATE_SLACK_M for g, r in zip(got, ref)),
+              f"fleet_batch4: lane {i} ATE {got} > JAX {ref} + {ATE_SLACK_M}")
+    check(len(graphs) == 1 and all(g["replays"] > 0 for g in graphs.values()),
+          f"fleet_batch4: not one replayed graph ({graphs})")
+    check(window_launches["knn_batched"][8] > 0
+          and sum(launches["knn"].values()) == 0,
+          f"fleet_batch4: not the batched kNN launch ({launches})")
+    check(prof["host_syncs_per_scan"] == 0,
+          f"fleet_batch4: {prof['host_syncs_per_scan']} host syncs a round")
+    check(bool(torch.isfinite(bp.P).all())
+          and all(bool(torch.isfinite(v).all()) for v in bp.x),
+          "fleet_batch4: non-finite state")
+    check(bp.map.dropped.sum() == 0 and sum(bp.truncated_points) == 0,
+          "fleet_batch4: map drops or truncated points")
+    return launches
+
+
+def phase_fleet_ouster64(pkg, cfg, sim_cfg, refs) -> dict:
+    """Phase 5's run as a two-stream batch (stream 1 the same run cut to
+    three quarters, so its lane runs no-op packets at the end), in float32
+    and float64: the batched kernel at R = 8 and R = 27 (the wide
+    fallback) in both types.  Each lane within 5 mm of the single run of
+    its dtype (``refs``: phases 5 and 11).  Returns the launches of the two
+    runs, added."""
+    simlib = pkg["sim"]
+    datas = [simlib.generate(sim_cfg), simlib.generate(dataclasses.replace(
+        sim_cfg, duration=0.75 * sim_cfg.duration))]
+    total = {}
+    for dtype, ref in refs.items():
+        bp = pkg["BatchPipeline"](dataclasses.replace(
+            cfg, compute_dtype=dtype), 2)
+        reset_launches(pkg)
+        for _ in round_feeder(bp, datas):
+            pass
+        while bp.spin_once():
+            pass
+        launches = read_launches(pkg)
+        trajs = [bp.get_trajectory(i) for i in range(2)]
+        diffs = [max_pos_diff(t, ref[:len(t)]) for t in trajs]
+        log({"phase": "fleet_ouster64", "dtype": dtype, "rounds": bp.rounds,
+             "scans": [len(t) for t in trajs], "max_pos_diff_m": diffs,
+             "tol_m": POS_TOL_M,
+             "graphs": {str(k): v for k, v in bp.graphs.stats().items()},
+             "launches": {k: {f"r{r}": n for r, n in v.items()}
+                          for k, v in launches.items()}})
+        kind = "knn_batched" + ("_f64" if dtype == "float64" else "")
+        check(len(trajs[1]) < len(trajs[0]) == bp.rounds,
+              f"fleet_ouster64 {dtype}: no no-op lane")
+        check(max(diffs) <= POS_TOL_M,
+              f"fleet_ouster64 {dtype}: lanes left the single run {diffs}")
+        check(launches[kind][8] > 0 and launches[kind][27] > 0
+              and sum(launches["knn"].values()) == 0
+              and sum(launches["knn_f64"].values()) == 0,
+              f"fleet_ouster64 {dtype}: not the batched kNN launches "
+              f"({launches})")
+        for k, v in launches.items():
+            for r, n in v.items():
+                total.setdefault(k, {}).setdefault(r, 0)
+                total[k][r] += n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -842,6 +1125,7 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
 
     from fast_lio_tpu_torch import cli, config, sim
+    from fast_lio_tpu_torch.batch import BatchPipeline
     from fast_lio_tpu_torch.kernels import build
     from fast_lio_tpu_torch.kernels import knn
     from fast_lio_tpu_torch.kernels import knn_grouped
@@ -849,13 +1133,15 @@ def main() -> int:
     from fast_lio_tpu_torch.parallel import launch, sharding
     from fast_lio_tpu_torch.pipeline import Pipeline
     from fast_lio_tpu_torch.tools import (bench_scaling, microbench_knn,
-                                          oracle_compare)
+                                          oracle_compare, profile_scan,
+                                          scenarios)
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
     pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
                mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt,
                launch=launch, sharding=sharding, bench_scaling=bench_scaling,
-               oracle_compare=oracle_compare)
+               oracle_compare=oracle_compare, BatchPipeline=BatchPipeline,
+               scenarios=scenarios, profile_scan=profile_scan)
     card = gpu_name_and_power()
     t_start = time.perf_counter()
 
@@ -980,7 +1266,16 @@ def main() -> int:
                                 ("ouster64", ouster_cfg, ouster_sim),
                                 ("ouster64_grouped", grouped_cfg, ouster_sim)])
 
-    by_path = {"avia": l_avia, "ouster64": l_ouster,
+    # 14. the avia_batch4 fleet through the batched step
+    l_batch4 = phase_fleet_batch4(pkg, card)
+
+    # 15. phase 5's run as a batch, in float32 and float64
+    l_fleet_ouster = phase_fleet_ouster64(
+        pkg, ouster_cfg, ouster_sim, {"float32": traj_ouster,
+                                      "float64": traj_f64})
+
+    by_path = {"fleet_batch4": l_batch4, "fleet_ouster64": l_fleet_ouster,
+               "avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
                "fleet": l_fleet, "ouster64_f64": l_f64, "oracle": l_oracle,
                "oracle_f32": l_oracle_f32,

@@ -56,6 +56,14 @@
 // queries (12 N) and outputs (85 N), twice the scalars' bytes in double --
 // under a microsecond on the sim map (kernels/bounds.py).
 //
+// Stream axis: one launch searches S independent maps (the lanes of the
+// batched step, batch.BatchPipeline), each with its own queries.  blockIdx.y
+// is the stream: its map starts map_stride scalars after the previous one
+// (the stacked maps' (H + 1) * 4B rows, dump row included; the kernel
+// addresses only the first H), and its queries and outputs n * 3, n * 15,
+// n * 5 and n * 5 after.  Each block works as above on its own stream's
+// tile; with S = 1 the launch is the single search's, bit for bit.
+//
 // Bitwise agreement with the plain version: see knn_common.cuh, which holds
 // the hash, the top-5 and the row scoring this kernel shares with
 // knn_grouped.cu.
@@ -160,11 +168,19 @@ __device__ __forceinline__ void stage_chunk(
 
 template <class T, int R>
 __global__ void __launch_bounds__(32 * WARPS)
-knn_tile_kernel(const T* __restrict__ packed, const T* __restrict__ queries,
-                int n, int B, uint32_t bucket_mask, T cell, float span,
-                int ring_rows, T* __restrict__ nbrs, T* __restrict__ sq,
+knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
+                const T* __restrict__ queries, int n, int B,
+                uint32_t bucket_mask, T cell, float span, int ring_rows,
+                T* __restrict__ nbrs, T* __restrict__ sq,
                 uint8_t* __restrict__ found) {
   constexpr int L = Tile<R>::L, TQ = Tile<R>::Q;
+  // this block's stream: its map, queries and outputs
+  const size_t stream = blockIdx.y;
+  packed += stream * (size_t)map_stride;
+  queries += stream * 3 * (size_t)n;
+  nbrs += stream * K * 3 * (size_t)n;
+  sq += stream * K * (size_t)n;
+  found += stream * K * (size_t)n;
   // 2 * ring_rows rows, then the live slots of the chunk being scored
   extern __shared__ __align__(128) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
@@ -314,16 +330,19 @@ int configure() {
                                    bytes);
 }
 
-// The search at R = 8 or, with `wide`, R = 27; the block takes
-// 2 * ring_rows * 4B * sizeof(T) bytes of dynamic shared memory for the
-// ring, and ring_rows * B * 2 for the live lists.
+// The search at R = 8 or, with `wide`, R = 27, over `streams` maps and
+// query sets (grid.y); the block takes 2 * ring_rows * 4B * sizeof(T)
+// bytes of dynamic shared memory for the ring, and ring_rows * B * 2 for
+// the live lists.
 template <class T>
-int launch(const T* packed, const T* queries, int n, int bucket_slots,
+int launch(const T* packed, long long map_stride, int streams,
+           const T* queries, int n, int bucket_slots,
            unsigned int bucket_mask, T cell, float span, int wide,
            int ring_rows, T* nbrs, T* sq, unsigned char* found,
            void* stream) {
-  if (n <= 0) return 0;
-  if (ring_rows < 1 || ring_rows > RING_ROWS_MAX)
+  if (n <= 0 || streams <= 0) return 0;
+  if (ring_rows < 1 || ring_rows > RING_ROWS_MAX || streams > 65535 ||
+      map_stride < 0)
     return (int)cudaErrorInvalidValue;
   const dim3 block(32 * WARPS);
   const size_t smem =
@@ -331,15 +350,15 @@ int launch(const T* packed, const T* queries, int n, int bucket_slots,
       + (size_t)ring_rows * bucket_slots * 2;               // live lists
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
-    const dim3 grid((n + Tile<27>::Q - 1) / Tile<27>::Q);
+    const dim3 grid((n + Tile<27>::Q - 1) / Tile<27>::Q, streams);
     knn_tile_kernel<T, 27><<<grid, block, smem, s>>>(
-        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
-        nbrs, sq, found);
+        packed, map_stride, queries, n, bucket_slots, bucket_mask, cell,
+        span, ring_rows, nbrs, sq, found);
   } else {
-    const dim3 grid((n + Tile<8>::Q - 1) / Tile<8>::Q);
+    const dim3 grid((n + Tile<8>::Q - 1) / Tile<8>::Q, streams);
     knn_tile_kernel<T, 8><<<grid, block, smem, s>>>(
-        packed, queries, n, bucket_slots, bucket_mask, cell, span, ring_rows,
-        nbrs, sq, found);
+        packed, map_stride, queries, n, bucket_slots, bucket_mask, cell,
+        span, ring_rows, nbrs, sq, found);
   }
   return (int)cudaGetLastError();
 }
@@ -358,26 +377,33 @@ int knn_configure() {
 }
 
 // Launches the search on `stream` and returns cudaGetLastError() (0 = ok).
-// packed (H, 4B) (16-byte aligned), queries (n, 3), outputs nbrs (n, 5, 3),
-// sq (n, 5), all f32 (knn_search_f32) or all f64 (knn_search_f64), and
-// found (n, 5) uint8; all contiguous on the current device.  ring_rows
+// `streams` (1..65535) maps, each packed (H, 4B) rows (16-byte aligned),
+// the next map_stride scalars on (a multiple of 4, or 0: every stream
+// searches one map); queries (streams, n, 3), outputs nbrs
+// (streams, n, 5, 3), sq (streams, n, 5), all f32 (knn_search_f32) or all
+// f64 (knn_search_f64), and found (streams, n, 5) uint8; all contiguous on
+// the current device.  ring_rows
 // (1..32) rows of 4B scalars per stage of the shared-memory ring.  The
 // region's AABB is f32 in both: cell and span as f32 (f64: cell rounded to
 // f32 for it, exact for the region's base cell).
-int knn_search_f32(const float* packed, const float* queries, int n,
-                   int bucket_slots, unsigned int bucket_mask, float cell,
-                   float span, int wide, int ring_rows, float* nbrs, float* sq,
+int knn_search_f32(const float* packed, long long map_stride, int streams,
+                   const float* queries, int n, int bucket_slots,
+                   unsigned int bucket_mask, float cell, float span, int wide,
+                   int ring_rows, float* nbrs, float* sq,
                    unsigned char* found, void* stream) {
-  return launch<float>(packed, queries, n, bucket_slots, bucket_mask, cell,
-                       span, wide, ring_rows, nbrs, sq, found, stream);
+  return launch<float>(packed, map_stride, streams, queries, n, bucket_slots,
+                       bucket_mask, cell, span, wide, ring_rows, nbrs, sq,
+                       found, stream);
 }
 
-int knn_search_f64(const double* packed, const double* queries, int n,
-                   int bucket_slots, unsigned int bucket_mask, double cell,
-                   float span, int wide, int ring_rows, double* nbrs,
-                   double* sq, unsigned char* found, void* stream) {
-  return launch<double>(packed, queries, n, bucket_slots, bucket_mask, cell,
-                        span, wide, ring_rows, nbrs, sq, found, stream);
+int knn_search_f64(const double* packed, long long map_stride, int streams,
+                   const double* queries, int n, int bucket_slots,
+                   unsigned int bucket_mask, double cell, float span,
+                   int wide, int ring_rows, double* nbrs, double* sq,
+                   unsigned char* found, void* stream) {
+  return launch<double>(packed, map_stride, streams, queries, n,
+                        bucket_slots, bucket_mask, cell, span, wide,
+                        ring_rows, nbrs, sq, found, stream);
 }
 
 const char* knn_error_string(int err) {

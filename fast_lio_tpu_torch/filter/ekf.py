@@ -77,9 +77,9 @@ def predict_matrices(x: st.State, dt, acc: torch.Tensor, gyro: torch.Tensor):
         t[..., G3:G3 + 2, :] = 0.0
 
     # diagonal manifold corrections (esekfom.hpp:303-357)
-    batch = f.shape[:-1]
-    F = torch.eye(st.DOF, dtype=f.dtype, device=f.device).expand(
-        batch + (st.DOF, st.DOF)).clone()
+    # made from f, so that under vmap F is batched and takes the writes
+    F = f.new_zeros(f.shape[:-1] + (st.DOF, st.DOF)) + torch.eye(
+        st.DOF, dtype=f.dtype, device=f.device)
     F[..., R3:R3 + 3, R3:R3 + 3] = so3.so3_exp_matrix(-f[..., R3:R3 + 3] * dt_v)
     F[..., E3:E3 + 3, E3:E3 + 3] = so3.so3_exp_matrix(-f[..., E3:E3 + 3] * dt_v)
     R_s2 = so3.so3_exp_matrix(f[..., G3:G3 + 3] * dt_v)
@@ -106,7 +106,8 @@ def _block_transform(dx: torch.Tensor, x: st.State, x_prop: st.State) -> torch.T
     """23x23 block-diagonal tangent-frame transport T(dx): A(dx_blk)^T on
     the SO3 blocks (esekfom.hpp:1668), Nx_yy(x.grav) Mx(x_prop.grav, dx_blk)
     on the S2 block (esekfom.hpp:1687-1691), identity elsewhere."""
-    T = torch.eye(st.DOF, dtype=dx.dtype, device=dx.device)
+    T = dx.new_zeros((st.DOF, st.DOF)) + torch.eye(
+        st.DOF, dtype=dx.dtype, device=dx.device)  # batched with dx
     for idx, _dim in st.SO3_BLOCKS:
         T[idx:idx + 3, idx:idx + 3] = so3.A_matrix(dx[idx:idx + 3]).T
     for idx, _dim in st.S2_BLOCKS:

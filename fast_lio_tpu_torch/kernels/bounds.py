@@ -70,6 +70,21 @@ def knn_bound(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
                  rows, nbytes, ops)
 
 
+def knn_bound_streams(maps, cfg: hm.MapConfig, queries, wide: bool = False
+                      ) -> Bound:
+    """The bound of one batched search (``knn_search_cuda_batched``): each
+    stream's queries against its own map, so the streams' bytes (each
+    stream's distinct rows once) and operations add up."""
+    parts = [knn_bound(m, cfg, q, wide) for m, q in zip(maps, queries)]
+    nbytes = sum(b.nbytes for b in parts)
+    ops = sum(b.ops for b in parts)
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FLOPS[maps[0].packed.dtype] * 1e3
+    return Bound(max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations",
+                 sum(b.distinct_rows for b in parts), nbytes, ops)
+
+
 # the grouped search's prep, per query: the queries in and order (int32)
 # out; a division and a subtraction per coordinate for its key
 PREP_BYTES_PER_QUERY = QUERY_BYTES + 4

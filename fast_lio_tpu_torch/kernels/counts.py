@@ -17,7 +17,8 @@ Counts = List[Dict[int, int]]
 
 def counters() -> Counts:
     """The live counter dicts, in a fixed order."""
-    return [knn.launches, knn.launches_f64, knn_grouped.launches,
+    return [knn.launches, knn.launches_f64, knn.batched_launches,
+            knn.batched_launches_f64, knn_grouped.launches,
             knn_grouped.prep_launches]
 
 

@@ -18,15 +18,26 @@ JAX main path searches in XLA in either).  In float64 a row takes twice the
 bytes, so ``ring_rows(B, 8)`` stages at most half as many rows where two
 stages of 16 would pass ``RING_BYTES``.
 
+The kernel has a stream axis (``blockIdx.y``): one launch searches S maps,
+each with its own queries (``knn_search_cuda_batched``), which is how the
+batched step (``batch.BatchPipeline``, ``torch.func.vmap`` over the
+single-stream step) searches its lanes.  ``knn_search`` is the custom op
+``fast_lio_tpu_torch::knn_search``, so that vmap sees it whole: its vmap
+rule makes that one launch on CUDA, or runs the plain version per stream
+on the CPU.
+
 Routing: a CPU tensor goes to the plain version; a CUDA tensor always goes
 to the kernel (which is built at first use), and anything the kernel does
 not take raises, another dtype included.  ``launches`` counts the float32
-kernel's launches per R, ``launches_f64`` the float64 kernel's.
+kernel's single launches per R, ``launches_f64`` the float64 kernel's;
+``batched_launches`` and ``batched_launches_f64`` count the launches over
+a stream axis, one per launch whatever its count of streams.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -42,6 +53,10 @@ DTYPES = (torch.float32, torch.float64)  # the kernel's instantiations
 
 launches = {8: 0, 27: 0}  # float32
 launches_f64 = {8: 0, 27: 0}
+# the launches over a stream axis (knn_search_cuda_batched, the batched
+# step's search), apart from the single searches above
+batched_launches = {8: 0, 27: 0}
+batched_launches_f64 = {8: 0, 27: 0}
 
 
 def ring_rows(B: int, itemsize: int = 4) -> int:
@@ -87,7 +102,8 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, cell in ((lib.knn_search_f32, f), (lib.knn_search_f64,
                                                ctypes.c_double)):
-        fn.argtypes = [p, p, i, i, ctypes.c_uint, cell, f, i, i, p, p, p, p]
+        fn.argtypes = [p, ctypes.c_longlong, i, p, i, i, ctypes.c_uint, cell,
+                       f, i, i, p, p, p, p]
         fn.restype = i
     lib.knn_configure.argtypes = []
     lib.knn_configure.restype = i
@@ -111,11 +127,62 @@ def knn_search(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
                k: int = hm.NUM_MATCH_POINTS, wide: bool = False):
     """(nbrs (N, k, 3), sq (N, k) with +inf where missing, found (N, k)).
 
-    CPU tensors: the plain version, ``hash_map.knn_search``.  CUDA tensors:
-    the kernel."""
-    if queries.device.type == "cpu" and m.packed.device.type == "cpu":
-        return hm.knn_search(m, cfg, queries, k=k, wide=wide)
-    return knn_search_cuda(m.packed, cfg, queries, k=k, wide=wide)
+    The custom op ``fast_lio_tpu_torch::knn_search``: on CPU tensors the
+    plain version, ``hash_map.knn_search``; on CUDA tensors the kernel.
+    Under ``torch.func.vmap`` (the batched step) its vmap rule searches
+    every stream's own map in one launch of the kernel
+    (``knn_search_cuda_batched``), or on the CPU runs the plain version per
+    stream."""
+    return torch.ops.fast_lio_tpu_torch.knn_search(
+        m.packed, queries, cfg.h_log2, cfg.bucket_slots, cfg.cell_size,
+        cfg.voxel_size, k, wide)
+
+
+def _on_cpu(packed: torch.Tensor, queries: torch.Tensor) -> bool:
+    return queries.device.type == "cpu" and packed.device.type == "cpu"
+
+
+@torch.library.custom_op("fast_lio_tpu_torch::knn_search", mutates_args=())
+def _knn_op(packed: torch.Tensor, queries: torch.Tensor, h_log2: int,
+            bucket_slots: int, cell_size: float, voxel_size: float, k: int,
+            wide: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    cfg = hm.MapConfig(h_log2, bucket_slots, cell_size, voxel_size)
+    if _on_cpu(packed, queries):
+        return hm.knn_search(hm.Map(packed, None), cfg, queries, k=k,
+                             wide=wide)
+    return knn_search_cuda(packed, cfg, queries, k=k, wide=wide)
+
+
+@_knn_op.register_fake
+def _knn_fake(packed, queries, h_log2, bucket_slots, cell_size, voxel_size,
+              k, wide):
+    return empty_outputs(queries, k)
+
+
+def _knn_vmap(info, in_dims, packed, queries, h_log2, bucket_slots,
+              cell_size, voxel_size, k, wide):
+    """The batched search: every stream's queries against its own map (a
+    map or queries shared by the streams are broadcast).  CUDA: one launch
+    of the kernel over the stream axis; CPU: the plain version per
+    stream."""
+    S = info.batch_size
+
+    def lead(t, d):
+        return t.movedim(d, 0) if d is not None else t.expand(S, *t.shape)
+
+    packed, queries = lead(packed, in_dims[0]), lead(queries, in_dims[1])
+    cfg = hm.MapConfig(h_log2, bucket_slots, cell_size, voxel_size)
+    if _on_cpu(packed, queries):
+        per = [hm.knn_search(hm.Map(packed[s], None), cfg, queries[s], k=k,
+                             wide=wide) for s in range(S)]
+        out = tuple(torch.stack(o) for o in zip(*per))
+    else:
+        out = knn_search_cuda_batched(packed, cfg, queries.contiguous(), k=k,
+                                      wide=wide)
+    return out, (0, 0, 0)
+
+
+torch.library.register_vmap("fast_lio_tpu_torch::knn_search", _knn_vmap)
 
 
 def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
@@ -151,13 +218,13 @@ def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
 
 
 def empty_outputs(queries: torch.Tensor, k: int):
-    """Uninitialised (nbrs (N, k, 3), sq (N, k), found (N, k)) on the
-    queries' device and, but for found, of their dtype, for a kernel to
-    fill."""
-    N, dev, dt = queries.shape[0], queries.device, queries.dtype
-    return (torch.empty((N, k, 3), dtype=dt, device=dev),
-            torch.empty((N, k), dtype=dt, device=dev),
-            torch.empty((N, k), dtype=torch.bool, device=dev))
+    """Uninitialised (nbrs (..., N, k, 3), sq (..., N, k), found
+    (..., N, k)) for queries (..., N, 3), on their device and, but for
+    found, of their dtype, for a kernel to fill."""
+    lead, dev, dt = queries.shape[:-1], queries.device, queries.dtype
+    return (torch.empty(lead + (k, 3), dtype=dt, device=dev),
+            torch.empty(lead + (k,), dtype=dt, device=dev),
+            torch.empty(lead + (k,), dtype=torch.bool, device=dev))
 
 
 def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
@@ -165,27 +232,64 @@ def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
                     wide: bool = False):
     """Launch the kernel on ``torch.cuda.current_stream()``; no sync."""
     check_inputs(packed, cfg, queries, k)
+    out = empty_outputs(queries, k)
+    if _launch(packed, 0, 1, queries, cfg, wide, out):
+        (launches_f64 if queries.dtype == torch.float64 else launches)[
+            27 if wide else 8] += 1
+    return out
+
+
+def knn_search_cuda_batched(packed: torch.Tensor, cfg: hm.MapConfig,
+                            queries: torch.Tensor,
+                            k: int = hm.NUM_MATCH_POINTS, wide: bool = False):
+    """One launch over a stream axis: ``packed`` (S, H, 4B), each map's rows
+    contiguous and the maps any multiple of 4 scalars apart (the stacked
+    maps' ``rows[:, :H]``, or one map expanded), ``queries`` (S, N, 3)
+    contiguous.  Returns (nbrs (S, N, k, 3), sq (S, N, k), found (S, N, k)),
+    stream s's rows what ``knn_search_cuda(packed[s], cfg, queries[s])``
+    returns.  On ``torch.cuda.current_stream()``; no sync."""
+    if packed.dim() != 3 or queries.dim() != 3 or (
+            packed.shape[0] != queries.shape[0]):
+        raise ValueError(
+            f"packed {tuple(packed.shape)} and queries "
+            f"{tuple(queries.shape)} need one leading stream axis of a size")
+    if packed.stride(0) % 4:
+        raise ValueError("the maps must start 16-byte aligned (a stream "
+                         "stride that is a multiple of 4 scalars)")
+    check_inputs(packed[0], cfg, queries[0], k)
+    if not queries.is_contiguous():
+        raise ValueError("queries must be contiguous")
+    out = empty_outputs(queries, k)
+    if _launch(packed, packed.stride(0), queries.shape[0], queries, cfg,
+               wide, out):
+        (batched_launches_f64 if queries.dtype == torch.float64
+         else batched_launches)[27 if wide else 8] += 1
+    return out
+
+
+def _launch(packed, map_stride: int, streams: int, queries, cfg, wide,
+            out) -> bool:
+    """The kernel over ``streams`` maps ``map_stride`` scalars apart, into
+    ``out`` = (nbrs, sq, found).  Returns whether it launched (not for no
+    query)."""
     H, B = cfg.num_buckets, cfg.bucket_slots
+    N = queries.shape[-2]
+    if N == 0 or streams == 0:
+        return False
     f64 = queries.dtype == torch.float64
     rows = ring_rows(B, queries.element_size())
-    nbrs, sq, found = empty_outputs(queries, k)
-    N = queries.shape[0]
-    if N == 0:
-        return nbrs, sq, found
-
-    R = 27 if wide else 8
     span = (3 if wide else 2) * cfg.cell_size
     lib = _lib()
     _configure(queries.device.index)
     search = lib.knn_search_f64 if f64 else lib.knn_search_f32
+    nbrs, sq, found = out
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = search(
-            packed.data_ptr(), queries.data_ptr(), N, B, H - 1,
-            float(cfg.cell_size), float(span), int(wide), rows,
+            packed.data_ptr(), map_stride, streams, queries.data_ptr(), N, B,
+            H - 1, float(cfg.cell_size), float(span), int(wide), rows,
             nbrs.data_ptr(), sq.data_ptr(), found.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"knn kernel launch failed: {lib.knn_error_string(err).decode()}")
-    (launches_f64 if f64 else launches)[R] += 1
-    return nbrs, sq, found
+    return True

@@ -23,19 +23,26 @@ Unlike the JAX package (pure functions over donated buffers), ``insert`` and
 tensor of the system (32-64 MB at the presets), and a copy per scan would
 double its traffic.
 
-The dump row: ``make_map`` allocates one row more than the H buckets and
-``Map.packed`` is the view of the first H.  The insert's scatter writes the
-rows it masks off into that trailing row, the counterpart of JAX's
-``mode="drop"`` (torch's ``index_put_`` has no such mode), so it writes
-through a fixed-size index with no host read.  Nothing reads the dump row:
-not ``map_size``, not the kNN kernels (they address H buckets), not the
+The dump row: ``make_map`` allocates one row more than the H buckets, the
+map carries that ``(H + 1, 4B)`` tensor as ``Map.rows``, and ``Map.packed``
+is the view of its first H rows.  The insert's scatter writes the rows it
+masks off into the trailing row, the counterpart of JAX's ``mode="drop"``
+(torch's ``index_put_`` has no such mode), so it writes through a
+fixed-size index with no host read.  Nothing reads the dump row: not
+``map_size``, not the kNN kernels (they address H buckets), not the
 checkpoints (they save ``packed``).  ``from_packed`` builds a map with the
 row from any ``(H, 4B)`` tensor.
+
+Every function of the per-scan step here runs under ``torch.func.vmap``
+(the batched step of ``batch.BatchPipeline``, over maps stacked on a
+leading stream axis): no in-place write lands in a tensor made inside the
+step unless the written values are made from it alone, and the map's rows
+are a tensor the map carries, not storage reached through a view.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +85,8 @@ def make_config(voxel_size: float, h_log2: int = 14,
 class Map(NamedTuple):
     packed: torch.Tensor  # (H, 4B) planar rows [x|y|z|w]
     dropped: torch.Tensor  # () int32, points lost to bucket overflow
+    rows: Optional[torch.Tensor] = None  # (H + 1, 4B): packed and the dump
+    # row after it (packed is rows[:H]); None for a map insert cannot take
 
 
 def make_map(cfg: MapConfig, dtype=torch.float32, device=None) -> Map:
@@ -87,7 +96,8 @@ def make_map(cfg: MapConfig, dtype=torch.float32, device=None) -> Map:
     rows = torch.zeros((H + 1, 4 * B), dtype=dtype, device=device)
     rows[:, 3 * B:] = W_FREE
     return Map(packed=rows[:H],
-               dropped=torch.zeros((), dtype=torch.int32, device=device))
+               dropped=torch.zeros((), dtype=torch.int32, device=device),
+               rows=rows)
 
 
 def from_packed(packed: torch.Tensor, dropped: torch.Tensor) -> Map:
@@ -98,19 +108,8 @@ def from_packed(packed: torch.Tensor, dropped: torch.Tensor) -> Map:
     rows = torch.empty((H + 1, W), dtype=packed.dtype, device=packed.device)
     rows[:H] = packed
     rows[H] = 0.0
-    return Map(packed=rows[:H], dropped=dropped.clone())
+    return Map(packed=rows[:H], dropped=dropped.clone(), rows=rows)
 
-
-def _with_dump_row(packed: torch.Tensor) -> torch.Tensor:
-    """The (H + 1, 4B) rows behind ``packed`` (H, 4B): its buckets and the
-    dump row after them.  Raises ValueError on a table with no dump row."""
-    H, W = packed.shape
-    need = (packed.storage_offset() + (H + 1) * W) * packed.element_size()
-    if not packed.is_contiguous() or packed.untyped_storage().nbytes() < need:
-        raise ValueError(
-            "the map has no dump row after its buckets: build it with "
-            "make_map or from_packed")
-    return packed.as_strided((H + 1, W), (W, 1))
 
 def channels(m: Map, cfg: MapConfig = None):
     """(x, y, z, w) channel views of the packed rows, each (H, B)."""
@@ -232,13 +231,14 @@ def dedup_buckets(buckets: torch.Tensor, sentinel: int):
 def smallest_k(d2: torch.Tensor, k: int):
     """Exact k-smallest along the last axis: (vals (..., k) ascending,
     idx (..., k) int64), ties to the lowest index (k min-sweeps)."""
-    d = d2.clone()
+    d = d2
     vals, idxs = [], []
     for _ in range(k):
         v, i = torch.min(d, dim=-1)  # first minimal index on ties
         vals.append(v)
         idxs.append(i)
-        d.scatter_(-1, i[..., None], torch.inf)
+        # out of place: vmap has no rule for the in-place scatter_
+        d = d.scatter(-1, i[..., None], torch.inf)
     return torch.stack(vals, -1), torch.stack(idxs, -1)
 
 
@@ -415,8 +415,8 @@ def insert(
     is_first = torch.cat([true1, (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])])
     dmid_s = d_mid[order]
     vox_seg = torch.cumsum(is_first.to(i32), dim=0).to(torch.int64) - 1
-    seg_min = torch.full((N,), torch.inf, dtype=d_mid.dtype, device=dev)
-    seg_min.scatter_reduce_(0, vox_seg, dmid_s, reduce="amin", include_self=False)
+    seg_min = torch.full_like(dmid_s, torch.inf).scatter_reduce(
+        0, vox_seg, dmid_s, reduce="amin", include_self=False)
     elig = dmid_s == seg_min[vox_seg]
     elig_i = elig.to(i32)
     ex_elig = torch.cumsum(elig_i, dim=0, dtype=i32) - elig_i
@@ -424,8 +424,7 @@ def insert(
         torch.where(is_first, ex_elig, torch.zeros_like(ex_elig)), dim=0).values
     first_elig = elig & (ex_elig == elig_base)
     winner_sorted = first_elig & live_ds[order]
-    winner = torch.zeros(N, dtype=torch.bool, device=dev)
-    winner[order] = winner_sorted
+    winner = torch.zeros_like(winner_sorted).scatter(0, order, winner_sorted)
     live = winner | (add_mask & ~downsample)
 
     # ---- per-candidate bucket + slot inspection --------------------------
@@ -459,8 +458,8 @@ def insert(
     ex_cumsum = torch.cumsum(flag, dim=0, dtype=i32) - flag
     seg_base = torch.cummax(
         torch.where(first_b, ex_cumsum, torch.zeros_like(ex_cumsum)), dim=0).values
-    rank = torch.zeros(N, dtype=i32, device=dev)
-    rank[order] = ex_cumsum - seg_base
+    rank_sorted = ex_cumsum - seg_base
+    rank = torch.zeros_like(rank_sorted).scatter(0, order, rank_sorted)
 
     # rank-th free slot: first position where the inclusive free-count
     # cumsum reaches rank+1
@@ -481,8 +480,11 @@ def insert(
     idx = torch.stack([base, base + B, base + 2 * B, base + 3 * B], -1)
     p_all = pts.to(dtype)
     vals = torch.cat([p_all, torch.zeros_like(p_all[:, :1])], dim=-1)
-    _with_dump_row(m.packed).view(-1)[idx.reshape(-1)] = vals.reshape(-1)
-    return Map(packed=m.packed, dropped=m.dropped + overflow)
+    if m.rows is None:
+        raise ValueError("the map has no dump row after its buckets: build "
+                         "it with make_map or from_packed")
+    m.rows.view(-1)[idx.reshape(-1)] = vals.reshape(-1)
+    return m._replace(dropped=m.dropped + overflow)
 
 
 # --------------------------------------------------------------------------

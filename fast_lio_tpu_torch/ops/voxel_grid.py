@@ -93,9 +93,11 @@ def voxel_downsample(
     w = live_s.to(pts.dtype)
     cols = pts_s if feats is None else torch.cat(
         [pts_s, feats[order][:, None].to(pts.dtype)], dim=-1)
-    sums = torch.zeros((n_out + 1, cols.shape[1]), dtype=cols.dtype, device=device)
+    # the sums are made from the inputs (new_zeros), so that under vmap they
+    # are batched and take the batched index_add_
+    sums = cols.new_zeros((n_out + 1, cols.shape[1]))
     sums.index_add_(0, seg_id, cols * w[:, None])
-    cnts = torch.zeros(n_out + 1, dtype=w.dtype, device=device)
+    cnts = w.new_zeros(n_out + 1)
     cnts.index_add_(0, seg_id, w)
     sums, cnts = sums[:n_out], cnts[:n_out]
 

@@ -17,7 +17,8 @@ CUDA ``Pipeline`` captures the step in one CUDA graph per pad bucket
 (``step_graph.StepGraphs``, the counterpart of ``jax.jit``'s one compile per
 input shape) and replays it for every scan; ``Pipeline(graphs=False)`` runs
 the same step eagerly (the counterpart of ``jax.disable_jit()``), and the
-CPU always does.  Two host reads remain, as in the JAX package: once during
+CPU always does.  The step from the feed buffer is ``packed_step``, which
+``batch.BatchPipeline`` runs under ``torch.func.vmap`` for B streams.  Two host reads remain, as in the JAX package: once during
 startup, whether the first scan seeded the map, and with
 ``Config.stage_timing`` the wait for each scan's outputs.
 
@@ -410,6 +411,102 @@ def lio_step(
     return x, P, m, imu_carry, (lm_lo, lm_hi, lm_init), clouds, diag
 
 
+def pack_buf(cfg: Config, acc_scale: float, pkt: ScanPacket, last_end_rel,
+             pcl_end_rel, ekf_inited, do_update, n_max=None, out=None):
+    """One flat f32 feed buffer: [scalars(8) | imu(M,7) | pts(N*3) |
+    time(N) | intensity(N)], the JAX package's layout, so every input is
+    rounded to f32 exactly as there.  Scalars: acc_scale, last_end_rel,
+    pcl_end_rel, n_pts, n_imu, ekf_inited, do_update, 0.  Written into
+    ``out`` (a host array of the buffer's length) when given, else into
+    a fresh array."""
+    if n_max is None:
+        n_max = cfg.n_points_max
+    m_max = cfg.n_imu_max
+    n = min(len(pkt.pts), n_max)
+    m = min(len(pkt.imu_t), m_max)
+    size = 8 + m_max * 7 + n_max * 5
+    if out is None:
+        buf = np.zeros(size, np.float32)
+    else:
+        buf = out
+        buf.fill(0.0)
+    buf[0:8] = (acc_scale, last_end_rel, pcl_end_rel, n, m,
+                1.0 if ekf_inited else 0.0, 1.0 if do_update else 0.0,
+                0.0)
+    imu = buf[8:8 + m_max * 7].reshape(m_max, 7)
+    imu[:m, 0] = pkt.imu_t[:m] - pkt.lidar_beg_time
+    imu[:m, 1:4] = pkt.imu_acc[:m]
+    imu[:m, 4:7] = pkt.imu_gyr[:m]
+    o = 8 + m_max * 7
+    pts = np.ascontiguousarray(pkt.pts[:n], np.float32)
+    buf[o:o + n * 3] = pts.reshape(-1)
+    buf[o + n_max * 3:o + n_max * 3 + n] = pkt.pt_time[:n]
+    if pkt.intensity is not None:
+        buf[o + n_max * 4:o + n_max * 4 + n] = pkt.intensity[:n]
+    return buf
+
+
+def pad_for(pad_buckets, n: int) -> int:
+    """Smallest of the pads ``pad_buckets`` >= n (the largest if none fits;
+    the overflow is counted, never silent)."""
+    pads = [p for p in pad_buckets if p >= n]
+    return min(pads) if pads else max(pad_buckets)
+
+
+def unpack_feed(cfg: Config, buf: torch.Tensor):
+    """The step's inputs from one flat feed buffer (``pack_buf``'s
+    layout; the JAX package's ``packed``, ``fast_lio_tpu/pipeline.py:541-564``):
+    ``((imu_t, imu_acc, imu_gyr, imu_mask, acc_scale, last_end_rel,
+    pcl_end_rel, pts, pt_time, pt_mask, pt_intensity), ekf_inited,
+    do_update)``.  The masks are rebuilt on the device from the counts in
+    scalars 3-4 and the flags read from scalars 5-6, so no value of the scan
+    is a host constant of the program."""
+    M = cfg.n_imu_max
+    N = (buf.shape[0] - 8 - M * 7) // 5
+    dev = buf.device
+    scalars = buf[:8]
+    imu = buf[8:8 + M * 7].reshape(M, 7)
+    o = 8 + M * 7
+    pts = buf[o:o + N * 3].reshape(N, 3)
+    pt_time = buf[o + N * 3:o + N * 4]
+    pt_int = buf[o + N * 4:o + N * 5]
+    pt_mask = torch.arange(N, device=dev) < scalars[3].to(torch.int32)
+    imu_mask = torch.arange(M, device=dev) < scalars[4].to(torch.int32)
+    imu_t = torch.where(imu_mask, imu[:, 0], torch.full_like(imu[:, 0], 1e9))
+    return ((imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
+             scalars[0], scalars[1], scalars[2], pts, pt_time, pt_mask, pt_int),
+            scalars[5] > 0.5, scalars[6] > 0.5)
+
+
+def step_outputs(step) -> tuple:
+    """``lio_step``'s results as ``(x, P, map, imu_carry, lm_state, out)``,
+    ``out`` the scan's outputs: ``pose`` (7,) = [pos | quat], ``diag`` (4,)
+    int64 = [n_down, n_eff, iterations, map_size], and the clouds."""
+    x, P, m, imu_carry, lm_state, clouds, d = step
+    diag = torch.stack([d[k].to(torch.int64).reshape(()) for k in
+                        ("n_down", "n_eff", "iters", "map_size")])
+    keep = ("world", "world_mask", "world_intensity", "body", "body_mask",
+            "body_intensity")
+    out = dict(pose=torch.cat([x.pos, x.rot]), diag=diag,
+               **{k: clouds[k] for k in keep})
+    return x, P, m, imu_carry, lm_state, out
+
+
+def packed_step(cfg: Config, map_cfg: hm.MapConfig, x: st.State, P,
+                m: hm.Map, imu_carry: imu_mod.ImuCarry, Q, buf: torch.Tensor,
+                lm_lo, lm_hi, lm_init) -> tuple:
+    """One scan from the flat feed buffer: ``lio_step`` on
+    ``unpack_feed(buf)``, the counterpart of the JAX package's ``packed``.
+    Returns ``step_outputs``'s ``(x, P, map, imu_carry, lm_state, out)``; the
+    map is updated in place.  A pure function of its arguments but for that
+    map, with no host read: ``Pipeline`` runs (and captures) it on its
+    state, and ``BatchPipeline`` runs it under ``torch.func.vmap`` on B
+    states stacked on a leading axis."""
+    scan, ekf_inited, do_update = unpack_feed(cfg, buf)
+    return step_outputs(lio_step(cfg, map_cfg, x, P, m, imu_carry, Q, *scan,
+                                 lm_lo, lm_hi, lm_init, ekf_inited, do_update))
+
+
 class Pipeline:
     """End-to-end odometry: feed packets, read poses.
 
@@ -553,52 +650,30 @@ class Pipeline:
     def _pad_for(self, n: int) -> int:
         """Smallest configured pad >= n (largest if none fits; the overflow
         is counted, never silent — see process_packet)."""
-        pads = [p for p in self.pad_buckets if p >= n]
-        return min(pads) if pads else max(self.pad_buckets)
+        return pad_for(self.pad_buckets, n)
 
     # ------------------------------------------------------------------
     # the step on the device
     # ------------------------------------------------------------------
 
     def _packed_step(self, buf: torch.Tensor) -> dict:
-        """One scan from the flat feed buffer (``_pack_buf``'s layout): the
-        JAX package's ``packed`` (``fast_lio_tpu/pipeline.py:541-564``).
-        The masks are rebuilt on the device from the counts in scalars 3-4
-        and the flags read from scalars 5-6, so no value of the scan is a
-        host constant of the program; the new state is written into the
-        pipeline's tensors (``load_state``).  Returns the scan's outputs:
-        ``pose`` (7,) = [pos | quat], ``diag`` (4,) int64 = [n_down, n_eff,
-        iterations, map_size], and the clouds of ``lio_step``.  Reads
-        nothing on the host, so ``StepGraphs`` captures it."""
-        cfg, dev = self.cfg, self.device
-        M = cfg.n_imu_max
-        N = (buf.shape[0] - 8 - M * 7) // 5
-        scalars = buf[:8]
-        imu = buf[8:8 + M * 7].reshape(M, 7)
-        o = 8 + M * 7
-        pts = buf[o:o + N * 3].reshape(N, 3)
-        pt_time = buf[o + N * 3:o + N * 4]
-        pt_int = buf[o + N * 4:o + N * 5]
-        pt_mask = torch.arange(N, device=dev) < scalars[3].to(torch.int32)
-        imu_mask = torch.arange(M, device=dev) < scalars[4].to(torch.int32)
-        imu_t = torch.where(imu_mask, imu[:, 0], torch.full_like(imu[:, 0], 1e9))
-        ekf_inited = scalars[5] > 0.5
-        args = (self.x, self.P, self.map, self.imu_carry, self.Q,
-                imu_t, imu[:, 1:4], imu[:, 4:7], imu_mask,
-                scalars[0], scalars[1], scalars[2],
-                pts, pt_time, pt_mask, pt_int, *self.lm_state, ekf_inited)
+        """One scan from the flat feed buffer (``pack_buf``'s layout),
+        ``packed_step`` on the pipeline's state; the new state is written
+        into the pipeline's tensors (``load_state``).  Returns the scan's
+        outputs (``packed_step``'s).  Reads nothing on the host, so
+        ``StepGraphs`` captures it."""
+        state = (self.x, self.P, self.map, self.imu_carry)
         if self.group is None:
-            out = lio_step(cfg, self.map_cfg, *args, do_update=scalars[6] > 0.5)
+            *new, out = packed_step(self.cfg, self.map_cfg, *state, self.Q,
+                                    buf, *self.lm_state)
         else:  # the sharded step updates on every scan, as JAX's does
-            out = sharding.sharded_lio_step(cfg, self.map_cfg, self.group, *args)
-        x, P, m, imu_carry, lm_state, clouds, d = out
-        self.load_state(x, P, m, imu_carry, lm_state)
-        diag = torch.stack([d[k].to(torch.int64).reshape(()) for k in
-                            ("n_down", "n_eff", "iters", "map_size")])
-        keep = ("world", "world_mask", "world_intensity", "body", "body_mask",
-                "body_intensity")
-        return dict(pose=torch.cat([x.pos, x.rot]), diag=diag,
-                    **{k: clouds[k] for k in keep})
+            scan, ekf_inited, _ = unpack_feed(self.cfg, buf)
+            step = sharding.sharded_lio_step(
+                self.cfg, self.map_cfg, self.group, *state, self.Q, *scan,
+                *self.lm_state, ekf_inited)
+            *new, out = step_outputs(step)
+        self.load_state(*new)
+        return out
 
     # ------------------------------------------------------------------
     # host orchestration
@@ -689,52 +764,18 @@ class Pipeline:
         self.process_packet(pkt)
         return True
 
-    def _pack_buf(self, pkt: ScanPacket, last_end_rel, pcl_end_rel,
-                  ekf_inited, do_update, n_max=None, out=None):
-        """One flat f32 feed buffer: [scalars(8) | imu(M,7) | pts(N*3) |
-        time(N) | intensity(N)], the JAX package's layout, so every input is
-        rounded to f32 exactly as there.  Scalars: acc_scale, last_end_rel,
-        pcl_end_rel, n_pts, n_imu, ekf_inited, do_update, 0.  Written into
-        ``out`` (a host array of the buffer's length) when given, else into
-        a fresh array."""
-        if n_max is None:
-            n_max = self.cfg.n_points_max
-        m_max = self.cfg.n_imu_max
-        n = min(len(pkt.pts), n_max)
-        m = min(len(pkt.imu_t), m_max)
-        size = 8 + m_max * 7 + n_max * 5
-        if out is None:
-            buf = np.zeros(size, np.float32)
-        else:
-            buf = out
-            buf.fill(0.0)
-        buf[0:8] = (self.acc_scale, last_end_rel, pcl_end_rel, n, m,
-                    1.0 if ekf_inited else 0.0, 1.0 if do_update else 0.0,
-                    0.0)
-        imu = buf[8:8 + m_max * 7].reshape(m_max, 7)
-        imu[:m, 0] = pkt.imu_t[:m] - pkt.lidar_beg_time
-        imu[:m, 1:4] = pkt.imu_acc[:m]
-        imu[:m, 4:7] = pkt.imu_gyr[:m]
-        o = 8 + m_max * 7
-        pts = np.ascontiguousarray(pkt.pts[:n], np.float32)
-        buf[o:o + n * 3] = pts.reshape(-1)
-        buf[o + n_max * 3:o + n_max * 3 + n] = pkt.pt_time[:n]
-        if pkt.intensity is not None:
-            buf[o + n_max * 4:o + n_max * 4 + n] = pkt.intensity[:n]
-        return buf
-
     def _run_step(self, pkt, last_end_rel, pcl_end_rel, ekf_inited,
                   pad) -> dict:
         """Pack the scan, hand it to the device and run the step: a graph
         replay (its first scan in a bucket runs eagerly, then the capture),
         or the eager step.  Returns the step's outputs, copied off the
         graph's tensors where a graph ran."""
-        args = (pkt, last_end_rel, pcl_end_rel, ekf_inited, self.map_built,
-                pad)
+        args = (self.cfg, self.acc_scale, pkt, last_end_rel, pcl_end_rel,
+                ekf_inited, self.map_built, pad)
         if self.feed is None:  # the CPU: a fresh buffer, no copy
-            return self._packed_step(torch.from_numpy(self._pack_buf(*args)))
+            return self._packed_step(torch.from_numpy(pack_buf(*args)))
         host = self.feed.take(8 + self.cfg.n_imu_max * 7 + pad * 5)
-        self._pack_buf(*args, out=host.numpy())
+        pack_buf(*args, out=host.numpy())
         if self.graphs is not None:
             # the next replay overwrites the graph's outputs, and the next
             # scan its input buffer (which the intensity cloud views)

@@ -3,8 +3,9 @@ pinned host buffers that feed it.
 
 The counterpart of ``jax.jit(packed)`` in the JAX package's ``Pipeline``
 (``fast_lio_tpu/pipeline.py:526-566``): one compile per input shape there,
-one capture per pad bucket here.  The step (``Pipeline._packed_step``)
-reads nothing on the host, so it records whole.  At the first scan of a
+one capture per pad bucket here.  The step (``Pipeline._packed_step``, or
+``BatchPipeline``'s vmapped step over a (B, L) buffer of B lanes, one graph
+for the whole fleet) reads nothing on the host, so it records whole.  At the first scan of a
 bucket it runs eagerly on a side stream: that is the scan's result, and the
 warm-up that builds and configures the kNN kernels and makes the step's
 device constants before anything is recorded.  Then it is captured into a
@@ -22,25 +23,31 @@ from __future__ import annotations
 
 import collections
 import gc
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
 from .kernels import counts
+
+Shape = Union[int, Tuple[int, ...]]  # a feed buffer's length, or (B, L)
+
+
+def _shape(t: torch.Tensor) -> Shape:
+    return t.shape[0] if t.dim() == 1 else tuple(t.shape)
 
 
 class _Slot:
     """One pinned host buffer and the event that marks the device's copy
     of it done."""
 
-    def __init__(self, n: int):
-        self.buf = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    def __init__(self, shape: Shape):
+        self.buf = torch.empty(shape, dtype=torch.float32, pin_memory=True)
         self.event = None
 
 
 class PinnedFeed:
     """Pinned host buffers the scans are packed into, ``SLOTS`` of each
-    length in a ring.  The device copies a buffer out asynchronously, so a
+    shape in a ring.  The device copies a buffer out asynchronously, so a
     buffer is written again only after that copy has run: an event per
     buffer, which the host waits on only when it runs ``SLOTS`` scans ahead
     of the device (``waits`` counts those waits)."""
@@ -48,19 +55,20 @@ class PinnedFeed:
     SLOTS = 4
 
     def __init__(self):
-        self._rings: Dict[int, list] = {}
-        self._next: Dict[int, int] = collections.Counter()
+        self._rings: Dict[Shape, list] = {}
+        self._next: Dict[Shape, int] = collections.Counter()
         self._taken = None  # the slot the scan in flight was packed into
         self.waits = 0
 
-    def take(self, n: int) -> torch.Tensor:
-        """A pinned float32 buffer of ``n`` floats that no pending copy
-        reads."""
-        ring = self._rings.get(n)
+    def take(self, shape: Shape) -> torch.Tensor:
+        """A pinned float32 buffer of ``shape`` (a length, or (B, L) for a
+        batch) that no pending copy reads."""
+        ring = self._rings.get(shape)
         if ring is None:
-            ring = self._rings[n] = [_Slot(n) for _ in range(self.SLOTS)]
-        k = self._next[n]
-        self._next[n] = (k + 1) % self.SLOTS
+            ring = self._rings[shape] = [_Slot(shape)
+                                         for _ in range(self.SLOTS)]
+        k = self._next[shape]
+        self._next[shape] = (k + 1) % self.SLOTS
         slot = ring[k]
         if slot.event is not None and not slot.event.query():
             slot.event.synchronize()
@@ -86,22 +94,22 @@ class _Captured(NamedTuple):
 
 class StepGraphs:
     """A step (a device buffer -> a dict of tensors, with no host read)
-    captured once per buffer length on ``device`` and replayed.  The step
+    captured once per buffer shape on ``device`` and replayed.  The step
     is passed at each call, not kept: a pipeline that holds its graphs and
     is held by them would be freed only by the garbage collector."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self._graphs: Dict[int, _Captured] = {}
-        self.replays: Dict[int, int] = collections.Counter()
+        self._graphs: Dict[Shape, _Captured] = {}
+        self.replays: Dict[Shape, int] = collections.Counter()
 
     def run(self, host: torch.Tensor,
             step: Callable[[torch.Tensor], dict]) -> dict:
         """Run ``step`` on the scan in ``host`` (a pinned buffer): a replay,
-        or for a new length the eager step and then the capture.  Returns
-        the outputs, which the next scan of the length overwrites (a
+        or for a new shape the eager step and then the capture.  Returns
+        the outputs, which the next scan of the shape overwrites (a
         replay's are the graph's static tensors)."""
-        n = host.shape[0]
+        n = _shape(host)
         cap = self._graphs.get(n)
         if cap is None:
             return self._run_and_capture(host, step)
@@ -112,7 +120,7 @@ class StepGraphs:
         return cap.static_out
 
     def _run_and_capture(self, host: torch.Tensor, step) -> dict:
-        n = host.shape[0]
+        n = _shape(host)
         static_in = torch.empty(host.shape, dtype=host.dtype,
                                 device=self.device)
         static_in.copy_(host, non_blocking=True)
@@ -137,7 +145,7 @@ class StepGraphs:
                 static_out = step(static_in)
         except RuntimeError as e:
             raise RuntimeError(
-                f"capturing the step for a feed of {n} floats failed: {e}"
+                f"capturing the step for a feed of shape {n} failed: {e}"
             ) from e
         finally:
             if collecting:
@@ -148,8 +156,8 @@ class StepGraphs:
         return out
 
     def stats(self) -> dict:
-        """Per captured feed length: replays so far and the kernel launches
-        one replay makes."""
+        """Per captured feed shape (a length, or (B, L)): replays so far and
+        the kernel launches one replay makes."""
         return {n: {"replays": self.replays[n],
                     "launches_per_replay": counts.total(c.launches)}
                 for n, c in self._graphs.items()}

@@ -36,12 +36,20 @@ and padded as it pads, N = 8192 (``n_ds_max``), at R = 8, B = 64 (the avia
 preset) and at R = 27, B = 128 (the ouster64 preset, whose wide fallback
 searches all of them); H = 2^15.  The float64 rows (``knn_f64_r8``, ``knn_f64_r27``) search the same
 map and queries in float64, moved off the float32 grid by less than half a
-float32 ulp (``off_float32``).  Prints one JSON line per search and
-query order, then the card's name and power limit.
+float32 ulp (``off_float32``).  The batched rows (``knn_batched_r8``, ...,
+``knn_batched_f64_r27``) search ``STREAMS`` maps at once, one launch over
+the kernel's stream axis (``knn_search_cuda_batched``, the batched step's
+search): each map made as above from the sim run of another seed (0-3,
+with 0.01 m of range noise, which the seed draws), each stream its own
+scan's queries; their plain version is the plain
+search run per stream, their bound the streams' bounds added.  Prints one
+JSON line per search and query order, then the card's name and power
+limit.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -83,6 +91,9 @@ CASES = {
             True, 1),
 }
 SCAN = 5  # the scan searched; the map holds the scans before it
+STREAMS = 4  # the batched rows' maps, sim seeds 0..STREAMS-1
+STREAM_RANGE_NOISE = 0.01  # m: the sim's seed draws only noise, so the
+# batched rows' runs take this much range noise to make their maps differ
 
 
 def map_config(preset: config.Config) -> hm.MapConfig:
@@ -129,19 +140,53 @@ def off_float32(m: hm.Map, queries: torch.Tensor, seed: int):
     return hm.Map(packed, m.dropped), nudge(queries).contiguous()
 
 
+class BatchedCase(NamedTuple):
+    tag: str
+    maps: list  # per stream, hm.Map with its dump row
+    rows: torch.Tensor  # (S, H + 1, 4B), the maps stacked
+    cfg: hm.MapConfig
+    queries: torch.Tensor  # (S, N, 3)
+    wide: bool
+
+    @property
+    def packed(self) -> torch.Tensor:
+        """(S, H, 4B): the maps as the batched step passes them, (H + 1)
+        rows apart."""
+        return self.rows[:, :self.cfg.num_buckets]
+
+
+def make_batched_case(tag: str, streams: int = STREAMS, device="cuda",
+                      dtype=torch.float32) -> BatchedCase:
+    """``streams`` cases of ``tag`` in the main order, stream s from the sim
+    run of seed s with ``STREAM_RANGE_NOISE`` (so each stream has its own
+    map and queries), stacked with their dump rows."""
+    maps, qs = [], []
+    for s in range(streams):
+        case = make_case(tag, "main", device, dtype, sim_seed=s)
+        m = hm.from_packed(case.m.packed, case.m.dropped)
+        maps.append(m)
+        qs.append(case.queries)
+    return BatchedCase(tag, maps, torch.stack([m.rows for m in maps]),
+                       case.cfg, torch.stack(qs), case.wide)
+
+
 def make_case(tag: str, order: str = "main", device="cuda",
-              dtype=torch.float32) -> Case:
+              dtype=torch.float32, sim_seed: int = None) -> Case:
     """A map filled from 5 simulated scans (world frame, true poses) and
     the queries of the main path's search of the 6th (``main_path_queries``)
     in its order ("main") or permuted by a seeded numpy permutation
     ("shuffled").  Built in float32; a float64 case holds those values moved
-    off the float32 grid (``off_float32``)."""
+    off the float32 grid (``off_float32``).  ``sim_seed`` gives the sim run
+    that seed and ``STREAM_RANGE_NOISE``."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype {dtype}: torch.float32 or torch.float64")
     if order not in ("main", "shuffled"):
         raise ValueError(f"order {order!r}: 'main' or 'shuffled'")
     preset, sim_cfg, wide, seed = CASES[tag]
     cfg = map_config(preset)
+    if sim_seed is not None:
+        sim_cfg = dataclasses.replace(sim_cfg, seed=sim_seed,
+                                      range_noise=STREAM_RANGE_NOISE)
     data = sim.generate(sim_cfg)
     m = hm.make_map(cfg, torch.float32, device)
     for k in range(SCAN):
@@ -317,6 +362,27 @@ def measure(case: Case, reps: int, with_plain: bool = True) -> dict:
     return rows
 
 
+def measure_batched(case: BatchedCase, reps: int) -> dict:
+    """The row of the batched search of ``case`` (one launch over its
+    streams): its times, the plain search per stream, the streams' bound."""
+    cfg, q, wide = case.cfg, case.queries, case.wide
+    S, N = q.shape[:2]
+    bound = bounds.knn_bound_streams(case.maps, cfg, q, wide)
+    f64 = q.dtype == torch.float64
+    name = f"knn_batched{'_f64' if f64 else ''}_{case.tag}"
+    return {name: {
+        "name": name, "order": "main",
+        "shape": dict(S=S, N=N, R=27 if wide else 8, B=cfg.bucket_slots,
+                      H=cfg.num_buckets),
+        **time_search(lambda: knn.knn_search_cuda_batched(
+            case.packed, cfg, q, wide=wide), reps),
+        "bound_us": 1e3 * bound.ms, "bound_by": bound.by,
+        "distinct_rows": bound.distinct_rows,
+        "plain_us": stream_us(lambda: [
+            hm.knn_search(m, cfg, q[s], wide=wide)
+            for s, m in enumerate(case.maps)], max(5, reps // 5))}}
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -339,6 +405,9 @@ def main(argv=None) -> int:
                 case = make_case(tag, order, dtype=dtype)
                 for row in measure(case, args.reps).values():
                     print(json.dumps(row), flush=True)
+            bcase = make_batched_case(tag, dtype=dtype)
+            for row in measure_batched(bcase, args.reps).values():
+                print(json.dumps(row), flush=True)
     for lib in ("knn", "knn_grouped"):
         print(json.dumps({"ptxas": lib, "kernels": build.kernel_usage(lib)}),
               flush=True)

@@ -12,19 +12,31 @@ scans):
   velodyne_outdoor  16 rings in a 90 x 90 m hall, the sparse remedy on
                     (tests/test_sparse_regime.py's outdoor geometry)
 
+and one fleet of streams (``batch_scenario``):
+
+  avia_batch4       bench.py's ``main_batch(4)`` (bench.py:153-232): four
+                    streams, sim seeds 0-3, 16 rings x 400 azimuths, at
+                    the AVIA preset's full width (32768-point pad, 8192
+                    downsampled points, 2^15 x 64-slot map); bench.py ran
+                    its avia scenario's config.  The sim's seed draws only
+                    its noise, and this run has none, so the four streams
+                    carry the same data, as in bench.py.
+
 ``tools/oracle_ab.py`` runs them through the pipeline and the oracle; the
-port's benchmark (``ROADMAP.md`` A.18) is to take its cells from here.
+port's benchmark (``ROADMAP.md`` A.18) is to take its cells from here, and
+``chip_smoke.py`` phase ``fleet_batch4`` runs ``avia_batch4``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
 from .. import sim
-from ..config import Config, LidarType
+from ..config import PRESETS, Config, LidarType
 
 NAMES = ("avia", "ouster64", "mid360", "velodyne_outdoor")
+BATCH_NAMES = ("avia_batch4",)
 DURATION_S = 10.0  # bench.py's runs
 
 
@@ -92,3 +104,16 @@ def scenario(name: str, duration: float = DURATION_S
             traj=sim.Trajectory(radius=12.0, omega=0.4),
             world=outdoor_world())
     raise ValueError(f"unknown scenario {name!r}: one of {', '.join(NAMES)}")
+
+
+def batch_scenario(name: str, duration: float = DURATION_S
+                   ) -> Tuple[Config, List[sim.SimData]]:
+    """(config, one simulated run per stream) of fleet scenario ``name``,
+    for ``BatchPipeline(config, len(runs))``."""
+    if name == "avia_batch4":
+        return PRESETS["avia"], [
+            sim.generate(sim.SimConfig(duration=duration, n_rings=16,
+                                       n_azimuth=400, seed=s))
+            for s in range(4)]
+    raise ValueError(
+        f"unknown fleet scenario {name!r}: one of {', '.join(BATCH_NAMES)}")

@@ -3,10 +3,14 @@ port ``Pipeline``s and against the JAX package's ``BatchPipeline``, mirroring
 tests/test_batch.py: two streams, the second shorter, so the rounds after it
 ends run without it (the JAX package runs a no-op lane there).
 
-Tolerances: each lane of the port's batch is the single-stream code on the
-same packets, so on the CPU it equals a single ``Pipeline`` bit for bit;
-against the JAX package's vmapped batch the f32 pipeline tolerance of
-ROADMAP.md section C holds (5 mm per scan).
+Tolerances: each lane of the port's batch is the single-stream step on the
+same packets, run under ``torch.func.vmap``.  There the step's
+matrix-vector products run as batched matrix products, which round
+differently from a single product, so a lane is not bit-equal to a single
+``Pipeline``: over this run they part by at most 8.0e-5 m (measured on a
+CPU), held here to BATCH_VS_SINGLE_M.  Against the JAX package's vmapped
+batch the f32 pipeline tolerance of ROADMAP.md section C holds (5 mm per
+scan).
 """
 import numpy as np
 import pytest
@@ -19,6 +23,9 @@ from fast_lio_tpu_torch import config as tcfg
 from fast_lio_tpu_torch import pipeline as tpipe
 from fast_lio_tpu_torch.batch import BatchPipeline
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+# a lane against a single Pipeline on the same packets (measured 8.0e-5 m)
+BATCH_VS_SINGLE_M = 5e-4
 
 KW = dict(filter_size_surf=0.3, filter_size_map=0.3, n_points_max=2048,
           n_ds_max=1024, n_imu_max=32, map_h_log2=12, det_range=40.0,
@@ -86,7 +93,8 @@ def test_batch_matches_single_pipelines_and_jax_batch():
         traj = bp.get_trajectory(i)
         single = singles[i].get_trajectory()
         assert [t for t, _, _ in traj] == [t for t, _, _ in single]
-        np.testing.assert_array_equal(_positions(traj), _positions(single))
+        np.testing.assert_allclose(_positions(traj), _positions(single),
+                                   rtol=0, atol=BATCH_VS_SINGLE_M)
         jtraj = jbp.get_trajectory(i)
         assert [t for t, _, _ in traj] == [t for t, _, _ in jtraj]
         np.testing.assert_allclose(_positions(traj), _positions(jtraj),

@@ -5,9 +5,11 @@ fleet mode over two bags, and the device rule (no card, no ``--platform
 cpu``: a non-zero exit, never a silent CPU run).
 
 Tolerances: the port's f32 pipeline agrees with the JAX package's to 5 mm
-per scan (ROADMAP.md section C); a resumed or batched run of the port is the
-same code on the same state and data, so on the CPU it equals the
-uninterrupted single-stream run to the trajectory file's 6 decimals.
+per scan (ROADMAP.md section C); a resumed run of the port is the same code
+on the same state and data, so on the CPU it equals the uninterrupted
+single-stream run to the trajectory file's 6 decimals; a batched run (the
+same step under vmap, whose batched matrix products round differently) is
+within tests/test_torch_batch.py's BATCH_VS_SINGLE_M of it.
 """
 import json
 
@@ -18,6 +20,7 @@ import torch
 from fast_lio_tpu_torch import cli
 from fast_lio_tpu_torch import sim as tsim
 from fast_lio_tpu_torch.utils import checkpoint as ckpt
+from test_torch_batch import BATCH_VS_SINGLE_M
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # a small scan stream at the avia preset's full widths: decimation off and
@@ -113,8 +116,13 @@ def test_fleet_mode_matches_single_stream_replays(tmp_path):
         single = tmp_path / f"single{i}"
         assert cli.main(BAG_FLAGS + ["--bag", bags[i],
                                      "--out", str(single)]) == 0
-        np.testing.assert_array_equal(
-            fleet, _tum(single / "trajectory_tum.txt"))
+        # the batched step is the single step under vmap, whose batched
+        # matrix products round differently: not bit for bit
+        # (tests/test_torch_batch.py's bound)
+        want = _tum(single / "trajectory_tum.txt")
+        np.testing.assert_array_equal(fleet[:, 0], want[:, 0])
+        np.testing.assert_allclose(fleet[:, 1:], want[:, 1:], rtol=0,
+                                   atol=BATCH_VS_SINGLE_M)
         est = fleet[:, 1:4]
         gt = d.gt_pos[:len(est)]
         err = (est - (est[0] - gt[0])) - gt

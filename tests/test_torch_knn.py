@@ -149,6 +149,123 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         tknn.knn_search_cuda(tm.packed, cfg, torch.tensor(q), k=4)
 
 
+def _stream_scenes(S, dtype=torch.float32, device="cpu"):
+    """S different maps (B = 16) and S query sets of one size, stacked:
+    (cfg, rows (S, H + 1, 4B) with each map's dump row, queries (S, N, 3))."""
+    maps, qs = [], []
+    for s in range(S):
+        pts, q = _scene("dense", np.random.default_rng(70 + s))
+        cfg, tm = _port_map(pts, 16, device=device)
+        maps.append(tm.rows)
+        qs.append(torch.tensor(q, device=device))
+    return (cfg, torch.stack(maps).to(dtype), torch.stack(qs).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wide", [False, True])
+def test_knn_op_vmap_rule_runs_the_plain_search_per_stream(wide, dtype):
+    """(a) The custom op under ``torch.func.vmap`` (vmap's fallback off) on
+    CPU tensors: each stream's rows are its plain search's, bit for bit, and
+    no kernel launch is counted.  A map shared by the streams is
+    broadcast."""
+    from fast_lio_tpu_torch.batch import no_vmap_fallback
+
+    cfg, rows, q = _stream_scenes(3, dtype)
+    H = cfg.num_buckets
+    counters = (tknn.launches, tknn.launches_f64, tknn.batched_launches,
+                tknn.batched_launches_f64)
+    before = [dict(c) for c in counters]
+
+    def one(packed, queries):
+        return tknn.knn_search(thm.Map(packed, None), cfg, queries, wide=wide)
+
+    with no_vmap_fallback():
+        got = torch.func.vmap(one)(rows[:, :H], q)
+        shared = torch.func.vmap(one, in_dims=(None, 0))(rows[0, :H], q)
+    for s in range(3):
+        want = thm.knn_search(thm.Map(rows[s, :H], None), cfg, q[s],
+                              wide=wide)
+        _bit_equal(_np(tuple(g[s] for g in got)), _np(want))
+        want = thm.knn_search(thm.Map(rows[0, :H], None), cfg, q[s],
+                              wide=wide)
+        _bit_equal(_np(tuple(g[s] for g in shared)), _np(want))
+    assert got[0].dtype == dtype and got[2].any()
+    assert [dict(c) for c in counters] == before
+
+
+def test_knn_op_fake_gives_the_kernel_shapes():
+    """The op's fake (``register_fake``): outputs of the kernel's shapes and
+    dtypes, with no data."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = _cfg(16)
+    with FakeTensorMode():
+        packed = torch.empty((cfg.num_buckets, 64))
+        q = torch.empty((7, 3), dtype=torch.float32)
+        nbrs, sq, found = torch.ops.fast_lio_tpu_torch.knn_search(
+            packed, q, cfg.h_log2, cfg.bucket_slots, cfg.cell_size,
+            cfg.voxel_size, 5, False)
+    assert tuple(nbrs.shape) == (7, 5, 3) and tuple(sq.shape) == (7, 5)
+    assert tuple(found.shape) == (7, 5) and found.dtype == torch.bool
+    assert sq.dtype == torch.float32
+
+
+def test_batched_launch_refuses_what_the_kernel_does_not_take():
+    """The batched wrapper's checks, on the host: one leading stream axis
+    of a size, maps 16-byte aligned apart, CUDA tensors."""
+    cfg, rows, q = _stream_scenes(2)
+    H = cfg.num_buckets
+    with pytest.raises(ValueError, match="stream axis"):
+        tknn.knn_search_cuda_batched(rows[:, :H], cfg, q[:1])
+    with pytest.raises(ValueError, match="aligned"):
+        tknn.knn_search_cuda_batched(
+            rows.reshape(-1)[2:2 + 2 * H * 64].reshape(2, H, 64)
+            .as_strided((2, H, 64), (H * 64 + 2, 64, 1)), cfg, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tknn.knn_search_cuda_batched(rows[:, :H], cfg, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("S", [1, 4])
+def test_cuda_batched_kernel_matches_plain_search_per_stream(S, wide, dtype):
+    """One launch over S stacked maps (each with its dump row, so the maps
+    are (H + 1) * 4B apart) and S query sets: each stream's rows bit-equal
+    to its plain search and to the single launch on that map (at S = 1,
+    today's launch); one launch counted.  Float64 off the float32 grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
+    maps, qs = [], []
+    for s in range(S):
+        cfg, tm, q = cuda_scene(["coherent", "shuffled", "union_overflow",
+                                 "clamped"][s], 16, n=8192, seed=80 + s)
+        if dtype == torch.float64:
+            tm, q = _f64(tm, q, seed=90 + s)
+            tm = thm.from_packed(tm.packed, tm.dropped)
+        maps.append(tm.rows)
+        qs.append(q)
+    rows, q = torch.stack(maps), torch.stack(qs)
+    H = cfg.num_buckets
+    r = 27 if wide else 8
+    counter = (tknn.batched_launches_f64 if dtype == torch.float64
+               else tknn.batched_launches)
+    before = counter[r]
+    got = tknn.knn_search_cuda_batched(rows[:, :H], cfg, q, wide=wide)
+    torch.cuda.synchronize()
+    assert counter[r] == before + 1
+    assert rows[:, :H].stride(0) == (H + 1) * 4 * 16
+    for s in range(S):
+        mine = tuple(g[s] for g in got)
+        single = tknn.knn_search_cuda(rows[s, :H].contiguous(), cfg, q[s],
+                                      wide=wide)
+        for a, b in zip(mine, single):
+            assert torch.equal(a, b)
+        m = thm.Map(rows[s, :H].contiguous(), None)
+        _bit_equal(_np(mine), _np(thm.knn_search(m, cfg, q[s], wide=wide)))
+        assert mine[2].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [16, 128])
 @pytest.mark.parametrize("case", ["dense", "sparse_and_empty", "wide"])

@@ -227,6 +227,27 @@ def test_scenarios_are_benchs(name):
         scenarios.scenario("kitti")
 
 
+def test_batch_scenario_is_benchs_main_batch():
+    """``avia_batch4``: the AVIA preset (every Config field equal to the
+    JAX package's) and bench.py's ``main_batch`` sim runs, seeds 0-3,
+    bit-equal (at a 1 s duration)."""
+    from fast_lio_tpu import sim as jsim
+    from fast_lio_tpu.config import PRESETS as JPRESETS
+
+    cfg, runs = scenarios.batch_scenario("avia_batch4", duration=1.0)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(JPRESETS["avia"])
+    assert len(runs) == 4
+    for s, got in enumerate(runs):
+        want = jsim.generate(jsim.SimConfig(duration=1.0, n_rings=16,
+                                            n_azimuth=400, seed=s))
+        for x, y in zip(got.scans, want.scans):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(got.imu_acc, want.imu_acc)
+        np.testing.assert_array_equal(got.gt_pos, want.gt_pos)
+    with pytest.raises(ValueError, match="unknown fleet scenario"):
+        scenarios.batch_scenario("avia")
+
+
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
     """The port's runner on a 1 s sim run (CPU, pose log on), and the sim's
