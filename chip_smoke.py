@@ -76,13 +76,26 @@ Phases, in order; any failed check exits non-zero:
    single one.
 9. sharded_avia_1rank — the map sharded (``Pipeline(cfg, group=...)``,
    ``parallel/sharding.py``) on one rank over NCCL, a worker process
-   (``parallel.launch`` running ``tools/bench_scaling.drive``): the first 20
-   scans of phase 4's run at the AVIA preset.  Checks: positions within 5 mm
-   of phase 4's on the same scans, phase 4's health and ATE checks, the
-   R = 8 kernel launched on the rank's table.
+   (``parallel.launch`` running ``tools/bench_scaling.drive_modes``): the
+   first ``SHARDED_SCANS`` scans of phase 4's run at the AVIA preset,
+   eager (``graphs=False``), then the same scans captured (the default on
+   NCCL ranks: one CUDA graph per pad bucket with the collectives inside).
+   In each run the first ``GRAPH_WARM_SCANS`` scans run one by one, the
+   next ones in one window under ``torch.cuda.set_sync_debug_mode("error")``
+   drained at its end (scans/s), the last ``SHARDED_PROFILE_SCANS`` under
+   the profiler (device busy, activities, syncs a scan); the health check
+   comes after.  Checks: the captured run within 5 mm of the eager one and
+   of phase 4's on the same scans, phase 4's health and ATE checks on both,
+   the same kNN launches in both (the R = 8 kernel on the rank's table,
+   counted through the replays), one graph per pad bucket and replays equal
+   to the steps less the graphs, no host sync in the window or the profiled
+   scans, and ``measure_stage_times`` on the captured pipeline (against the
+   gathered global map) positive in each stage.
 10. sharded_ouster64_2ranks — phase 5's run (20 scans) on two ranks sharing
    the card over gloo (NCCL refuses two ranks on one device; gloo's
-   collectives go through host copies), each rank's table 2^14 x 128 slots.
+   collectives go through host copies, which no CUDA graph can record, so
+   the step runs eagerly: the row says ``"graphs": false``), each rank's
+   table 2^14 x 128 slots.
    Checks: the ranks' trajectories bit-identical, phase 5's health and ATE
    checks (global map drops), the R = 8 and R = 27 kernels launched on each
    rank.  Prints the global map size and drops beside phase 5's, and the
@@ -143,8 +156,9 @@ Phases, in order; any failed check exits non-zero:
    5 mm per scan of phase 5's single run (float32) or phase 11's
    (float64), the batched launches of both R and no single launch.
 
-Phases 3-12, 14 and 15 run the captured step (``Pipeline``'s default on
-CUDA); phase 13 holds it against the eager one.
+Phases 3-9, 11, 12, 14 and 15 run the captured step (``Pipeline``'s
+default on CUDA, on one NCCL rank too); phases 9 and 13 hold it against the
+eager one; phase 10 (gloo) runs eagerly.
 
 Phases 4 and 5 also print how many distinct bucket rows each tile of their
 searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
@@ -213,6 +227,10 @@ ORACLE_PACKETS = 12
 GRAPH_WARM_SCANS = 6
 ORACLE_BOUNDS = {"float32": (0.010, 0.005, 0.005),
                  "float64": (0.003, 0.0007, 0.0007)}
+# phase 9: the sharded run's scans (phase 4's first ones), and how many of
+# them run under the profiler after the window without a sync
+SHARDED_SCANS = 20
+SHARDED_PROFILE_SCANS = 4
 # phase 14: rounds of the avia_batch4 fleet (tests/torch_reference_ate.py's
 # BATCH_ROUNDS), the warm-up rounds and the window without a sync among
 # them; the rest run under the profiler
@@ -773,6 +791,76 @@ def phase_fleet(pkg, tmp: Path, bag0: Path, traj0, sim_cfg1):
 # --------------------------------------------------------------------------
 
 
+def sharded_row(r) -> dict:
+    """A sharded run's figures as printed, the launches by R."""
+    out = {k: r[k] for k in ("transport", "scans_per_s", "ate_raw_m",
+                             "ate_aligned_m", "iterations_mean",
+                             "n_effective_last", "health")}
+    out.update(scans=len(r["stamps"]), graphs=r["graphs"] is not None,
+               launches={f"r{k}": n for k, n in r["launches"].items()})
+    if r["graphs"] is not None:
+        out["per_graph"] = {str(k): v for k, v in r["graphs"].items()}
+    if "profile" in r:
+        out["profile_per_scan"] = {k: v for k, v in r["profile"].items()
+                                   if k != "host_syncs_by_op_per_scan"}
+    return out
+
+
+def phase_sharded_1rank(pkg, cfg, sim_cfg, traj_ref, card) -> dict:
+    """Phase 9: ``bench_scaling.drive_modes`` on one NCCL rank of the card
+    (a worker process), the captured run against the eager one and against
+    phase 4's (``traj_ref``).  Returns the captured run's report."""
+    name = "sharded_avia_1rank"
+    t0 = time.perf_counter()
+    res = pkg["launch"](pkg["bench_scaling"].drive_modes, 1,
+                        args=(cfg, sim_cfg, SHARDED_SCANS, GRAPH_WARM_SCANS,
+                              SHARDED_PROFILE_SCANS), backend="nccl",
+                        device="cuda:0", timeout_s=600.0)[0]
+    wall = time.perf_counter() - t0
+    cap, eager = res["captured"], res["eager"]
+    trajs = {mode: [(t, p, None) for t, p in zip(r["stamps"], r["positions"])]
+             for mode, r in (("captured", cap), ("eager", eager))}
+    steps = len(cap["stamps"])
+    d_eager = max_pos_diff(trajs["captured"], trajs["eager"])
+    d_avia = max_pos_diff(trajs["captured"], traj_ref[:steps])
+    graphs = cap["graphs"] or {}
+    replays = sum(g["replays"] for g in graphs.values())
+    out = {"phase": name, "card": card, "ranks": 1,
+           "captured": sharded_row(cap),
+           "eager": sharded_row(eager),
+           "captured_over_eager": cap["scans_per_s"] / eager["scans_per_s"],
+           "knn_launches_per_step": {
+               mode: {f"r{k}": n / steps for k, n in r["launches"].items()}
+               for mode, r in (("captured", cap), ("eager", eager))},
+           "max_pos_diff_vs_eager_m": d_eager,
+           "max_pos_diff_vs_avia_m": d_avia, "tol_m": POS_TOL_M,
+           "stage_times_s": res["stage_times"], "launch_wall_s": wall}
+    log(out)
+    check(steps >= SHARDED_SCANS - 2, f"{name}: {steps} estimates")
+    check(d_eager <= POS_TOL_M,
+          f"{name}: captured and eager positions differ {d_eager} m")
+    check(d_avia <= POS_TOL_M, f"{name}: positions differ {d_avia} m from "
+          "phase 4's")
+    for mode, r in (("captured", cap), ("eager", eager)):
+        check_health(f"{name} {mode}", r["health"], "avia")
+        check_ate(f"{name} {mode}", r, "avia")
+        prof = r["profile"]
+        check(prof["host_syncs_per_scan"] == 0,
+              f"{name} {mode}: {prof['host_syncs_per_scan']} host syncs a "
+              "scan in the profiled scans")
+    check(cap["launches"] == eager["launches"] and cap["launches"][8] > 0,
+          f"{name}: captured launches {cap['launches']}, eager "
+          f"{eager['launches']}")
+    check(eager["graphs"] is None and 1 <= len(graphs) <= len(
+        cap["pad_buckets"]) and replays == steps - len(graphs),
+          f"{name}: not one graph per pad bucket replayed for the other "
+          f"{steps} steps ({graphs})")
+    check(all(res["stage_times"][k] > 0
+              for k in ("search", "incremental", "delete")),
+          f"{name}: stage times {res['stage_times']}")
+    return cap
+
+
 def phase_sharded(pkg, name, cfg, sim_cfg, world, backend, n_scans, ref_name):
     """``bench_scaling.drive`` on ``world`` ranks of the card, each a worker
     process; the checks of the main path on rank 0's report (the map's size
@@ -785,7 +873,7 @@ def phase_sharded(pkg, name, cfg, sim_cfg, world, backend, n_scans, ref_name):
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     out = {"phase": name, "ranks": world, "transport": r0["transport"],
-           "scans": len(r0["stamps"]),
+           "graphs": r0["graphs"] is not None, "scans": len(r0["stamps"]),
            "scans_per_s": [r["scans_per_s"] for r in ranks],
            "ate_raw_m": r0["ate_raw_m"], "ate_aligned_m": r0["ate_aligned_m"],
            "launches_by_rank": [{f"r{k}": n for k, n in r["launches"].items()}
@@ -1206,27 +1294,18 @@ def main() -> int:
         l_fleet = phase_fleet(pkg, Path(tmp), bag0, traj0, dataclasses.replace(
             avia_sim, duration=2.0, seed=1))
 
-    # 9. the map sharded, one rank over NCCL: phase 4's first 20 scans
-    _, ranks_avia = phase_sharded(pkg, "sharded_avia_1rank",
-                                  config.PRESETS["avia"], avia_sim, 1, "nccl",
-                                  20, "avia")
-    r0 = ranks_avia[0]
-    n = len(r0["stamps"])
-    check(n >= 18, f"sharded_avia_1rank: {n} estimates")
-    dpos = max_pos_diff([(t, p, None) for t, p in zip(r0["stamps"],
-                                                     r0["positions"])],
-                        traj_avia[:n])
-    log({"phase": "sharded_avia_1rank", "max_pos_diff_vs_avia_m": dpos,
-         "tol_m": POS_TOL_M})
-    check(dpos <= POS_TOL_M, f"sharded_avia_1rank: positions differ {dpos} m")
-    check(r0["launches"][8] > 0,
-          "sharded_avia_1rank: the R=8 kNN kernel never ran")
+    # 9. the map sharded, one rank over NCCL, captured and eager: phase 4's
+    # first scans
+    rank_avia = phase_sharded_1rank(pkg, config.PRESETS["avia"], avia_sim,
+                                    traj_avia, card)
 
     # 10. two ranks sharing the card over gloo: phase 5's run
     _, ranks_ouster = phase_sharded(pkg, "sharded_ouster64_2ranks",
                                     ouster_cfg, ouster_sim, 2, "gloo", None,
                                     "ouster64")
     for r in ranks_ouster:
+        check(r["graphs"] is None,
+              f"sharded_ouster64_2ranks: rank {r['rank']} captured over gloo")
         check(r["launches"][8] > 0 and r["launches"][27] > 0,
               f"sharded_ouster64_2ranks: rank {r['rank']} launched "
               f"{r['launches']}")
@@ -1280,7 +1359,7 @@ def main() -> int:
                "fleet": l_fleet, "ouster64_f64": l_f64, "oracle": l_oracle,
                "oracle_f32": l_oracle_f32,
                **{f"graph_{k}": v for k, v in l_graph.items()}}
-    by_rank = {"sharded_avia_1rank": ranks_avia,
+    by_rank = {"sharded_avia_1rank": [rank_avia],
                "sharded_ouster64_2ranks": ranks_ouster}
     for path, ranks in by_rank.items():  # the per-query kernel only
         by_path[path] = {k: {r: 0 for r in v} for k, v in l_avia.items()}

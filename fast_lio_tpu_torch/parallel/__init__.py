@@ -11,8 +11,10 @@ gloo for CPU ranks (the default there, and what the tests use); gloo also for
 ranks that share one card, since NCCL refuses two ranks on one device.  gloo
 is given host tensors: for ranks on a card it copies each tensor to the host
 and back (``ShardGroup.transport`` names it).  That is the transport the
-caller chose, not a fallback.  The group's timeout (120 s) makes a rank that
-enters another collective than its peers fail instead of hanging.
+caller chose, not a fallback.  NCCL's collectives can be recorded in a
+CUDA graph (``ShardGroup.capturable``), so a sharded ``Pipeline`` on NCCL
+ranks captures its step; gloo's cannot.  The group's timeout (120 s) makes a
+rank that enters another collective than its peers fail instead of hanging.
 
 ``launch(fn, world, ...)`` runs ``fn(group, *args)`` on ``world`` ranks, one
 spawned process each, which meet through a ``FileStore`` in a fresh
@@ -34,6 +36,11 @@ import torch.distributed as dist
 
 TIMEOUT_S = 120.0  # a collective that waits longer raises
 BACKENDS = ("nccl", "gloo")
+# the all-gather into one flat tensor: PyTorch 2.11 has it only as
+# ``all_gather_into_tensor``; 2.13 names it ``all_gather_single`` and warns
+# that the old name is deprecated
+_all_gather_single = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
 
 
 def check_world(world: int) -> None:
@@ -62,13 +69,21 @@ class ShardGroup:
     def transport(self) -> str:
         return "gloo through host copies" if self.host_copies else self.backend
 
+    @property
+    def capturable(self) -> bool:
+        """NCCL on CUDA: the collectives can be recorded in a CUDA graph.
+        gloo's cannot (on a card they copy through the host)."""
+        return self.backend == "nccl" and self.device.type == "cuda"
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(world, *t.shape): every rank's ``t``, in rank order, on ``t``'s
-        device.  ``t`` is numeric (gloo takes no bool tensors)."""
-        src = t.cpu() if self.host_copies else t.contiguous()
-        outs = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(outs, src, group=self.pg)
-        return torch.stack(outs).to(t.device)
+        device.  ``t`` is numeric (gloo takes no bool tensors).  Gathered
+        into one flat output tensor made up front, which a CUDA graph can
+        record on NCCL."""
+        src = t.cpu() if self.host_copies else t
+        out = src.new_empty((self.world * src.numel(),))
+        _all_gather_single(out, src.reshape(-1).contiguous(), group=self.pg)
+        return out.view(self.world, *t.shape).to(t.device)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise sum of every rank's ``t``, on ``t``'s device; ``t``

@@ -14,13 +14,16 @@ filter is replicated:
 * insert / prune: each rank applies the replicated insert decisions to the
   points it owns; the prune runs on every table.
 
-The JAX package runs this under ``shard_map``; here every rank runs
-``sharded_lio_step`` eagerly in its own process, with the collectives of
-its ``ShardGroup``.  The step reads nothing on the host: every rank runs
+The JAX package runs this under ``shard_map`` in one jitted program; here
+every rank runs ``sharded_lio_step`` in its own process, with the
+collectives of its ``ShardGroup``, and a ``Pipeline`` on NCCL ranks captures
+it in one CUDA graph per pad bucket on every rank (``step_graph.py``; gloo
+ranks run it eagerly).  The step reads nothing on the host: every rank runs
 every arm of the wide fallback and every pass of the filter loop, and picks
 on the device from replicated values (the merged kNN results, the summed
 reductions: ``filter/ekf.py``), so all ranks enter the same collectives in
-the same order.  The
+the same order, and each collective has a fixed shape: two all-gathers per
+merge, one all-reduce per filter pass and one for the map size.  The
 per-rank search is the per-query CUDA kernel (``kernels.knn.knn_search``, its
 plain version on CPU tensors) whatever ``Config.knn_backend`` says, as the
 JAX sharded path always runs the single-table search: ``"grouped"`` does not
@@ -50,7 +53,9 @@ from . import ShardGroup, check_world, launch
 
 # Intercept attribution at one rank (tools/bench_scaling.py --ablate): each
 # skips one sharded-only cost and stays exact at n = 1 only; at n > 1 the
-# results would be per-rank, not global.
+# results would be per-rank, not global.  Read when the step runs, so a
+# captured step keeps the flags it was recorded with: a change of them needs
+# a fresh Pipeline (bench_scaling builds one per pass).
 ABLATE_NO_MERGE = False  # skip the all-gather + re-top-k of the kNN
 ABLATE_NO_PSUM = False  # skip the sums of the GN reductions and map size
 

@@ -25,9 +25,11 @@ startup, whether the first scan seeded the map, and with
 With the map sharded across ranks (``Pipeline(cfg, group=...)``,
 ``parallel/sharding.py``) the step is the same sync-free program with the
 ranks' collectives in it; every rank runs every pass and every arm, so the
-ranks enter the same collectives in the same order.  It runs eagerly: a
-graph of NCCL collectives needs every rank to capture one, and gloo's
-cannot be captured (ROADMAP.md).
+ranks enter the same collectives in the same order.  On NCCL ranks it is
+captured the same way, one graph per pad bucket on every rank, with the
+collectives inside (the counterpart of ``jax.jit(shard_map(...))``); gloo
+ranks run it eagerly, since gloo's collectives copy through the host and no
+graph can record them.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from .math import so3
 from .ops import measurement as meas
 from .ops.voxel_grid import voxel_downsample
 from .parallel import sharding
-from .step_graph import PinnedFeed, StepGraphs
+from .step_graph import PinnedFeed, StepGraphs, captures_by_default
 
 MOV_THRESHOLD = 1.5  # laserMapping.cpp:78
 
@@ -517,8 +519,10 @@ class Pipeline:
     graph at the first scan of each pad bucket and replayed for every later
     one (``step_graph.StepGraphs``); ``graphs=False`` runs the same step
     eagerly, the counterpart of ``jax.disable_jit()``.  The CPU never
-    captures (``graphs=True`` there raises), nor does a sharded pipeline.
-    A capture that fails raises; nothing falls back to the eager step.
+    captures (``graphs=True`` there raises), nor do gloo ranks (``graphs=
+    True`` with a gloo group raises); NCCL ranks do, each its own graph
+    with the collectives inside (``step_graph.captures_by_default``).  A
+    capture that fails raises; nothing falls back to the eager step.
 
     ``group`` (a ``parallel.ShardGroup``, from ``init_distributed``) shards
     the map across the group's ranks, on the group's device: the counterpart
@@ -526,8 +530,10 @@ class Pipeline:
     ``Pipeline`` and is fed the same packets; each scan runs
     ``sharding.sharded_lio_step``, with the update on every scan as in the
     JAX sharded path (on the first, empty map it finds no point and changes
-    nothing).  ``health_check`` and the checkpoints are collectives: every
-    rank calls them.
+    nothing).  ``health_check``, ``measure_stage_times`` and the
+    checkpoints are collectives: every rank calls them.  The sharding's
+    ablation flags (``sharding.ABLATE_*``) are read when the step is
+    captured: a change of them needs a fresh ``Pipeline``.
 
     The estimator state (``x``, ``P``, ``map``, ``imu_carry``, ``lm_state``)
     lives in tensors the pipeline owns for its life: each scan writes into
@@ -554,12 +560,12 @@ class Pipeline:
                 "Pipeline runs on CUDA by default and no CUDA device is "
                 "available; pass device='cpu' to run the plain CPU path")
         if graphs is None:
-            graphs = device.type == "cuda" and group is None
-        elif graphs and group is not None:
-            raise NotImplementedError(
-                "graphs=True with a sharded map: capturing the ranks' "
-                "collectives needs every rank to capture one graph "
-                "(ROADMAP.md); the sharded step runs eagerly")
+            graphs = captures_by_default(device, group)
+        elif graphs and group is not None and not group.capturable:
+            raise ValueError(
+                f"graphs=True with a {group.backend} group: its collectives "
+                "copy through the host, which a CUDA graph cannot record; "
+                "gloo ranks run the step eagerly (NCCL ranks capture it)")
         elif graphs and device.type != "cuda":
             raise ValueError("graphs=True: CUDA graphs need a CUDA device; "
                              "the CPU runs the step eagerly")
@@ -600,7 +606,7 @@ class Pipeline:
         self._warned_truncation = False
         # the scan's feed buffer: pinned host memory on CUDA
         self.feed = PinnedFeed() if device.type == "cuda" else None
-        self.graphs = StepGraphs(device) if graphs else None
+        self.graphs = StepGraphs(device, group) if graphs else None
 
         # host state
         self.imu_stats = imu_mod.empty_stats()
@@ -699,6 +705,9 @@ class Pipeline:
         size_drops = torch.stack([hm.map_size(self.map),
                                   self.map.dropped.sum(dtype=torch.int64)])
         if self.group is not None:
+            # an eager collective between two replays of the captured step:
+            # NCCL takes captured and eager work on one communicator, in the
+            # order the ranks issue it, so every rank calls this here
             size_drops = self.group.all_reduce_sum(size_drops)
         size, dropped = size_drops.tolist()
         return {
@@ -717,14 +726,16 @@ class Pipeline:
         """Device seconds of the search / incremental / delete stage groups
         at this pipeline's shapes against a copy of its live map — the
         sources of the timing CSV's stage columns (``utils.stage_timing``).
-        Not for a sharded pipeline: it times the single table's search."""
-        if self.group is not None:
-            raise NotImplementedError(
-                "stage timing times the single map's search; a sharded "
-                "pipeline has none")
+        A sharded pipeline times them against the global map, as the JAX
+        package does against its mesh's global array: every rank gathers
+        it (``sharding.gather_global_map``, a collective, so every rank
+        calls this), and its layout is the single map's."""
         from .utils.stage_timing import measure_stage_times
 
-        return measure_stage_times(self)
+        m = self.map
+        if self.group is not None:
+            m = sharding.gather_global_map(m, self.group)
+        return measure_stage_times(self, m)
 
     def pose_covariance(self) -> np.ndarray:
         """6x6 pose covariance, rotation block first (publish_odometry,

@@ -17,7 +17,17 @@ The graph's outputs are static tensors that the next replay overwrites, so
 ``Pipeline`` copies what it keeps (on the device, with no sync).  The kernel
 launch counters count at Python call time, so each graph records how many
 launches of each kernel it holds and every replay adds them
-(``kernels.counts``).
+(``kernels.counts``), per rank on a sharded map.
+
+A sharded step (``parallel/sharding.py``, the counterpart of
+``jax.jit(shard_map(...))``) is captured the same way on every NCCL rank,
+with its collectives in the graph: every rank sees the same packets, so
+every rank captures the same bucket at the same scan and replays in step
+with the others.  Before a rank captures, one eager all-gather of the feed
+shape checks that every rank is about to capture the same one.  The
+warm-up runs each collective once before the capture, so the communicator
+exists by then.  gloo's collectives copy through the host and cannot be
+captured (``captures_by_default``).
 """
 from __future__ import annotations
 
@@ -85,6 +95,15 @@ class PinnedFeed:
         slot.event.record()
 
 
+def captures_by_default(device, group=None) -> bool:
+    """Whether a pipeline on ``device`` (sharded over ``group``'s ranks, if
+    given) captures its step when the caller does not say: on CUDA, alone
+    or on NCCL ranks (``ShardGroup.capturable``); never on the CPU, nor on
+    gloo ranks."""
+    return (torch.device(device).type == "cuda"
+            and (group is None or group.capturable))
+
+
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     static_in: torch.Tensor
@@ -96,10 +115,14 @@ class StepGraphs:
     """A step (a device buffer -> a dict of tensors, with no host read)
     captured once per buffer shape on ``device`` and replayed.  The step
     is passed at each call, not kept: a pipeline that holds its graphs and
-    is held by them would be freed only by the garbage collector."""
+    is held by them would be freed only by the garbage collector.
 
-    def __init__(self, device: torch.device):
+    ``group`` (a ``parallel.ShardGroup`` on NCCL): the step's collectives
+    run over it; every rank of it must run the same scans."""
+
+    def __init__(self, device: torch.device, group=None):
         self.device = torch.device(device)
+        self.group = group
         self._graphs: Dict[Shape, _Captured] = {}
         self.replays: Dict[Shape, int] = collections.Counter()
 
@@ -119,8 +142,24 @@ class StepGraphs:
         self.replays[n] += 1
         return cap.static_out
 
+    def _same_shape_on_every_rank(self, n: Shape) -> None:
+        """Raise unless every rank of the group is about to capture a feed
+        of shape ``n``: one eager all-gather and a host read, once a
+        bucket."""
+        dims = n if isinstance(n, tuple) else (n,)
+        mine = torch.tensor((len(dims), *dims, *(0,) * (2 - len(dims))),
+                            dtype=torch.int64, device=self.device)
+        seen = self.group.all_gather(mine)
+        if not bool((seen == mine).all()):
+            raise RuntimeError(
+                f"rank {self.group.rank} is about to capture the step for a "
+                f"feed of shape {n}, and the ranks' (ndim, dims) are "
+                f"{seen.tolist()}: every rank must run the same scans")
+
     def _run_and_capture(self, host: torch.Tensor, step) -> dict:
         n = _shape(host)
+        if self.group is not None:
+            self._same_shape_on_every_rank(n)
         static_in = torch.empty(host.shape, dtype=host.dtype,
                                 device=self.device)
         static_in.copy_(host, non_blocking=True)

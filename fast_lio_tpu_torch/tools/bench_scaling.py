@@ -4,31 +4,36 @@ The port of the JAX package's ``tools/bench_scaling.py``.  Run from the
 repository root:
 
     python3 -m fast_lio_tpu_torch.tools.bench_scaling            # card
+    python3 -m fast_lio_tpu_torch.tools.bench_scaling --eager    # card
     python3 -m fast_lio_tpu_torch.tools.bench_scaling --ablate   # card
     python3 -m fast_lio_tpu_torch.tools.bench_scaling --trend    # CPU
 
 * default, the intercept: the same scans through the unsharded pipeline and
-  through one NCCL rank of the sharded one, in turns, both eager (the
-  sharded step is not captured in a CUDA graph); the ratio of their
-  scans/s is what the sharded path costs at n = 1.
+  through one NCCL rank of the sharded one, in turns, both captured (one
+  CUDA graph per pad bucket, as JAX jits both); the ratio of their scans/s
+  is what the sharded path costs at n = 1.  ``--eager`` runs the eager
+  pair too (``graphs=False``), in the same rounds, and reports both
+  intercepts.
 * ``--ablate``: its split: five variants in interleaved rounds (unsharded;
   sharded; sharded without the kNN merge; without the sums of the
   reductions and map size; without both; ``sharding.ABLATE_*``, exact at
-  one rank), each pass on a fresh pipeline, best of the rounds.
+  one rank), each pass on a fresh pipeline (a captured step keeps the flags
+  it was recorded with), best of the rounds.
 * ``--trend``: gloo ranks 1, 2 and 4 (``--ranks``) on the CPU at the JAX
-  tool's small shapes, and the unsharded pipeline.  Ranks share the host's
-  cores, so the trend shows the collectives' cost on one host; a speed-up
-  across cards needs cards.
+  tool's small shapes, and the unsharded pipeline, all eager.  Ranks share
+  the host's cores, so the trend shows the collectives' cost on one host; a
+  speed-up across cards needs cards.
 
 Every run is a worker process (``parallel.launch``), the unsharded one too,
 so both sides run under the same conditions.  Scans are synced packets,
 taken from the sync buffer before the clock starts; the first ``N_WARM``
-are not timed (IMU init, map seeding); the clock stops after a read of the
-covariance, which waits for the device.  Prints one JSON line per pass,
-then a summary line, and on the card its name and power limit.
+are not timed (IMU init, map seeding, the capture); the clock stops after a
+read of the covariance, which waits for the device.  Prints one JSON line
+per pass, then a summary line, and on the card its name and power limit.
 
 ``drive`` runs a preset through the packet API on one rank and returns its
-figures; ``chip_smoke.py``'s sharded phases call it.
+figures; ``drive_modes`` runs it captured and eager on the same scans.
+``chip_smoke.py``'s sharded phases call them.
 """
 from __future__ import annotations
 
@@ -88,16 +93,21 @@ def packets(pipe: Pipeline, data: sim.SimData) -> list:
     return out
 
 
-def timed_pass(group, variant: str, cfg, pkts) -> float:
+def pass_name(variant: str, graphs) -> str:
+    """A pass's name: the variant, with ``_eager`` when it runs eagerly."""
+    return variant if graphs is None else f"{variant}_eager"
+
+
+def timed_pass(group, variant: str, cfg, pkts, graphs=None) -> float:
     """Scans/s of one pass over ``pkts`` on a fresh pipeline (the warm-up
-    untimed), with the variant's ablation flags set for the whole pass."""
+    untimed), with the variant's ablation flags set for the whole pass.
+    ``graphs``: ``Pipeline``'s (None: its default, captured on a card over
+    NCCL and alone; False: eager)."""
     sharded, no_merge, no_psum = VARIANTS[variant]
     sharding.ABLATE_NO_MERGE, sharding.ABLATE_NO_PSUM = no_merge, no_psum
     try:
-        # the sharded step runs eagerly, so the unsharded one does too: the
-        # ratio is then the cost of the sharded path, not of the graph
-        pipe = (Pipeline(cfg, group=group) if sharded
-                else Pipeline(cfg, device=group.device, graphs=False))
+        pipe = (Pipeline(cfg, group=group, graphs=graphs) if sharded
+                else Pipeline(cfg, device=group.device, graphs=graphs))
         for p in pkts[:N_WARM]:
             pipe.process_packet(p)
         float(pipe.P[0, 0])
@@ -110,33 +120,23 @@ def timed_pass(group, variant: str, cfg, pkts) -> float:
         sharding.ABLATE_NO_MERGE = sharding.ABLATE_NO_PSUM = False
 
 
-def rounds(group, variants, n_rounds: int, small: bool, scans: int) -> list:
-    """``n_rounds`` rounds of one pass per variant, the order reversed
-    every other round; [(round, variant, scans/s)]."""
+def rounds(group, passes, n_rounds: int, small: bool, scans: int) -> list:
+    """``n_rounds`` rounds of each pass (``(variant, graphs)``), the order
+    reversed every other round; [(round, pass name, scans/s)]."""
     cfg, sim_cfg = build(small, scans)
     pkts = packets(Pipeline(cfg, device=group.device), sim.generate(sim_cfg))
     out = []
     for r in range(n_rounds):
-        for v in (variants if r % 2 == 0 else variants[::-1]):
-            out.append((r, v, timed_pass(group, v, cfg, pkts)))
+        for v, g in (passes if r % 2 == 0 else passes[::-1]):
+            out.append((r, pass_name(v, g), timed_pass(group, v, cfg, pkts, g)))
     return out
 
 
-def drive(group, cfg, sim_cfg, n_scans: int = None, warm: int = N_WARM) -> dict:
-    """One rank of a sharded run: the first ``n_scans`` scans of the sim run
-    through ``Pipeline(cfg, group=group)``'s packet API, the device synced
-    after each; returns the rank's trajectory, ATE, health report (global
-    map size and drops), kNN kernel launches of the run (counted from 0
-    just before it, per R), scans/s after ``warm`` scans and the group's
-    transport."""
-    data = sim.generate(sim_cfg)
-    pipe = Pipeline(cfg, group=group)
-    n = len(data.scans) if n_scans is None else n_scans
-    for r in knn_kernel.launches:
-        knn_kernel.launches[r] = 0
-    imu_i, times = 0, []
+def _run_scans(pipe, data, n: int):
+    """Generator: each next() pushes scan k of ``data`` (with its IMU) into
+    ``pipe`` and runs it, for k < n."""
+    imu_i = 0
     for k in range(n):
-        t0 = time.perf_counter()
         stamp = data.scan_stamps[k]
         while imu_i < len(data.imu_t) and data.imu_t[imu_i] <= stamp + 0.1 + 1e-9:
             pipe.push_imu(data.imu_t[imu_i], data.imu_acc[imu_i],
@@ -145,22 +145,96 @@ def drive(group, cfg, sim_cfg, n_scans: int = None, warm: int = N_WARM) -> dict:
         pipe.push_lidar(stamp, data.scans[k], data.scan_pt_times[k])
         while pipe.spin_once():
             pass
-        if pipe.device.type == "cuda":
+        yield k
+
+
+def _drive(group, cfg, data, n_scans=None, warm: int = N_WARM, graphs=None,
+           sync_free: bool = False, profile_scans: int = 0):
+    """``drive`` on generated ``data``, through ``Pipeline(cfg,
+    group=group, graphs=graphs)``; returns (the pipeline, the figures),
+    with the graphs' stats per pad bucket (None when eager).
+
+    The first ``warm`` scans run one by one, the device synced after each.
+    The rest do too, unless ``sync_free``: then they run in one window
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
+    raises), drained at its end (scans/s: the window's), but for the last
+    ``profile_scans``, which run under ``torch.profiler``
+    (``profile_scan.profile_window``: device busy, activities, syncs a
+    scan)."""
+    pipe = Pipeline(cfg, group=group, graphs=graphs)
+    n = len(data.scans) if n_scans is None else n_scans
+    for r in knn_kernel.launches:
+        knn_kernel.launches[r] = 0
+    cuda = pipe.device.type == "cuda"
+    push = _run_scans(pipe, data, n)
+    times = []
+    for _ in range(warm if sync_free else n):
+        t0 = time.perf_counter()
+        next(push)
+        if cuda:
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    figures = {}
+    if not sync_free:
+        scans_per_s = (n - warm) / sum(times[warm:])
+    else:
+        n_window = n - warm - profile_scans
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            for _ in range(n_window):
+                next(push)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        scans_per_s = n_window / (time.perf_counter() - t0)
+        if profile_scans:
+            from .profile_scan import profile_window
+
+            figures["profile"] = profile_window(lambda: next(push),
+                                                profile_scans)
     launches = dict(knn_kernel.launches)
     traj = pipe.get_trajectory()
-    steady = times[warm:]
-    return dict(
+    stats = pipe.graphs.stats() if pipe.graphs is not None else None
+    figures.update(
         rank=group.rank, world=group.world, transport=group.transport,
+        graphs=stats, pad_buckets=pipe.pad_buckets,
         stamps=[t for t, _, _ in traj],
         positions=np.stack([p for _, p, _ in traj]),
         ate_raw_m=sim.ate_rmse(traj, data),
         ate_aligned_m=sim.ate_rmse_aligned(traj, data),
         health=pipe.health_check(), launches=launches,
-        scans_per_s=len(steady) / sum(steady),
+        scans_per_s=scans_per_s,
         iterations_mean=float(np.mean([int(d.iterations) for d in pipe.diags])),
         n_effective_last=int(pipe.diags[-1].n_effective))
+    return pipe, figures
+
+
+def drive(group, cfg, sim_cfg, n_scans: int = None, warm: int = N_WARM) -> dict:
+    """One rank of a sharded run: the first ``n_scans`` scans of the sim run
+    through ``Pipeline(cfg, group=group)``'s packet API, the device synced
+    after each; returns the rank's trajectory, ATE, health report (global
+    map size and drops), kNN kernel launches of the run (counted from 0
+    just before it, per R, replays included), the graphs' stats, scans/s
+    after ``warm`` scans and the group's transport."""
+    return _drive(group, cfg, sim.generate(sim_cfg), n_scans, warm)[1]
+
+
+def drive_modes(group, cfg, sim_cfg, n_scans: int, warm: int,
+                profile_scans: int) -> dict:
+    """``drive`` of the same scans eager (``graphs=False``) and then
+    captured (the default on NCCL ranks), each ``sync_free`` with the last
+    ``profile_scans`` profiled (``_drive``); then the captured
+    pipeline's ``measure_stage_times`` (a collective, after its launches
+    are read).  Returns {"captured": ..., "eager": ..., "stage_times":
+    ...}."""
+    data = sim.generate(sim_cfg)
+    eager = _drive(group, cfg, data, n_scans, warm, False, True,
+                   profile_scans)[1]
+    pipe, captured = _drive(group, cfg, data, n_scans, warm, None, True,
+                            profile_scans)
+    stage_times = pipe.measure_stage_times()
+    return dict(captured=captured, eager=eager, stage_times=stage_times)
 
 
 def _print(obj) -> None:
@@ -172,6 +246,9 @@ def main(argv=None) -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--ablate", action="store_true")
     mode.add_argument("--trend", action="store_true")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager pair too (graphs=False), in the same "
+                         "rounds")
     ap.add_argument("--ranks", default="1,2,4",
                     help="--trend: the rank counts, comma-separated")
     ap.add_argument("--scans", type=int, default=None,
@@ -183,7 +260,8 @@ def main(argv=None) -> int:
         ranks = [int(n) for n in args.ranks.split(",")]
         runs = [("unsharded", 1)] + [("sharded_full", n) for n in ranks]
         for variant, n in runs:
-            res = launch(rounds, n, args=([variant], 1, True, args.scans),
+            res = launch(rounds, n, args=([(variant, None)], 1, True,
+                                          args.scans),
                          backend="gloo", device="cpu")
             _print({"mode": variant, "n_ranks": n, "platform": "cpu",
                     "transport": "gloo", "scans_per_sec": res[0][0][2]})
@@ -196,19 +274,26 @@ def main(argv=None) -> int:
     from .microbench_knn import card
 
     variants = list(VARIANTS) if args.ablate else ["unsharded", "sharded_full"]
+    modes = [None, False] if args.eager else [None]
+    passes = [(v, g) for g in modes for v in variants]
     n_rounds = 3 if args.ablate else 2
-    res = launch(rounds, 1, args=(variants, n_rounds, False, args.scans),
+    res = launch(rounds, 1, args=(passes, n_rounds, False, args.scans),
                  backend="nccl")[0]
     best = {}
-    for r, v, sps in res:
-        best[v] = max(best.get(v, 0.0), sps)
-        _print({"round": r, "mode": v, "n_ranks": 1, "scans_per_sec": sps})
-    base = best["unsharded"]
+    for r, name, sps in res:
+        best[name] = max(best.get(name, 0.0), sps)
+        _print({"round": r, "mode": name, "n_ranks": 1, "scans_per_sec": sps})
+    intercepts = {}
+    for g in modes:
+        base = best[pass_name("unsharded", g)]
+        for v in variants[1:]:
+            name = pass_name(v, g)
+            intercepts[f"intercept_{name[len('sharded_'):]}"] = base / best[name]
     _print({"best_of_rounds": best,
-            "median": {v: statistics.median(s for _, w, s in res if w == v)
-                       for v in variants},
-            **{f"intercept_{v[len('sharded_'):]}": base / best[v]
-               for v in variants if v != "unsharded"},
+            "median": {pass_name(v, g): statistics.median(
+                s for _, w, s in res if w == pass_name(v, g))
+                for v, g in passes},
+            **intercepts,
             "device": torch.cuda.get_device_name(0), "transport": "nccl"})
     print(card(), flush=True)
     return 0

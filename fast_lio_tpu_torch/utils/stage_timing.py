@@ -56,9 +56,10 @@ def _mean_seconds(fn, device: torch.device, n: int = N_REPS) -> float:
     return (time.perf_counter() - t0) / n
 
 
-def measure_stage_times(pipe, n: int = N_REPS) -> dict:
-    """Per-stage device seconds at ``pipe``'s shapes, against a copy of its
-    live map.  Returns {"search": s, "incremental": s, "delete": s}.
+def measure_stage_times(pipe, live_map, n: int = N_REPS) -> dict:
+    """Per-stage device seconds at ``pipe``'s shapes, against a copy of
+    ``live_map`` (its map, or a sharded pipeline's global map).  Returns
+    {"search": s, "incremental": s, "delete": s}.
 
     Call after the map is populated (e.g. at the end of a run); costs
     3 (n + 1) stage runs."""
@@ -74,7 +75,7 @@ def measure_stage_times(pipe, n: int = N_REPS) -> dict:
                           device=dev)
     ds_mask = torch.ones(N, dtype=torch.bool, device=dev)
     x = pipe.x
-    m = hm.from_packed(pipe.map.packed, pipe.map.dropped)
+    m = hm.from_packed(live_map.packed, live_map.dropped)
 
     # the CONFIGURED backend + wide fallback, not a bare knn_search: on the
     # sparse presets the wide re-search is where the search cost differs.

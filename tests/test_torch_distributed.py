@@ -7,7 +7,12 @@ module fixture) run the stream, checkpoint each to its own path, resume, and
 run one more scan on the original and the resumed pipeline; meanwhile this
 process runs the JAX package on the same stream, single-device and on a
 two-device mesh, and writes the mesh's checkpoint, which the ranks then
-resume and run the same extra scan from.
+resume and run the same extra scan from.  The ranks also time the stages
+against the global map (``measure_stage_times``), log every collective of
+every step of a stream with other data on each rank (the precondition of a
+captured sharded step: the same collectives on every rank and in every
+step of a pad bucket), check the capture's shape check, and check
+``ShardGroup.all_gather``'s result against every rank's own tensors.
 
 Tolerances: the ranks' trajectories are bit-identical (the state is
 replicated: it depends on the summed reductions only); the resume is
@@ -127,13 +132,60 @@ def test_jax_mesh_checkpoint_resumes_on_two_ranks(runs):
 
 
 def test_sharded_pipeline_refusals(runs):
+    """What a sharded pipeline refuses; and the stage times, which it no
+    longer refuses: every rank times the stages against the global map, as
+    JAX's mesh pipeline does (``fast_lio_tpu/pipeline.py:611-618``)."""
     refused = runs.ranks[0]["refused"]
     assert refused["rescore_research"].startswith("NotImplementedError")
     assert refused["device"].startswith("ValueError")
-    assert refused["stage_timing"].startswith("NotImplementedError")
+    assert refused["graphs_gloo"].startswith("ValueError")
+    assert "gloo" in refused["graphs_gloo"]
     assert refused["single_map_checkpoint"].startswith("ValueError")
     assert "not sharded 2 ways" in refused["single_map_checkpoint"]
     assert refused == runs.ranks[1]["refused"]
+    for r in runs.ranks:
+        assert set(r["stage_times"]) == {"search", "incremental", "delete"}
+        assert all(v > 0 for v in r["stage_times"].values())
+
+
+def test_gloo_ranks_run_eagerly_by_default(runs):
+    assert all(r["default_eager"] for r in runs.ranks)
+
+
+def test_all_gather_returns_every_rank_in_rank_order(runs):
+    """``ShardGroup.all_gather`` (one flat output, the form a CUDA graph
+    records on NCCL) through gloo: every rank's float64 and int32 tensors,
+    in rank order."""
+    assert all(r["gathered_in_rank_order"] for r in runs.ranks)
+
+
+def test_ranks_check_they_capture_the_same_bucket(runs):
+    """Before a capture, every rank checks that all of them are about to
+    capture the same feed shape, and each raises where they are not."""
+    for r in runs.ranks:
+        check = r["capture_shape_check"]
+        assert check["same"] is None
+        assert "every rank must run the same scans" in check["other"]
+        assert "[1, 1000, 0], [1, 1001, 0]" in check["other"]
+
+
+def test_every_step_runs_the_same_collectives(runs):
+    """The capture's precondition: over a stream with other data on each
+    rank, two pad buckets, every arm of the wide fallback and more than one
+    exit pass of the update, every rank runs the same collectives (name,
+    shape, dtype) in every step, in the same order: the log is the same
+    across the ranks and across the steps of a pad bucket."""
+    c0, c1 = (r["collectives"] for r in runs.ranks)
+    assert c0["steps"] == c1["steps"]
+    by_bucket = {}
+    for n, log in c0["steps"]:
+        by_bucket.setdefault(n, []).append(log)
+    assert len(by_bucket) == 2
+    for logs in by_bucket.values():
+        assert logs[0] and all(log == logs[0] for log in logs)
+    for c in (c0, c1):
+        assert set(c["arms"]) == {0, 1, 2}, c["arms"]
+        assert len(set(c["iterations"])) > 1, c["iterations"]
 
 
 def test_single_pipeline_refuses_a_sharded_checkpoint():

@@ -318,8 +318,9 @@ def test_ranks_run_on_cuda_unless_asked(tmp_path):
 @pytest.mark.cuda
 def test_cuda_one_nccl_rank_equals_unsharded_run():
     """On a card: a small sim run through one NCCL rank of the sharded
-    pipeline and through the unsharded pipeline, within 5 mm per scan (the
-    downsample's ``index_add_`` sums in another order on each CUDA run)."""
+    pipeline and through the unsharded pipeline, both captured (the
+    default), within 5 mm per scan (the downsample's ``index_add_`` sums in
+    another order on each CUDA run)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     res = launch(w.one_rank_against_unsharded, 1, backend="nccl")[0]

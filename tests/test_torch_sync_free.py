@@ -29,8 +29,11 @@ On the CPU (tier 1):
 On a card (marked ``cuda``; they skip without one): the captured step
 against the eager one, steady state under ``set_sync_debug_mode("error")``, a
 checkpoint resume and a state handover into a captured pipeline, two fleet
-lanes captured side by side, and one NCCL rank in float64 against the
-unsharded float64 run.  Run them on the card host, which has no JAX (this
+lanes captured side by side; the sharded step captured on one NCCL rank
+(``torch_shard_workers.captured_rank``): its graphs, its steady state with
+no sync, against the eager rank and the captured unsharded run, a sharded
+checkpoint and a handover into it; and one NCCL rank in float64, captured,
+against the unsharded float64 run.  Run them on the card host, which has no JAX (this
 file imports it lazily): ``python -m pytest -p no:cacheprovider --noconftest
 -m cuda tests/test_torch_sync_free.py``.
 """
@@ -44,16 +47,19 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from fast_lio_tpu_torch import config as tcfg
-from fast_lio_tpu_torch import convert
 from fast_lio_tpu_torch import pipeline as tpipe
 from fast_lio_tpu_torch import sim as tsim
 from fast_lio_tpu_torch import state as tst
 from fast_lio_tpu_torch.batch import BatchPipeline
 from fast_lio_tpu_torch.filter import ekf as tekf
 from fast_lio_tpu_torch.map import hash_map as thm
-from fast_lio_tpu_torch.parallel import launch
+from fast_lio_tpu_torch.parallel import ShardGroup, launch
+from fast_lio_tpu_torch.step_graph import captures_by_default
 from fast_lio_tpu_torch.utils import checkpoint as tckpt
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+import torch_shard_workers as w
+from torch_shard_workers import SPARSE
+from torch_shard_workers import sparse_outdoor as _sparse_outdoor
 
 POS_TOL_M = 5e-3  # two runs on the card: index_add_ sums in another order
 SMALL = dict(lidar_type=tcfg.LidarType.AVIA, det_range=450.0,
@@ -192,35 +198,11 @@ def _feed(pipe, data, empty_scans=()):
             pass
 
 
-def _sparse_outdoor():
-    """tests/test_sparse_regime.py's outdoor geometry (far walls, sparse
-    returns), as tests/test_torch_pipeline.py cuts it."""
-    world = tsim.World(
-        room_lo=np.array([-40.0, -20.0, 0.0]),
-        room_hi=np.array([50.0, 70.0, 12.0]),
-        pillars=(
-            (np.array([-10.0, 8.0, 0.0]), np.array([-7.0, 11.0, 12.0])),
-            (np.array([12.0, 25.0, 0.0]), np.array([15.5, 28.5, 12.0])),
-        ),
-    )
-    return tsim.generate(
-        tsim.SimConfig(duration=0.8, n_rings=16, n_azimuth=160,
-                       elev_min=-22.0, elev_max=8.0, max_range=100.0,
-                       range_noise=0.01),
-        traj=tsim.Trajectory(radius=12.0, omega=0.4), world=world)
-
-
 def _small_sim(duration=1.0, seed=0):
     return tsim.generate(tsim.SimConfig(duration=duration, n_rings=8,
                                         n_azimuth=200, range_noise=0.01,
                                         seed=seed))
 
-
-SPARSE = dict(lidar_type=tcfg.LidarType.AVIA, filter_size_surf=0.5,
-              filter_size_map=0.5, n_points_max=2560, n_ds_max=1024,
-              n_imu_max=32, map_h_log2=11, det_range=100.0,
-              cube_side_length=600.0, knn_wide_fallback=True,
-              map_cell_multiplier=5, knn_wide_max_queries=300)
 
 GUARDED_RUNS = {
     # name: (Config keywords, sim, scans that arrive empty)
@@ -544,14 +526,32 @@ def test_graphs_option_and_device():
     cfg = tcfg.Config(**SMALL)
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         tpipe.Pipeline(cfg, device="cpu", graphs=True)
-    fake_group = types.SimpleNamespace(device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="sharded"):
+    fake_group = types.SimpleNamespace(device=torch.device("cpu"),
+                                       backend="gloo", capturable=False)
+    with pytest.raises(ValueError, match="gloo group: its collectives copy"):
         tpipe.Pipeline(cfg, group=fake_group, graphs=True)
     pipe = tpipe.Pipeline(cfg, device="cpu")
     assert pipe.graphs is None and pipe.feed is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpipe.Pipeline(cfg)
+
+
+def test_capture_default_by_device_and_group():
+    """The step is captured by default on CUDA, alone or on NCCL ranks;
+    never on the CPU, nor on gloo ranks (on a card or not)."""
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+
+    def group(backend, device):
+        return ShardGroup(None, 0, 1, device, backend)
+
+    assert captures_by_default(cuda)
+    assert captures_by_default(cuda, group("nccl", cuda))
+    assert group("nccl", cuda).capturable
+    assert not captures_by_default(cuda, group("gloo", cuda))
+    assert not captures_by_default(cpu)
+    assert not captures_by_default(cpu, group("gloo", cpu))
+    assert not any(group("gloo", d).capturable for d in (cuda, cpu))
 
 
 def test_state_lives_in_place_and_kept_outputs_are_copies():
@@ -674,24 +674,6 @@ def test_cuda_steady_state_makes_no_sync():
     assert np.isfinite(_positions(pipe)).all()
 
 
-def _port_state_arrays(pipe):
-    """A port pipeline's state in ``convert.KEYS``' layout (the JAX
-    pipeline's arrays), as numpy."""
-    arrays = {f: v.cpu().numpy() for f, v in zip(pipe.x._fields, pipe.x)}
-    arrays.update(
-        P=pipe.P.cpu().numpy(), map_packed=pipe.map.packed.cpu().numpy(),
-        map_dropped=pipe.map.dropped.cpu().numpy(),
-        angvel_last=pipe.imu_carry.angvel_last.cpu().numpy(),
-        acc_s_last=pipe.imu_carry.acc_s_last.cpu().numpy(),
-        lm_lo=pipe.lm_state[0].cpu().numpy(),
-        lm_hi=pipe.lm_state[1].cpu().numpy(),
-        lm_init=pipe.lm_state[2].cpu().numpy(), acc_scale=pipe.acc_scale,
-        first_lidar_time=pipe.first_lidar_time,
-        last_lidar_end_time=pipe.last_lidar_end_time,
-        map_built=pipe.map_built, imu_need_init=pipe.imu_need_init)
-    return arrays
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("how", ["checkpoint", "state_handover"])
 def test_cuda_state_loaded_into_a_captured_pipeline(how, tmp_path):
@@ -711,19 +693,7 @@ def test_cuda_state_loaded_into_a_captured_pipeline(how, tmp_path):
     _feed(target, dataclasses.replace(data, scans=data.scans[:4],
                                       scan_stamps=data.scan_stamps[:4]))
     assert target.graphs.stats()  # captured before the state comes in
-    if how == "checkpoint":
-        tckpt.save_pipeline(tmp_path / "ck.npz", src)
-        tckpt.load_pipeline(tmp_path / "ck.npz", target)
-    else:
-        convert.load_numpy_state(target, _port_state_arrays(src))
-        target.sync.mean_scantime = src.sync.mean_scantime
-        target.sync.scan_num = src.sync.scan_num
-        target.sync.last_imu = src.sync.last_imu
-    for f in ("lidar_buf", "imu_t", "imu_acc", "imu_gyr",
-              "last_timestamp_lidar", "last_timestamp_imu"):
-        v = getattr(src.sync, f)
-        setattr(target.sync, f, list(v) if isinstance(v, list) else v)
-    target.trajectory = list(src.trajectory)
+    w.take_over(target, src, how, tmp_path / "ck.npz")
     imu_i = int(np.searchsorted(data.imu_t, data.scan_stamps[k - 1] + 0.1
                                 + 1e-9, side="right"))
     rest = dataclasses.replace(data, scans=data.scans[k:],
@@ -769,6 +739,55 @@ def test_cuda_two_fleet_lanes_captured_side_by_side():
         assert np.abs(got - singles[i]).max() <= POS_TOL_M
 
 
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    """``torch_shard_workers.captured_rank`` on one NCCL rank, once for the
+    tests below."""
+    _card()
+    return launch(w.captured_rank, 1, args=(
+        str(tmp_path_factory.mktemp("nccl_rank")),), backend="nccl")[0]
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_rank_captures_one_graph_per_bucket(nccl_rank):
+    """A sharded pipeline on an NCCL rank captures by default: one graph per
+    pad bucket, replayed for every later step, its kNN launches counted
+    through the replays as the eager step's."""
+    r = nccl_rank
+    assert r["transport"] == "nccl" and r["device"].startswith("cuda")
+    graphs, steps = r["graphs"], len(r["captured"])
+    assert 1 <= len(graphs) <= len(r["pad_buckets"])
+    assert sum(g["replays"] for g in graphs.values()) == steps - len(graphs)
+    assert all(g["launches_per_replay"] > 0 for g in graphs.values())
+    assert r["eager_graphs"] is None
+    assert r["captured_launches"] == r["eager_launches"]
+    assert r["captured_launches"][8] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("other", ["eager", "unsharded"])
+def test_cuda_nccl_rank_captured_equals(nccl_rank, other):
+    """The captured rank, its steady state under
+    ``set_sync_debug_mode("error")`` (any host sync raises), within 5 mm per
+    scan of the same rank eager and of the captured unsharded pipeline."""
+    a, b = nccl_rank["captured"], nccl_rank[other]
+    assert a.shape == b.shape and len(a) >= 15 and np.isfinite(a).all()
+    assert np.abs(a - b).max() <= POS_TOL_M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["checkpoint", "state_handover"])
+def test_cuda_state_loaded_into_a_captured_nccl_rank(nccl_rank, how):
+    """A captured sharded pipeline takes the state of another run at a
+    later scan, by a sharded checkpoint or by ``convert``'s handover, and
+    continues as the uninterrupted captured run does (5 mm)."""
+    got = nccl_rank[how]
+    assert got["had_graphs"]
+    a, b = nccl_rank["captured"], got["positions"]
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= POS_TOL_M
+
+
 def one_rank_f64_against_unsharded(group) -> dict:
     """(Run on a rank by ``parallel.launch``.)  A small float64 sim run
     through the sharded pipeline on one rank and through the unsharded one
@@ -785,6 +804,7 @@ def one_rank_f64_against_unsharded(group) -> dict:
         _feed(pipe, data)
         out[name] = _positions(pipe)
         out[f"{name}_dtype"] = str(pipe.x.pos.dtype)
+        out[f"{name}_graphs"] = len(pipe.graphs.stats())
     out["transport"] = group.transport
     out["device"] = str(group.device)
     return out
@@ -793,12 +813,14 @@ def one_rank_f64_against_unsharded(group) -> dict:
 @pytest.mark.cuda
 def test_cuda_one_nccl_rank_float64_equals_unsharded_run():
     """ROADMAP.md C: the sharded step in float64 over NCCL, one rank, against
-    the unsharded float64 run on the card: within 1e-6 m per scan (the
-    float64 tolerance of tests/test_torch_pipeline.py; the downsample's
-    atomic sums differ in the last bits from run to run)."""
+    the unsharded float64 run on the card, both captured (the default):
+    within 1e-6 m per scan (the float64 tolerance of
+    tests/test_torch_pipeline.py; the downsample's atomic sums differ in the
+    last bits from run to run)."""
     _card()
     res = launch(one_rank_f64_against_unsharded, 1, backend="nccl")[0]
     assert res["transport"] == "nccl" and res["device"].startswith("cuda")
+    assert res["sharded_graphs"] >= 1 and res["unsharded_graphs"] >= 1
     assert res["sharded_dtype"] == res["unsharded_dtype"] == "torch.float64"
     assert res["sharded"].shape == res["unsharded"].shape
     assert np.isfinite(res["sharded"]).all()

@@ -195,6 +195,7 @@ def test_bench_scaling_measures_nothing_without_a_card(capsys):
         pytest.skip("has a CUDA device")
     assert bench_scaling.main([]) == 1
     assert bench_scaling.main(["--ablate"]) == 1
+    assert bench_scaling.main(["--eager"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
 
 

@@ -23,6 +23,7 @@ from fast_lio_tpu_torch.filter import process as tprocess
 from fast_lio_tpu_torch.map import hash_map as thm
 from fast_lio_tpu_torch.parallel import ShardGroup
 from fast_lio_tpu_torch.parallel import sharding as tshd
+from fast_lio_tpu_torch.step_graph import StepGraphs
 from fast_lio_tpu_torch.utils import checkpoint as tckpt
 
 DT = torch.float64
@@ -222,16 +223,23 @@ def stream_cfg() -> dict:
                 knn_backend="xla", compute_dtype="float64")
 
 
-def feed(pipe, data) -> None:
-    """tests/test_distributed.py's feed: every scan, IMU up to its end."""
-    imu_i = 0
-    for k in range(len(data.scans)):
+def feed(pipe, data, lo: int = 0, hi: int = None, empty_scans=()) -> None:
+    """tests/test_distributed.py's feed: scans ``lo`` to ``hi`` (default
+    every scan), each with the IMU samples up to its end not pushed with an
+    earlier scan; the scans in ``empty_scans`` arrive with no point."""
+    hi = len(data.scans) if hi is None else hi
+    imu_i = 0 if lo == 0 else int(np.searchsorted(
+        data.imu_t, data.scan_stamps[lo - 1] + 0.1 + 1e-9, side="right"))
+    for k in range(lo, hi):
         stamp = data.scan_stamps[k]
         while imu_i < len(data.imu_t) and data.imu_t[imu_i] <= stamp + 0.1 + 1e-9:
             pipe.push_imu(data.imu_t[imu_i], data.imu_acc[imu_i],
                           data.imu_gyr[imu_i])
             imu_i += 1
-        pipe.push_lidar(stamp, data.scans[k], data.scan_pt_times[k])
+        if k in empty_scans:
+            pipe.push_lidar(stamp, np.zeros((0, 3), np.float32), np.zeros(0))
+        else:
+            pipe.push_lidar(stamp, data.scans[k], data.scan_pt_times[k])
         while pipe.spin_once():
             pass
 
@@ -249,14 +257,144 @@ def feed_extra(pipe, data) -> None:
         pass
 
 
+# tests/test_torch_sync_free.py's sparse outdoor run: every arm of the wide
+# fallback (scan 4 arrives empty: none unsaturated)
+SPARSE = dict(lidar_type=tcfg.LidarType.AVIA, filter_size_surf=0.5,
+              filter_size_map=0.5, n_points_max=2560, n_ds_max=1024,
+              n_imu_max=32, map_h_log2=11, det_range=100.0,
+              cube_side_length=600.0, knn_wide_fallback=True,
+              map_cell_multiplier=5, knn_wide_max_queries=300)
+SPARSE_EMPTY_SCANS = (4,)
+
+
+def sparse_outdoor(seed: int = 0):
+    """tests/test_sparse_regime.py's outdoor geometry (far walls, sparse
+    returns), as tests/test_torch_pipeline.py cuts it; ``seed`` draws the
+    range noise."""
+    world = tsim.World(
+        room_lo=np.array([-40.0, -20.0, 0.0]),
+        room_hi=np.array([50.0, 70.0, 12.0]),
+        pillars=(
+            (np.array([-10.0, 8.0, 0.0]), np.array([-7.0, 11.0, 12.0])),
+            (np.array([12.0, 25.0, 0.0]), np.array([15.5, 28.5, 12.0])),
+        ),
+    )
+    return tsim.generate(
+        tsim.SimConfig(duration=0.8, n_rings=16, n_azimuth=160,
+                       elev_min=-22.0, elev_max=8.0, max_range=100.0,
+                       range_noise=0.01, seed=seed),
+        traj=tsim.Trajectory(radius=12.0, omega=0.4), world=world)
+
+
+class RecordingGroup:
+    """A ``ShardGroup`` that logs each collective it runs as (name, shape,
+    dtype), and is the group otherwise."""
+
+    def __init__(self, group: ShardGroup):
+        self.group = group
+        self.log = []
+
+    def __getattr__(self, name):
+        return getattr(self.group, name)
+
+    def all_gather(self, t):
+        self.log.append(("all_gather", tuple(t.shape), str(t.dtype)))
+        return self.group.all_gather(t)
+
+    def all_reduce_sum(self, t):
+        self.log.append(("all_reduce_sum", tuple(t.shape), str(t.dtype)))
+        return self.group.all_reduce_sum(t)
+
+
+def collectives_per_step(group: ShardGroup) -> dict:
+    """The capture's precondition: the sparse outdoor run, with other data
+    on each rank (the range noise of seed ``rank``) and two pad buckets,
+    through ``Pipeline(group=RecordingGroup(group))``.  Returns per step
+    its feed length and the collectives it ran, the wide fallback's arm
+    (0: none unsaturated, 1: at most the budget, 2: more) and the update's
+    iterations."""
+    cfg = tcfg.Config(**dict(SPARSE, pad_buckets=(1024, 2560)))
+    rec = RecordingGroup(group)
+    pipe = tpipe.Pipeline(cfg, group=rec)
+    steps, arms = [], []
+    step = pipe._packed_step
+
+    def logged(buf):
+        start = len(rec.log)
+        out = step(buf)
+        steps.append((buf.shape[0], rec.log[start:]))
+        return out
+
+    fallback = tpipe.wide_fallback
+
+    def recording(base, queries, mask, rcov2, K_w):
+        narrow = []
+
+        def base_kept(q, wide=False):
+            out = base(q, wide)
+            if not wide:
+                narrow.append(out)
+            return out
+
+        out = fallback(base_kept, queries, mask, rcov2, K_w)
+        _nb, sq, found = narrow[0]
+        n = int(torch.sum((~found[:, -1] | (sq[:, -1] > rcov2)) & mask))
+        arms.append(0 if n == 0 else 1 if n <= K_w else 2)
+        return out
+
+    pipe._packed_step = logged
+    tpipe.wide_fallback = recording
+    try:
+        feed(pipe, sparse_outdoor(seed=group.rank),
+             empty_scans=SPARSE_EMPTY_SCANS)
+    finally:
+        tpipe.wide_fallback = fallback
+    return dict(steps=steps, arms=arms,
+                iterations=[int(d.iterations) for d in pipe.diags])
+
+
+def gathered_in_rank_order(group: ShardGroup) -> bool:
+    """``ShardGroup.all_gather`` returns every rank's tensor in rank order,
+    as (world, *shape), for a merge's float blocks and an int32 drop
+    counter: each rank rebuilds its peers' tensors from their seeds."""
+    def blocks(rank):
+        g = torch.Generator().manual_seed(rank)
+        return [torch.randn((64, 5, 3), generator=g, dtype=DT),
+                torch.arange(3, dtype=torch.int32) + rank]
+
+    mine = [t.to(group.device) for t in blocks(group.rank)]
+    want = [torch.stack(ts) for ts in
+            zip(*(blocks(r) for r in range(group.world)))]
+    return all(torch.equal(group.all_gather(t).cpu(), w)
+               for t, w in zip(mine, want))
+
+
+def capture_shape_check(group: ShardGroup) -> dict:
+    """``StepGraphs``' check before a capture, on the group's device: the
+    ranks about to capture the same feed shape pass, other shapes raise
+    (on every rank).  Returns {"same": error or None, "other": ...}."""
+    graphs = StepGraphs(group.device, group)
+    out = {}
+    for case, n in (("same", 1000), ("other", 1000 + group.rank)):
+        try:
+            graphs._same_shape_on_every_rank(n)
+            out[case] = None
+        except RuntimeError as e:
+            out[case] = str(e)
+    return out
+
+
 def distributed_run(group: ShardGroup, outdir: str, jax_ckpt: str) -> dict:
     """Every rank: the stream through ``Pipeline(group=...)``, a checkpoint
     to its own path and a resume, one more scan on both; then the JAX
     package's two-device checkpoint (written by the test while the ranks
-    run) resumed and the same scan; and the refusals."""
+    run) resumed and the same scan, and the stage times against the global
+    map; the refusals; the collectives each step runs
+    (``collectives_per_step``); the all-gather's result."""
     data = tsim.generate(tsim.SimConfig(**stream_sim_cfg()))
     cfg = tcfg.Config(lidar_type=tcfg.LidarType.AVIA, **stream_cfg())
     pipe = tpipe.Pipeline(cfg, group=group)
+    default_eager = pipe.graphs is None
     feed(pipe, data)
     traj = pipe.get_trajectory()
     hc = pipe.health_check()
@@ -291,6 +429,7 @@ def distributed_run(group: ShardGroup, outdir: str, jax_ckpt: str) -> dict:
     numpy_state_same_map = (torch.equal(pipe4.map.packed, pipe3.map.packed)
                             and torch.equal(pipe4.map.dropped, pipe3.map.dropped))
     feed_extra(pipe3, data)
+    stage_times = pipe3.measure_stage_times()  # a collective
 
     refused = {}
 
@@ -304,7 +443,8 @@ def distributed_run(group: ShardGroup, outdir: str, jax_ckpt: str) -> dict:
         dataclasses.replace(cfg, rescore_research=True), group=group))
     refuses("device", lambda: tpipe.Pipeline(cfg, device=group.device,
                                              group=group))
-    refuses("stage_timing", pipe3.measure_stage_times)
+    refuses("graphs_gloo", lambda: tpipe.Pipeline(cfg, group=group,
+                                                  graphs=True))
     single = path.with_name(f"single_{group.rank}.npz")
     tckpt.save_pipeline(single, tpipe.Pipeline(cfg, device=group.device))
     refuses("single_map_checkpoint", lambda: tckpt.load_pipeline(single, pipe3))
@@ -316,7 +456,11 @@ def distributed_run(group: ShardGroup, outdir: str, jax_ckpt: str) -> dict:
         ckpt_map_size_ok=ckpt_map_size_ok, resume_exact=resume_exact,
         next_pos=pipe.x.pos.cpu().numpy(),
         next_pos_from_jax=pipe3.x.pos.cpu().numpy(),
-        numpy_state_same_map=numpy_state_same_map, refused=refused)
+        numpy_state_same_map=numpy_state_same_map, refused=refused,
+        default_eager=default_eager, stage_times=stage_times,
+        collectives=collectives_per_step(group),
+        capture_shape_check=capture_shape_check(group),
+        gathered_in_rank_order=gathered_in_rank_order(group))
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +484,102 @@ def one_rank_against_unsharded(group: ShardGroup) -> dict:
         out[name] = np.stack([p for _, p, _ in pipe.get_trajectory()])
     out["device"] = str(group.device)
     out["transport"] = group.transport
+    return out
+
+
+def state_arrays(pipe) -> dict:
+    """A port pipeline's state in ``convert.KEYS``' layout (the JAX
+    pipeline's arrays; a sharded pipeline's map is its own table, the
+    global layout at one rank), as numpy."""
+    arrays = {f: v.cpu().numpy() for f, v in zip(pipe.x._fields, pipe.x)}
+    arrays.update(
+        P=pipe.P.cpu().numpy(), map_packed=pipe.map.packed.cpu().numpy(),
+        map_dropped=pipe.map.dropped.cpu().numpy(),
+        angvel_last=pipe.imu_carry.angvel_last.cpu().numpy(),
+        acc_s_last=pipe.imu_carry.acc_s_last.cpu().numpy(),
+        lm_lo=pipe.lm_state[0].cpu().numpy(),
+        lm_hi=pipe.lm_state[1].cpu().numpy(),
+        lm_init=pipe.lm_state[2].cpu().numpy(), acc_scale=pipe.acc_scale,
+        first_lidar_time=pipe.first_lidar_time,
+        last_lidar_end_time=pipe.last_lidar_end_time,
+        map_built=pipe.map_built, imu_need_init=pipe.imu_need_init)
+    return arrays
+
+
+def take_over(target, src, how: str, path) -> None:
+    """``src``'s state at its last scan into ``target``, a pipeline that has
+    run (and captured): by a checkpoint through ``path`` (a collective on a
+    sharded pipeline) or by ``convert``'s handover; then the sync buffer
+    and the trajectory, as a resumed run holds them."""
+    if how == "checkpoint":
+        tckpt.save_pipeline(path, src)
+        tckpt.load_pipeline(path, target)
+    else:
+        tconvert.load_numpy_state(target, state_arrays(src))
+        for f in ("mean_scantime", "scan_num", "last_imu"):
+            setattr(target.sync, f, getattr(src.sync, f))
+    for f in ("lidar_buf", "imu_t", "imu_acc", "imu_gyr",
+              "last_timestamp_lidar", "last_timestamp_imu"):
+        v = getattr(src.sync, f)
+        setattr(target.sync, f, list(v) if isinstance(v, list) else v)
+    target.trajectory = list(src.trajectory)
+
+
+CAPTURED_WARM, HANDOVER_AT = 6, 9  # scans
+
+
+def captured_rank(group: ShardGroup, outdir: str) -> dict:
+    """On a card, one NCCL rank, the avia preset on 22 sim scans: the
+    sharded pipeline captured (its default), the scans after the first
+    ``CAPTURED_WARM`` under ``set_sync_debug_mode("error")``; the same
+    scans eager (``graphs=False``) and through the unsharded pipeline
+    (captured); and two captured sharded pipelines that have run 4 scans
+    take the state of a run at scan ``HANDOVER_AT``, by a checkpoint and by
+    ``convert``'s handover, and run the rest.  Returns the positions, the
+    kNN launches of the captured and eager runs, and the graphs' stats."""
+    from fast_lio_tpu_torch.kernels import knn
+
+    cfg = tcfg.PRESETS["avia"]
+    data = tsim.generate(tsim.SimConfig(duration=2.2, n_rings=32,
+                                        n_azimuth=400))
+
+    def positions(pipe):
+        return np.stack([p for _, p, _ in pipe.get_trajectory()])
+
+    def run(pipe, warm=len(data.scans)):
+        for r in knn.launches:
+            knn.launches[r] = 0
+        feed(pipe, data, 0, warm)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            feed(pipe, data, warm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return dict(knn.launches)
+
+    out = {"transport": group.transport, "device": str(group.device)}
+    captured = tpipe.Pipeline(cfg, group=group)
+    out["captured_launches"] = run(captured, CAPTURED_WARM)
+    out["captured"] = positions(captured)
+    out["graphs"] = captured.graphs.stats()
+    out["pad_buckets"] = captured.pad_buckets
+    eager = tpipe.Pipeline(cfg, group=group, graphs=False)
+    out["eager_launches"] = run(eager)
+    out["eager"], out["eager_graphs"] = positions(eager), eager.graphs
+    unsharded = tpipe.Pipeline(cfg, device=group.device)
+    run(unsharded)
+    out["unsharded"] = positions(unsharded)
+
+    src = tpipe.Pipeline(cfg, group=group)
+    feed(src, data, 0, HANDOVER_AT)
+    for how in ("checkpoint", "state_handover"):
+        target = tpipe.Pipeline(cfg, group=group)
+        feed(target, data, 0, 4)
+        had_graphs = bool(target.graphs.stats())
+        take_over(target, src, how, Path(outdir) / "captured_rank.npz")
+        feed(target, data, HANDOVER_AT)
+        out[how] = dict(positions=positions(target), had_graphs=had_graphs)
     return out
 
 
