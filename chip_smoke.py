@@ -861,6 +861,21 @@ def phase_sharded_1rank(pkg, cfg, sim_cfg, traj_ref, card) -> dict:
     return cap
 
 
+def phase_sharded_cards(pkg, card) -> list:
+    """Phase 16: ``multicard``'s ouster64 phase on as many NCCL ranks as
+    ``multicard.default_ranks`` gives, one card each; its row and checks
+    are ``multicard.ouster64_row``'s.  Returns the ranks' captured runs."""
+    mc = pkg["multicard"]
+    name, scale = "sharded_ouster64_cards", mc.full_scale()
+    n = mc.default_ranks()
+    t0 = time.perf_counter()
+    ranks = pkg["launch"](mc.ouster64_rank, n, args=(scale,), backend="nccl",
+                          timeout_s=600.0)
+    log({"phase": name, "ranks": n, "launch_wall_s": time.perf_counter() - t0})
+    mc.ouster64_row(ranks, scale, name, card)
+    return [r["captured"] for r in ranks]
+
+
 def phase_sharded(pkg, name, cfg, sim_cfg, world, backend, n_scans, ref_name):
     """``bench_scaling.drive`` on ``world`` ranks of the card, each a worker
     process; the checks of the main path on rank 0's report (the map's size
@@ -1221,21 +1236,22 @@ def main() -> int:
     from fast_lio_tpu_torch.parallel import launch, sharding
     from fast_lio_tpu_torch.pipeline import Pipeline
     from fast_lio_tpu_torch.tools import (bench_scaling, microbench_knn,
-                                          oracle_compare, profile_scan,
-                                          scenarios)
+                                          multicard, oracle_compare,
+                                          profile_scan, scenarios)
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
     pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
                mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt,
                launch=launch, sharding=sharding, bench_scaling=bench_scaling,
                oracle_compare=oracle_compare, BatchPipeline=BatchPipeline,
-               scenarios=scenarios, profile_scan=profile_scan)
+               scenarios=scenarios, profile_scan=profile_scan,
+               multicard=multicard)
     card = gpu_name_and_power()
     t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
-    libs = ["knn", "knn_grouped"]
+    libs = build.LIBS
     build.build_all(libs)
     build_s = time.perf_counter() - t0
     log({"phase": "build", "seconds": build_s, "card": card,
@@ -1353,6 +1369,9 @@ def main() -> int:
         pkg, ouster_cfg, ouster_sim, {"float32": traj_ouster,
                                       "float64": traj_f64})
 
+    # 16. phase 5's run on NCCL ranks, one card each
+    ranks_cards = phase_sharded_cards(pkg, card)
+
     by_path = {"fleet_batch4": l_batch4, "fleet_ouster64": l_fleet_ouster,
                "avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
@@ -1360,7 +1379,8 @@ def main() -> int:
                "oracle_f32": l_oracle_f32,
                **{f"graph_{k}": v for k, v in l_graph.items()}}
     by_rank = {"sharded_avia_1rank": [rank_avia],
-               "sharded_ouster64_2ranks": ranks_ouster}
+               "sharded_ouster64_2ranks": ranks_ouster,
+               "sharded_ouster64_cards": ranks_cards}
     for path, ranks in by_rank.items():  # the per-query kernel only
         by_path[path] = {k: {r: 0 for r in v} for k, v in l_avia.items()}
         by_path[path]["knn"] = {r: sum(rk["launches"][r] for rk in ranks)

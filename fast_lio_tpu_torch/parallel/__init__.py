@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import multiprocessing
 import queue
 import tempfile
@@ -96,6 +97,35 @@ class ShardGroup:
         dist.destroy_process_group(self.pg)
 
 
+def _resolve(device, backend):
+    """(device, backend) as a rank takes them: CUDA by default (raises
+    without it), NCCL on a card and gloo on the CPU by default."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ranks run on CUDA by default and no CUDA device is available; "
+            "pass device='cpu' for CPU ranks")
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("the nccl backend needs CUDA ranks")
+    return device, backend
+
+
+def check_cards(world: int, backend: str, shared: bool = False) -> None:
+    """Raise ValueError unless ``world`` NCCL ranks get a card each
+    (``shared``: the caller gave them all one card): NCCL refuses two ranks
+    on one device, and nothing shrinks the world to the cards present.
+    Ranks that share a card pass ``backend="gloo"``."""
+    cards = torch.cuda.device_count() if backend == "nccl" else 0
+    if backend == "nccl" and (world > cards or (shared and world > 1)):
+        raise ValueError(
+            f"{world} NCCL ranks on {1 if shared else cards} card(s): NCCL "
+            "takes one card a rank (ranks sharing a card pass "
+            "backend='gloo')")
+
+
 def init_distributed(init_method: str, world: int, rank: int,
                      backend: str = None, device=None,
                      timeout_s: float = TIMEOUT_S) -> ShardGroup:
@@ -104,23 +134,16 @@ def init_distributed(init_method: str, world: int, rank: int,
     ``init_method`` is a ``torch.distributed`` rendezvous address
     (``"tcp://localhost:<port>"`` or ``"file://<path>"``).  ``device``
     defaults to CUDA, card ``rank % device_count`` (raises without CUDA;
-    pass ``"cpu"`` for CPU ranks); ``backend`` to NCCL on a card and gloo on
-    the CPU.  Ranks that share one card pass ``backend="gloo"``."""
+    pass ``"cpu"`` for CPU ranks); ``backend`` to NCCL on a card and gloo
+    on the CPU.  NCCL ranks take a card each (``check_cards``); ranks that
+    share one card pass ``backend="gloo"``."""
     check_world(world)
-    device = torch.device("cuda" if device is None else device)
+    device, backend = _resolve(device, backend)
+    check_cards(world, backend)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "ranks run on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' for CPU ranks")
         if device.index is None:
             device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
-    if backend == "nccl" and device.type != "cuda":
-        raise ValueError("the nccl backend needs CUDA ranks")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -128,15 +151,20 @@ def init_distributed(init_method: str, world: int, rank: int,
 
 
 def _rank_main(fn, rank, world, init_method, backend, device, args, results):
-    """A launched rank: join, run ``fn``, report (rank, ok, result)."""
+    """A launched rank: join, run ``fn``, report (rank, ok, result).  A
+    failure is reported at once, with no teardown: the peers may wait in a
+    collective, and ``launch`` ends them all.  After a success, what ``fn``
+    left (pipelines, their CUDA graphs with NCCL kernels recorded in them)
+    is freed and the card drained before the communicator is destroyed."""
     try:
         if torch.device("cuda" if device is None else device).type == "cpu":
             torch.set_num_threads(1)  # the ranks share the host's cores
         group = init_distributed(init_method, world, rank, backend, device)
-        try:
-            out = fn(group, *args)
-        finally:
-            group.close()
+        out = fn(group, *args)
+        gc.collect()
+        if group.device.type == "cuda":
+            torch.cuda.synchronize(group.device)
+        group.close()
     except Exception:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -154,13 +182,15 @@ def launch(fn: Callable, world: int, args: Sequence = (), backend: str = None,
     are each rank's, as ``init_distributed`` takes them.  A rank that raises
     or dies stops the others, and ``launch`` raises with its traceback; so
     does a launch that outlasts ``timeout_s``.  Every process is ended on
-    return."""
+    return.  Ranks on CUDA find the kernels built: they are built here,
+    once, before the ranks start (``kernels.build.build_all``)."""
     check_world(world)
-    if (torch.device("cuda" if device is None else device).type == "cuda"
-            and not torch.cuda.is_available()):
-        raise RuntimeError(
-            "ranks run on CUDA by default and no CUDA device is available; "
-            "pass device='cpu' for CPU ranks")
+    resolved, backend_used = _resolve(device, backend)
+    check_cards(world, backend_used, shared=resolved.index is not None)
+    if resolved.type == "cuda":
+        from ..kernels import build
+
+        build.build_all(build.LIBS)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="shards_", dir=store_dir) as tmp:

@@ -37,6 +37,8 @@ bucket of the same hash bits, so the global layout is the single map's.
 """
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
@@ -335,27 +337,45 @@ def dryrun_rank(group: ShardGroup) -> dict:
     dx = float(torch.abs(st.boxminus(out[0], ref[0])).max())
     if neff_s == 0:
         raise RuntimeError("dry run never exercised the update")
+    spreads = {}
     for what, key, a, b in (("map size", "map_size", size_m, size_s),
                             ("effective points", "n_eff", neff_m, neff_s)):
-        spread = abs(int(refs[1][6][key]) - b)
+        spread = spreads[key] = abs(int(refs[1][6][key]) - b)
         if abs(a - b) > max(8, b // 100) + spread:
             raise RuntimeError(f"{what} diverged: {a} sharded, {b} single "
                                f"(two single runs {spread} apart)")
     if not dx < 5e-3:
         raise RuntimeError(f"state diverged from single rank: |dx| = {dx}")
     return dict(rank=group.rank, world=group.world, map_size=size_m,
-                map_size_single=size_s, n_eff=neff_m, n_eff_single=neff_s,
-                max_dx=dx, transport=group.transport)
+                map_size_single=size_s, map_size_spread=spreads["map_size"],
+                n_eff=neff_m, n_eff_single=neff_s,
+                n_eff_spread=spreads["n_eff"], max_dx=dx,
+                transport=group.transport)
+
+
+def dryrun_row(ranks: list) -> dict:
+    """The dry run's JSON row from every rank's ``dryrun_rank`` figures:
+    the JAX package's (map size and effective points, sharded against
+    single, and the largest state difference over the ranks), rank 0's
+    spread of two single runs, and whether the ranks agree on the sharded
+    figures (replicated; each rank runs its own single steps, whose
+    atomic sums differ from run to run on a card)."""
+    r = ranks[0]
+    keys = ("map_size", "map_size_single", "n_eff", "n_eff_single")
+    return {"phase": "dryrun", "ranks": r["world"],
+            "transport": r["transport"], **{k: r[k] for k in keys},
+            "spread": {k: r[f"{k}_spread"] for k in ("map_size", "n_eff")},
+            "max_dx": max(x["max_dx"] for x in ranks), "max_dx_bound": 5e-3,
+            "ranks_agree": all(x[k] == r[k] for x in ranks
+                               for k in ("map_size", "n_eff"))}
 
 
 def dryrun(world: int = 2, backend: str = None, device=None) -> list:
     """Launch ``world`` ranks (``parallel.launch``), run ``dryrun_rank`` on
-    each, print one line, and return the ranks' figures.  Ranks run on CUDA
-    by default, one card each over NCCL; two ranks sharing one card pass
-    ``backend="gloo"``, CPU ranks ``device="cpu"``."""
+    each, print ``dryrun_row`` as one JSON line, and return the ranks'
+    figures: the counterpart of the JAX package's ``dryrun_multichip``.
+    Ranks run on CUDA by default, one card each over NCCL; two ranks
+    sharing one card pass ``backend="gloo"``, CPU ranks ``device="cpu"``."""
     res = launch(dryrun_rank, world, backend=backend, device=device)
-    r = res[0]
-    print(f"dryrun OK on {world} ranks ({r['transport']}): map_size="
-          f"{r['map_size']}/{r['map_size_single']}, n_eff={r['n_eff']}/"
-          f"{r['n_eff_single']}, max|x_sharded - x_single|={r['max_dx']:.2e}")
+    print(json.dumps(dryrun_row(res)), flush=True)
     return res

@@ -6,7 +6,8 @@ repository root:
     python3 -m fast_lio_tpu_torch.tools.bench_scaling            # card
     python3 -m fast_lio_tpu_torch.tools.bench_scaling --eager    # card
     python3 -m fast_lio_tpu_torch.tools.bench_scaling --ablate   # card
-    python3 -m fast_lio_tpu_torch.tools.bench_scaling --trend    # CPU
+    python3 -m fast_lio_tpu_torch.tools.bench_scaling --trend    # cards
+    python3 -m fast_lio_tpu_torch.tools.bench_scaling --trend --device cpu
 
 * default, the intercept: the same scans through the unsharded pipeline and
   through one NCCL rank of the sharded one, in turns, both captured (one
@@ -19,10 +20,14 @@ repository root:
   reductions and map size; without both; ``sharding.ABLATE_*``, exact at
   one rank), each pass on a fresh pipeline (a captured step keeps the flags
   it was recorded with), best of the rounds.
-* ``--trend``: gloo ranks 1, 2 and 4 (``--ranks``) on the CPU at the JAX
-  tool's small shapes, and the unsharded pipeline, all eager.  Ranks share
-  the host's cores, so the trend shows the collectives' cost on one host; a
-  speed-up across cards needs cards.
+* ``--trend``: the JAX tool's TREND question on cards: NCCL ranks 1, 2
+  and 4 (``--ranks``), one card each, captured (``--eager``: eager too, in
+  the same rounds), with the unsharded pipeline's passes beside them in
+  the one-rank launch; best of 2 rounds per rank.  Asking for more ranks
+  than there are cards raises.  ``--device cpu``: gloo ranks on the CPU at
+  the JAX tool's small shapes, and the unsharded pipeline, all eager, one
+  round; the ranks share the host's cores, so that trend shows the
+  collectives' cost on one host, not a speed-up.
 
 Every run is a worker process (``parallel.launch``), the unsharded one too,
 so both sides run under the same conditions.  Scans are synced packets,
@@ -48,7 +53,7 @@ import torch
 
 from .. import config, sim
 from ..kernels import knn as knn_kernel
-from ..parallel import launch
+from ..parallel import check_cards, launch
 from ..parallel import sharding
 from ..pipeline import Pipeline
 
@@ -132,11 +137,14 @@ def rounds(group, passes, n_rounds: int, small: bool, scans: int) -> list:
     return out
 
 
-def _run_scans(pipe, data, n: int):
-    """Generator: each next() pushes scan k of ``data`` (with its IMU) into
-    ``pipe`` and runs it, for k < n."""
-    imu_i = 0
-    for k in range(n):
+def run_scans(pipe, data, n: int, lo: int = 0):
+    """Generator: each next() pushes scan k of ``data`` (with the IMU
+    samples up to its end that no earlier scan took) into ``pipe`` and runs
+    it, for ``lo`` <= k < ``n``; from ``lo`` > 0 it continues a run that
+    stopped after scan ``lo - 1`` (a resumed checkpoint)."""
+    imu_i = 0 if lo == 0 else int(np.searchsorted(
+        data.imu_t, data.scan_stamps[lo - 1] + 0.1 + 1e-9, side="right"))
+    for k in range(lo, n):
         stamp = data.scan_stamps[k]
         while imu_i < len(data.imu_t) and data.imu_t[imu_i] <= stamp + 0.1 + 1e-9:
             pipe.push_imu(data.imu_t[imu_i], data.imu_acc[imu_i],
@@ -148,11 +156,12 @@ def _run_scans(pipe, data, n: int):
         yield k
 
 
-def _drive(group, cfg, data, n_scans=None, warm: int = N_WARM, graphs=None,
-           sync_free: bool = False, profile_scans: int = 0):
+def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
+               graphs=None, sync_free: bool = False, profile_scans: int = 0):
     """``drive`` on generated ``data``, through ``Pipeline(cfg,
     group=group, graphs=graphs)``; returns (the pipeline, the figures),
-    with the graphs' stats per pad bucket (None when eager).
+    with the graphs' stats per pad bucket (None when eager) and the kNN
+    launches per R (``launches`` float32, ``launches_f64``).
 
     The first ``warm`` scans run one by one, the device synced after each.
     The rest do too, unless ``sync_free``: then they run in one window
@@ -163,10 +172,11 @@ def _drive(group, cfg, data, n_scans=None, warm: int = N_WARM, graphs=None,
     scan)."""
     pipe = Pipeline(cfg, group=group, graphs=graphs)
     n = len(data.scans) if n_scans is None else n_scans
-    for r in knn_kernel.launches:
-        knn_kernel.launches[r] = 0
+    for c in (knn_kernel.launches, knn_kernel.launches_f64):
+        for r in c:
+            c[r] = 0
     cuda = pipe.device.type == "cuda"
-    push = _run_scans(pipe, data, n)
+    push = run_scans(pipe, data, n)
     times = []
     for _ in range(warm if sync_free else n):
         t0 = time.perf_counter()
@@ -194,6 +204,7 @@ def _drive(group, cfg, data, n_scans=None, warm: int = N_WARM, graphs=None,
             figures["profile"] = profile_window(lambda: next(push),
                                                 profile_scans)
     launches = dict(knn_kernel.launches)
+    launches_f64 = dict(knn_kernel.launches_f64)
     traj = pipe.get_trajectory()
     stats = pipe.graphs.stats() if pipe.graphs is not None else None
     figures.update(
@@ -204,7 +215,7 @@ def _drive(group, cfg, data, n_scans=None, warm: int = N_WARM, graphs=None,
         ate_raw_m=sim.ate_rmse(traj, data),
         ate_aligned_m=sim.ate_rmse_aligned(traj, data),
         health=pipe.health_check(), launches=launches,
-        scans_per_s=scans_per_s,
+        launches_f64=launches_f64, scans_per_s=scans_per_s,
         iterations_mean=float(np.mean([int(d.iterations) for d in pipe.diags])),
         n_effective_last=int(pipe.diags[-1].n_effective))
     return pipe, figures
@@ -217,28 +228,58 @@ def drive(group, cfg, sim_cfg, n_scans: int = None, warm: int = N_WARM) -> dict:
     map size and drops), kNN kernel launches of the run (counted from 0
     just before it, per R, replays included), the graphs' stats, scans/s
     after ``warm`` scans and the group's transport."""
-    return _drive(group, cfg, sim.generate(sim_cfg), n_scans, warm)[1]
+    return drive_data(group, cfg, sim.generate(sim_cfg), n_scans, warm)[1]
 
 
 def drive_modes(group, cfg, sim_cfg, n_scans: int, warm: int,
                 profile_scans: int) -> dict:
     """``drive`` of the same scans eager (``graphs=False``) and then
     captured (the default on NCCL ranks), each ``sync_free`` with the last
-    ``profile_scans`` profiled (``_drive``); then the captured
+    ``profile_scans`` profiled on a card (``drive_data``); then the captured
     pipeline's ``measure_stage_times`` (a collective, after its launches
-    are read).  Returns {"captured": ..., "eager": ..., "stage_times":
-    ...}."""
+    are read) and ``pose_covariance``.  Returns {"captured": ..., "eager":
+    ..., "stage_times": ..., "pose_covariance": ...}.  On CPU ranks (a
+    rehearsal) both runs are eager and synced, with no profile."""
     data = sim.generate(sim_cfg)
-    eager = _drive(group, cfg, data, n_scans, warm, False, True,
+    card = group.device.type == "cuda"
+    profile_scans = profile_scans if card else 0
+    eager = drive_data(group, cfg, data, n_scans, warm, False, card,
                    profile_scans)[1]
-    pipe, captured = _drive(group, cfg, data, n_scans, warm, None, True,
+    pipe, captured = drive_data(group, cfg, data, n_scans, warm, None, card,
                             profile_scans)
     stage_times = pipe.measure_stage_times()
-    return dict(captured=captured, eager=eager, stage_times=stage_times)
+    return dict(captured=captured, eager=eager, stage_times=stage_times,
+                pose_covariance=pipe.pose_covariance())
 
 
 def _print(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def trend(ranks, eager: bool, scans) -> int:
+    """``--trend`` on cards: one launch of n NCCL ranks per rank count,
+    each running the sharded passes (captured, and eager with ``eager``),
+    the one-rank launch also the unsharded ones; one JSON line per pass and
+    rank count, the slowest rank's best scans/s first."""
+    from .microbench_knn import card
+
+    modes = [None, False] if eager else [None]
+    for n in ranks:  # refused before anything runs
+        check_cards(n, "nccl")
+    for n in ranks:
+        variants = ["sharded_full"] if n > 1 else ["unsharded", "sharded_full"]
+        passes = [(v, g) for g in modes for v in variants]
+        res = launch(rounds, n, args=(passes, 2, False, scans),
+                     backend="nccl")
+        for v, g in passes:
+            name = pass_name(v, g)
+            best = [max(sps for _, w, sps in r if w == name) for r in res]
+            _print({"mode": name, "n_ranks": n, "platform": "gpu",
+                    "transport": "nccl", "scans_per_sec": min(best),
+                    "scans_per_sec_by_rank": best,
+                    "device": torch.cuda.get_device_name(0)})
+    print(card(), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -251,12 +292,16 @@ def main(argv=None) -> int:
                          "rounds")
     ap.add_argument("--ranks", default="1,2,4",
                     help="--trend: the rank counts, comma-separated")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="--trend: cpu runs gloo ranks on the host")
     ap.add_argument("--scans", type=int, default=None,
                     help="timed scans per pass (default: the whole sim run "
                          "after the warm-up)")
     args = ap.parse_args(argv)
+    if args.device == "cpu" and not args.trend:
+        ap.error("--device cpu goes with --trend")
 
-    if args.trend:
+    if args.trend and args.device == "cpu":
         ranks = [int(n) for n in args.ranks.split(",")]
         runs = [("unsharded", 1)] + [("sharded_full", n) for n in ranks]
         for variant, n in runs:
@@ -269,8 +314,11 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         print("bench_scaling: no CUDA device; nothing measured (--trend "
-              "runs on the CPU)", file=sys.stderr)
+              "--device cpu runs on the CPU)", file=sys.stderr)
         return 1
+    if args.trend:
+        return trend([int(n) for n in args.ranks.split(",")], args.eager,
+                     args.scans)
     from .microbench_knn import card
 
     variants = list(VARIANTS) if args.ablate else ["unsharded", "sharded_full"]

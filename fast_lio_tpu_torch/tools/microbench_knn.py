@@ -398,7 +398,7 @@ def main(argv=None) -> int:
         print("microbench_knn: no CUDA device; nothing measured",
               file=sys.stderr)
         return 1
-    build.build_all(["knn", "knn_grouped"])
+    build.build_all(build.LIBS)
     for dtype in (torch.float32, torch.float64):
         for tag in CASES:
             for order in ("main", "shuffled"):

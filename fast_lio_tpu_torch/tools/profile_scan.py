@@ -94,6 +94,14 @@ def is_knn_kernel(name: str) -> bool:
     return KNN_KERNEL.search(name) is not None
 
 
+COLLECTIVES = ("AllGather", "AllReduce")
+
+
+def is_collective(name: str, op: str) -> bool:
+    """An NCCL kernel of collective ``op`` (one of ``COLLECTIVES``)."""
+    return "nccl" in name.lower() and op in name
+
+
 def is_knn_prep_kernel(name: str) -> bool:
     return KNN_PREP_KERNEL in name
 
@@ -185,6 +193,10 @@ def profile_window(step, n_scans: int) -> dict:
             v for k, v in by_kernel.items() if is_knn_kernel(k)) / n_scans,
         "knn_search_launches_per_scan": sum(
             n for k, n in calls.items() if is_knn_search_kernel(k)) / n_scans,
+        # NCCL's kernels: a sharded step's collectives as the card ran them
+        "collective_kernels_per_scan": {
+            op: sum(n for k, n in calls.items() if is_collective(k, op))
+            / n_scans for op in COLLECTIVES},
         "top_device_ms_per_scan": [
             {"name": name[:80], "ms": 1e-3 * by_kernel[name] / n_scans,
              "calls": calls[name] / n_scans} for name in top],

@@ -825,3 +825,65 @@ def test_cuda_one_nccl_rank_float64_equals_unsharded_run():
     assert res["sharded"].shape == res["unsharded"].shape
     assert np.isfinite(res["sharded"]).all()
     assert np.abs(res["sharded"] - res["unsharded"]).max() <= 1e-6
+
+
+def ranks_against_unsharded(group) -> dict:
+    """(Run on each of n NCCL ranks by ``parallel.launch``.)
+    ``one_rank_f64_against_unsharded`` at n ranks, and the float32 run of
+    the same scans with the wide fallback through the sharded pipeline:
+    its state, which every rank holds bit for bit."""
+    out = one_rank_f64_against_unsharded(group)
+    cfg = tcfg.Config(lidar_type=tcfg.LidarType.AVIA, filter_size_surf=0.3,
+                      filter_size_map=0.3, n_points_max=2048, n_ds_max=1024,
+                      n_imu_max=32, map_h_log2=12, det_range=40.0,
+                      cube_side_length=300.0, knn_wide_fallback=True)
+    pipe = tpipe.Pipeline(cfg, group=group)
+    _feed(pipe, tsim.generate(tsim.SimConfig(duration=1.2, n_rings=8,
+                                             n_azimuth=200, range_noise=0.01)))
+    out["f32_state"] = dict(
+        {f: v.cpu().numpy() for f, v in zip(pipe.x._fields, pipe.x)},
+        P=pipe.P.cpu().numpy(), positions=_positions(pipe))
+    out["f32_graphs"] = len(pipe.graphs.stats())
+    out["rank"] = group.rank
+    return out
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda n: f"world{n}")
+def nccl_ranks(request):
+    """``ranks_against_unsharded`` on n NCCL ranks, one card each, once per
+    world size; skips unless there are n cards."""
+    _card()
+    n = request.param
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, one a rank")
+    return launch(ranks_against_unsharded, n, backend="nccl")
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_ranks_float64_equal_unsharded_run(nccl_ranks):
+    """The sharded step captured on n NCCL ranks (the collectives in every
+    rank's graph) in float64, against the unsharded float64 captured run
+    on each rank's card: within 1e-6 m per scan, as at one rank."""
+    assert [r["rank"] for r in nccl_ranks] == list(range(len(nccl_ranks)))
+    for res in nccl_ranks:
+        assert res["transport"] == "nccl" and res["device"].startswith("cuda")
+        assert res["sharded_graphs"] >= 1 and res["unsharded_graphs"] >= 1
+        assert (res["sharded_dtype"] == res["unsharded_dtype"]
+                == "torch.float64")
+        assert res["sharded"].shape == res["unsharded"].shape
+        assert np.isfinite(res["sharded"]).all()
+        assert np.abs(res["sharded"] - res["unsharded"]).max() <= 1e-6
+    assert len({r["device"] for r in nccl_ranks}) == len(nccl_ranks)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_ranks_hold_the_same_state(nccl_ranks):
+    """In float32, captured on n NCCL ranks with the wide fallback: every
+    rank's state, covariance and trajectory bit for bit."""
+    s0 = nccl_ranks[0]["f32_state"]
+    assert all(r["f32_graphs"] >= 1 for r in nccl_ranks)
+    assert np.isfinite(s0["positions"]).all() and len(s0["positions"]) >= 8
+    for r in nccl_ranks[1:]:
+        assert r["f32_state"].keys() == s0.keys()
+        for k, v in r["f32_state"].items():
+            np.testing.assert_array_equal(v, s0[k])

@@ -180,9 +180,10 @@ def test_prep_bound_is_its_bytes():
 
 
 def test_bench_scaling_trend_prints_a_line_per_configuration(capsys):
-    """``--trend`` at a tiny size: the unsharded run and gloo ranks 1 and 2,
-    each a launch of worker processes, one JSON line each."""
-    assert bench_scaling.main(["--trend", "--ranks", "1,2", "--scans", "2"]) == 0
+    """``--trend --device cpu`` at a tiny size: the unsharded run and gloo
+    ranks 1 and 2, each a launch of worker processes, one JSON line each."""
+    assert bench_scaling.main(["--trend", "--device", "cpu", "--ranks", "1,2",
+                               "--scans", "2"]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [(ln["mode"], ln["n_ranks"]) for ln in lines] == [
         ("unsharded", 1), ("sharded_full", 1), ("sharded_full", 2)]

@@ -588,3 +588,48 @@ def fails_on_rank_one(group: ShardGroup) -> None:
     if group.rank == 1:
         raise ValueError("rank one gives up")
     group.all_reduce_sum(torch.ones(1))
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_multicard.py: tools/multicard's phases on CPU ranks
+# ---------------------------------------------------------------------------
+
+
+def dryrun_step_f64(group: ShardGroup) -> dict:
+    """``sharding.dryrun_rank``'s two chained sharded steps in float64 on
+    the dry run's inputs: the state, covariance, global map and figures
+    after the second, and the global map after the first (whose update
+    finds no point in the empty map: it only inserts)."""
+    cfg = tshd.dryrun_cfg()
+    map_cfg = thm.make_config(voxel_size=cfg.filter_size_map,
+                              h_log2=cfg.map_h_log2,
+                              bucket_slots=cfg.map_bucket_slots)
+    args = list(tshd.example_inputs(cfg, map_cfg, DT, group.device))
+    args[2] = tshd.make_sharded_map(map_cfg, group, DT)
+    maps = []
+
+    def step(*a):
+        out = tshd.sharded_lio_step(cfg, map_cfg, group, *a)
+        maps.append(tshd.gather_global_map(out[2], group))
+        return out
+
+    out = tshd._chain(step, args)
+    return dict(x={f: v.cpu().numpy() for f, v in zip(out[0]._fields, out[0])},
+                P=out[1].cpu().numpy(),
+                packed=[m.packed.cpu().numpy() for m in maps],
+                dropped=[m.dropped.cpu().numpy() for m in maps],
+                map_size=int(out[6]["map_size"]), n_eff=int(out[6]["n_eff"]))
+
+
+def multicard_ranks(group: ShardGroup, outdir: str) -> dict:
+    """Every rank: ``tools/multicard``'s first launch (``rank_phases``) and
+    its resume (``resume_rank``, here in the same processes) at the CPU
+    rehearsal's size; the dry run's step in float64
+    (``dryrun_step_f64``); and ``collectives_per_step``."""
+    from fast_lio_tpu_torch.tools import multicard as mc
+
+    scale = mc.tiny_scale()
+    return dict(phases=mc.rank_phases(group, scale, outdir),
+                resumed=mc.resume_rank(group, scale, outdir),
+                dryrun_f64=dryrun_step_f64(group),
+                collectives=collectives_per_step(group))
