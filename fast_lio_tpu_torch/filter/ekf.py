@@ -8,10 +8,14 @@ Port of ``fast_lio_tpu/filter/ekf.py`` (the esekfom engine, esekfom.hpp):
   in the 23x23 information form, where the only reductions over the N
   measurement rows are H^T H (12x12) and H^T h (12,).
 
-The JAX ``while_loop`` becomes a fixed count of passes, the most the loop can
-make, with its carry held in device tensors and every pass after the exit (or
-with no valid point) masked off by ``torch.where``: no host read, so the
-update records into a CUDA graph whole.
+The JAX ``while_loop`` becomes its most passes, ``max_iter + 1``, each
+``control_flow.gate(~done, pass, carry)`` on a carry of device tensors: no
+host read.  In the single pipeline's captured step each pass is a CUDA-graph
+IF node, so a replay runs the passes JAX's loop runs and skips the rest; in
+the masked form (eager, the CPU, the batch, the sharded step) every pass runs
+and a pass after the exit leaves the carry as it was, through
+``torch.where``.  Inside a pass a measurement with no valid point leaves the
+iterate unchanged, as JAX's ``sel`` does.
 
 Deviations carried over from the JAX package: the predict-step exp factors
 use the mathematically intended scale (the reference's ``scalar(1/2)`` is 0,
@@ -26,6 +30,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import control_flow as cf
 from .. import state as st
 from ..math import s2, so3
 from . import process
@@ -159,15 +164,6 @@ def _hashable(v):
     return float(a) if a.ndim == 0 else tuple(a.tolist())
 
 
-def select(flag: torch.Tensor, new, old):
-    """``torch.where(flag, new, old)`` leaf by leaf over tensors, numbers and
-    (named) tuples of them: ``lax.cond``'s pick of a carry, on the device."""
-    if isinstance(new, tuple):
-        leaves = [select(flag, a, b) for a, b in zip(new, old)]
-        return type(new)(*leaves) if hasattr(new, "_fields") else tuple(leaves)
-    return torch.where(flag, new, old)
-
-
 def update_iterated(
     x: st.State,
     P: torch.Tensor,
@@ -187,13 +183,15 @@ def update_iterated(
     C++ loop variable ``i`` starts at -1, a re-search is forced at
     ``i == max_iter-2`` if no iteration has converged, the loop exits on
     ``t > 1`` or ``i == max_iter-1``, and a pass with ``valid`` False leaves
-    the iterate unchanged (but still counts as an evaluation).  Here all
-    ``max_iter + 1`` passes run (``i`` from -1 while ``i < max_iter``: the
-    most the loop makes), the carry (``i``, ``t``, ``converge``, ``done``,
-    ``any_valid``, ``n_evals``, the iterate) lives in device tensors, and a
-    pass after ``done`` leaves every carried value as it was, the
-    measurement carry included: the results are the loop's, with no host
-    read.
+    the iterate unchanged (but still counts as an evaluation).  The loop
+    makes at most ``max_iter + 1`` passes (``i`` from -1 while
+    ``i < max_iter``); here each is ``control_flow.gate(~done, pass,
+    carry)``, the carry (``i``, ``t``, ``converge``, ``done``,
+    ``any_valid``, ``n_evals``, the iterate, ``P_post``, ``dx_final``, the
+    measurement carry) device tensors.  In a gated capture a pass after
+    ``done`` is an IF node that does not run; in the masked form it runs and
+    leaves every carried value as it was.  Either way the results are the
+    loop's, with no host read.
 
     ``group`` (a ``parallel.ShardGroup``): the measurement rows are split
     across its ranks, and each pass sums H^T H, H^T h and the ranks'
@@ -203,8 +201,8 @@ def update_iterated(
     passes: a rank's own ``valid`` comes from its own downsample, whose
     atomic sums on CUDA may differ from another rank's in the last bit.
     (It is the same flag wherever the ranks' selections agree.)  Every rank
-    runs every pass, so the collectives match across ranks.  Without a
-    group nothing changes.
+    runs every pass (a sharded step is never gated), so the collectives
+    match across ranks.  Without a group nothing changes.
     """
     dtype, device = P.dtype, P.device
     epsi, eye = _constants(_hashable(epsi), dtype, device)
@@ -215,16 +213,11 @@ def update_iterated(
         return torch.full((), v, dtype=dt, device=device)
 
     i32 = torch.int32
-    i, t = scalar(-1, i32), scalar(0, i32)
-    n_evals = scalar(0, i32)
-    converge = scalar(True, torch.bool)
-    done, any_valid = scalar(False, torch.bool), scalar(False, torch.bool)
-    h_carry = carry0
-    P_post = P_prop
-    dx_final = torch.zeros(n, dtype=dtype, device=device)
-    for _ in range(max_iter + 1):
+
+    def one_pass(c):
+        i, t, converge, done, any_valid, n_evals, x, P_post, dx_final, \
+            h_carry = c
         out = h_fn(x, converge, h_carry)
-        active = ~done
 
         mrows = out.mask.to(dtype)
         h_x = out.h_x * mrows[:, None]
@@ -259,21 +252,34 @@ def update_iterated(
         # (esekfom.hpp:1829-1832)
         force = (t_new == 0) & (i == max_iter - 2)
         done_now = (t_new > 1) | (i == max_iter - 1)
-        take = active & valid  # the loop ran this pass and it was valid
-        x = select(take, x_new, x)
-        t = torch.where(take, t_new, t)
-        converge = torch.where(take, converged | force, converge)
-        P_post = torch.where(take, R * P_inv, P_post)
-        dx_final = torch.where(take, dx_, dx_final)
-        h_carry = select(active, out.carry, h_carry)
-        done = done | (take & done_now)
-        any_valid = any_valid | take
-        i = i + active.to(i32)
-        n_evals = n_evals + active.to(i32)
+        # a pass with no valid point keeps the iterate (JAX's `sel`)
+        return (i + 1, torch.where(valid, t_new, t),
+                torch.where(valid, converged | force, converge),
+                valid & done_now, any_valid | valid, n_evals + 1,
+                cf.select(valid, x_new, x),
+                torch.where(valid, R * P_inv, P_post),
+                torch.where(valid, dx_, dx_final), out.carry)
+
+    # the carry's tensors: x, P_prop and carry0 are read under their own
+    # names too, so a gated pass writes copies of them
+    x0, P_post0, h_carry0 = cf.own((x, P_prop, carry0))
+    carry = (scalar(-1, i32), scalar(0, i32), scalar(True, torch.bool),
+             scalar(False, torch.bool), scalar(False, torch.bool),
+             scalar(0, i32), x0, P_post0,
+             torch.zeros(n, dtype=dtype, device=device), h_carry0)
+    for _ in range(max_iter + 1):
+        done = carry[3]
+        carry = cf.gate(~done, one_pass, carry)
+    _, _, _, _, any_valid, n_evals, x, P_post, dx_final, h_carry = carry
 
     # Final covariance: (I - K_x) P_w = R * P_inv in exact arithmetic, so
-    # P = T (R P_inv) T^T (SPD by construction; see the JAX package's note)
+    # P = T (R P_inv) T^T (SPD by construction; see the JAX package's note).
+    # P_post is read row-major: the masked passes' pick takes the layout of
+    # R * P_inv (column-major, from the triangular solve), a gated pass
+    # copies into the carry's own row-major tensor, and a product's
+    # rounding on the card follows its operands' layout
     T = _block_transform(dx_final, x, x_prop)
-    P_new = torch.where(any_valid, _sym(T @ P_post @ T.T), P_prop)
+    P_new = torch.where(any_valid, _sym(T @ P_post.contiguous() @ T.T),
+                        P_prop)
     return UpdateResult(x=x, P=P_new, carry=h_carry, iterations=n_evals,
                         valid=any_valid)

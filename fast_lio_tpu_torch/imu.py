@@ -6,12 +6,11 @@ Port of ``fast_lio_tpu/imu.py`` (the reference's IMU_Processing.hpp):
   (IMU_Processing.hpp:159-214), numpy as in the JAX package.
 * ``propagate_and_deskew`` — forward propagation over a fixed-size padded IMU
   block (IMU_Processing.hpp:243-301) and backward per-point motion
-  compensation (IMU_Processing.hpp:307-345) as a vectorized gather.  The JAX
-  package's two ``associative_scan``s (the quaternion chain and the (F, G)
-  covariance composition) are sequential loops over the <= n_imu_max-1
-  intervals here; every per-interval Jacobian is still built in one batched
-  call.  The loops run the same products in another association order, so
-  results agree with the JAX package to rounding.
+  compensation (IMU_Processing.hpp:307-345) as a vectorized gather.  The
+  quaternion chain and the (F, G) covariance composition are the JAX
+  package's two ``associative_scan``s (``control_flow.associative_scan``,
+  log depth, JAX's association order); every per-interval Jacobian is
+  built in one batched call.
 
 Padding contract for the IMU block (length M): slot 0 is the previous frame's
 tail sample (IMU_Processing.hpp:220); ``imu_mask[i]`` marks real samples;
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 
 from . import state as st
+from .control_flow import associative_scan
 from .filter import ekf
 from .math import so3
 
@@ -107,17 +107,6 @@ def init_imu_carry(dtype=torch.float32, device=None) -> ImuCarry:
                     torch.zeros(3, dtype=dtype, device=device))
 
 
-def _right_mult_matrix(q: torch.Tensor) -> torch.Tensor:
-    """(…,4,4) matrix Rq with Rq @ p == quat_multiply(p, q)."""
-    w, x, y, z = q.unbind(-1)
-    return torch.stack([
-        torch.stack([w, -x, -y, -z], -1),
-        torch.stack([x, w, z, -y], -1),
-        torch.stack([y, -z, w, x], -1),
-        torch.stack([z, y, -x, w], -1),
-    ], dim=-2)
-
-
 def propagate_and_deskew(
     x: st.State,
     P: torch.Tensor,
@@ -159,17 +148,13 @@ def propagate_and_deskew(
     dts = torch.where(pair_valid, torch.clamp_min(dts, 0.0),
                       torch.zeros_like(dts))
 
-    # ---- forward propagation: per-interval terms batched, chains looped --
+    # ---- forward propagation, batched: the quaternion chain and P's
+    # recursion P <- F P F^T + G compose associatively, so both are scans
     omega = angvel_avr - x.bg  # (Mp, 3)
     a_body = acc_avr - x.ba  # (Mp, 3)
     dq = so3.so3_exp(omega * dts[:, None])  # identity where dt == 0
-    right = _right_mult_matrix(dq)
-    q_run = x.rot
-    q_after = []
-    for k in range(Mp):
-        q_run = right[k] @ q_run  # q_run ⊗ dq[k]
-        q_after.append(q_run)
-    q_after = torch.stack(q_after)  # (Mp, 4)
+    q_incl = associative_scan(so3.quat_multiply, dq)
+    q_after = so3.quat_multiply(x.rot[None, :], q_incl)  # (Mp, 4)
     q_before = torch.cat([x.rot[None, :], q_after[:-1]], dim=0)
 
     a_w_int = so3.quat_rotate(q_before, a_body) + x.grav  # pre-state f_vel
@@ -192,9 +177,15 @@ def propagate_and_deskew(
     F = torch.where(pair_valid[:, None, None], F, eyeD)
     G = torch.where(pair_valid[:, None, None], G, torch.zeros_like(G))
     # invalid pairs are exact identities (F = I, G = 0): padding is a no-op
-    P_prop = P
-    for k in range(Mp):
-        P_prop = torch.addmm(G[k], F[k] @ P_prop, F[k].T)
+
+    def compose(a, b):  # a precedes b: (F_b F_a, F_b G_a F_b^T + G_b)
+        Fa, Ga = a
+        Fb, Gb = b
+        return Fb @ Fa, Fb @ Ga @ Fb.transpose(-1, -2) + Gb
+
+    F_all, G_all = associative_scan(compose, (F, G))
+    F_tot, G_tot = F_all[-1], G_all[-1]
+    P_prop = F_tot @ P @ F_tot.T + G_tot
     P_prop = 0.5 * (P_prop + P_prop.T)
 
     # forward-fill knot gyr/acc over invalid pairs (angvel_last / acc_s_last

@@ -5,21 +5,36 @@ graph runs its captured launches at every replay without calling the
 wrapper, so ``step_graph.StepGraphs`` takes what the capture added
 (``since``), puts the counters back as they were (``restore``: recording a
 launch is not running it), and adds that many at every replay (``add``).
+
+A launch recorded inside a CUDA-graph conditional node (``control_flow.gate``
+in a gated capture) runs only on the replays whose predicate holds, so it
+is counted on the device instead: the gate takes its body's launches off
+the counters and records ``add_on_device`` of them inside the node.  Those
+counts stay on the device until ``settle`` reads them into the counters (a
+host read, made only when asked: ``StepGraphs.stats``, ``chip_smoke.py``,
+the tests), never per scan.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
-from . import knn, knn_grouped
+import torch
+
+from . import graph_if, knn, knn_grouped
 
 Counts = List[Dict[int, int]]
+
+SLOTS = 64  # (counter, key) pairs the device counters hold
+
+_slots: Dict[Tuple[int, int], int] = {}  # (counter index, key) -> slot
+_on_device: Dict[torch.device, torch.Tensor] = {}  # (SLOTS,) int64 each
 
 
 def counters() -> Counts:
     """The live counter dicts, in a fixed order."""
     return [knn.launches, knn.launches_f64, knn.batched_launches,
             knn.batched_launches_f64, knn_grouped.launches,
-            knn_grouped.prep_launches]
+            knn_grouped.prep_launches, graph_if.launches]
 
 
 def snapshot() -> Counts:
@@ -44,3 +59,43 @@ def add(delta: Counts) -> None:
 
 def total(delta: Counts) -> int:
     return sum(sum(d.values()) for d in delta)
+
+
+def device_counter(device) -> torch.Tensor:
+    """The device counters of ``device``, made at first use.  Make them
+    before a capture: a tensor made inside one would be zeroed at every
+    replay."""
+    device = torch.device(device)
+    if device not in _on_device:
+        _on_device[device] = torch.zeros(SLOTS, dtype=torch.int64,
+                                         device=device)
+    return _on_device[device]
+
+
+def add_on_device(delta: Counts, device) -> None:
+    """Add ``delta`` to ``device``'s counters with device work (one small
+    add a counted key), which a graph records where it is called."""
+    if not total(delta):  # the plain versions (the CPU) launch nothing
+        return
+    dev = _on_device.get(torch.device(device))
+    if dev is None:
+        raise RuntimeError(f"no device counters on {device}: call "
+                           "device_counter before the capture")
+    for i, d in enumerate(delta):
+        for r, n in d.items():
+            if n:
+                slot = _slots.setdefault((i, r), len(_slots))
+                if slot >= SLOTS:
+                    raise RuntimeError("out of device counter slots")
+                dev[slot:slot + 1].add_(n)
+
+
+def settle() -> None:
+    """Read every device's counters into the counters and zero them (a
+    host read)."""
+    live = counters()
+    for dev in _on_device.values():
+        vals = dev.tolist()
+        for (i, r), slot in _slots.items():
+            live[i][r] += vals[slot]
+        dev.zero_()

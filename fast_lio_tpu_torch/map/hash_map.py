@@ -47,6 +47,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import control_flow as cf
+
 NUM_MATCH_POINTS = 5  # common_lib.h:26
 
 W_FREE = 1.0e18  # w-channel value of a free slot; d2 >= 1e18 => not a point
@@ -498,13 +500,22 @@ def prune_outside(m: Map, lo: torch.Tensor, hi: torch.Tensor,
 
     Pruning to the *new* cube replaces the vacated-slab ``Delete_Point_Boxes``
     bookkeeping (laserMapping.cpp:254-275).  ``active`` (a () bool tensor)
-    gates the whole pass without a host read: with it False the map is
-    unchanged.  None prunes unconditionally.
+    gates the whole pass without a host read, the JAX step's ``lax.cond``:
+    with it False the map is unchanged.  The pass is
+    ``control_flow.gate(active, ...)`` on the map's weight column as its
+    carry: in a gated capture an IF node prunes the map in place only where
+    ``active`` holds; in the masked form the pruned or the old weights are
+    written back.  None prunes unconditionally.
     """
-    B = m.packed.shape[-1] // 4
     x, y, z, w = channels(m)
-    inside = ((x >= lo[0]) & (x <= hi[0]) & (y >= lo[1]) & (y <= hi[1])
-              & (z >= lo[2]) & (z <= hi[2]))
-    keep = inside if active is None else inside | ~active
-    m.packed[:, 3 * B:] = torch.where(keep, w, torch.full_like(w, W_FREE))
+
+    def prune(carry):
+        inside = ((x >= lo[0]) & (x <= hi[0]) & (y >= lo[1]) & (y <= hi[1])
+                  & (z >= lo[2]) & (z <= hi[2]))
+        return (torch.where(inside, carry[0], torch.full_like(w, W_FREE)),)
+
+    (pruned,) = (prune((w,)) if active is None
+                 else cf.gate(active, prune, (w,)))
+    if pruned is not w:  # not already written in place by an IF node
+        w.copy_(pruned)
     return m

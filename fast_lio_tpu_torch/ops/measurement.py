@@ -5,9 +5,11 @@ batched pass over a fixed-size padded point block —
 
 * body->world transform by quaternion rotation (laserMapping.cpp:656-661);
 * convergence-gated kNN re-search with cached neighborhoods and plane fits
-  (laserMapping.cpp:667-672): the search and the fit run on every call and
-  ``converge`` (a () bool tensor) picks them or the cache with
-  ``torch.where``, the counterpart of JAX's ``lax.cond`` with no host read;
+  (laserMapping.cpp:667-672): ``control_flow.gate(converge, research,
+  cache)``, the counterpart of JAX's ``lax.cond`` with no host read: in the
+  single pipeline's captured step a CUDA-graph IF node that runs the search
+  and the fit only where ``converge`` holds; in the masked form they run on
+  every call and ``torch.where`` keeps the cache where it does not;
 * plane fit + robust gate s = 1 - 0.9 |pd2| / sqrt(|p|) > 0.9
   (laserMapping.cpp:678-691);
 * no compaction: the effective-point set is a row mask, since H^T H and
@@ -24,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import control_flow as cf
 from .. import state as st
 from ..map import hash_map as hm
 from ..math import so3
@@ -77,20 +80,23 @@ def compute_measurement(
     """One h_share_model evaluation.  Returns (h_x, h, rows, cache', valid,
     p_world) with h_x (N, 12), h = -pd2 (N,), ``valid`` a () bool tensor.
 
-    The re-search runs on every call; where ``converge`` is False the cache
-    is kept, bit for bit."""
+    The re-search (kNN and plane fit) is ``control_flow.gate(converge, ...,
+    cache)``: where ``converge`` is False the cache is kept, bit for bit
+    (in a gated capture the search does not run, and the cache's tensors
+    are written in place where it does)."""
     dtype = pts_body.dtype
     p_world = body_to_world(x, pts_body)
 
-    nbrs, sq, found = knn_fn(p_world, mask)
-    all_found = torch.all(found, dim=-1)
-    close = sq[:, NUM_MATCH - 1] <= MAX_NN_SQ_DIST
-    selected = all_found & close & mask
-    pabcd, plane_ok = fit_plane(nbrs, found, PLANE_THRESHOLD)
-    fresh = NeighborCache(nbrs.to(dtype), found, selected, pabcd.to(dtype),
-                          plane_ok)
-    cache = NeighborCache(*(torch.where(converge, new, old)
-                            for new, old in zip(fresh, cache)))
+    def research(_cache):
+        nbrs, sq, found = knn_fn(p_world, mask)
+        all_found = torch.all(found, dim=-1)
+        close = sq[:, NUM_MATCH - 1] <= MAX_NN_SQ_DIST
+        selected = all_found & close & mask
+        pabcd, plane_ok = fit_plane(nbrs, found, PLANE_THRESHOLD)
+        return NeighborCache(nbrs.to(dtype), found, selected,
+                             pabcd.to(dtype), plane_ok)
+
+    cache = cf.gate(converge, research, cache)
 
     pabcd, plane_ok = cache.pabcd, cache.plane_ok
     pd2 = torch.sum(pabcd[:, :3] * p_world, dim=-1) + pabcd[:, 3]

@@ -19,8 +19,10 @@ every rank runs ``sharded_lio_step`` in its own process, with the
 collectives of its ``ShardGroup``, and a ``Pipeline`` on NCCL ranks captures
 it in one CUDA graph per pad bucket on every rank (``step_graph.py``; gloo
 ranks run it eagerly).  The step reads nothing on the host: every rank runs
-every arm of the wide fallback and every pass of the filter loop, and picks
-on the device from replicated values (the merged kNN results, the summed
+every arm of the wide fallback and every pass of the filter loop (its
+``control_flow.gate``s are masked: a sharded step is never captured with
+IF nodes, which would let ranks skip collectives), and picks on the device
+from replicated values (the merged kNN results, the summed
 reductions: ``filter/ekf.py``), so all ranks enter the same collectives in
 the same order, and each collective has a fixed shape: two all-gathers per
 merge, one all-reduce per filter pass and one for the map size.  The

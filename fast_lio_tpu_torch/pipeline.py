@@ -10,22 +10,26 @@ laserMapping.cpp:865-1019):
         all at fixed shapes
 
 The step reads nothing on the host: every data-dependent choice of the JAX
-package's jitted step (``lax.cond``, ``lax.while_loop``, ``mode="drop"``
-scatters) runs every arm on the device and picks with ``torch.where``, and
-the scan's counts and flags reach it as scalars of one feed buffer.  So on
-CUDA ``Pipeline`` captures the step in one CUDA graph per pad bucket
-(``step_graph.StepGraphs``, the counterpart of ``jax.jit``'s one compile per
-input shape) and replays it for every scan; ``Pipeline(graphs=False)`` runs
-the same step eagerly (the counterpart of ``jax.disable_jit()``), and the
-CPU always does.  The step from the feed buffer is ``packed_step``, which
+package's jitted step (``lax.cond``, ``lax.while_loop``) is a
+``control_flow.gate`` on a device flag, ``mode="drop"`` scatters write to a
+dump row, and the scan's counts and flags reach it as scalars of one feed
+buffer.  So on CUDA ``Pipeline`` captures the step in one CUDA graph per pad
+bucket (``step_graph.StepGraphs``, the counterpart of ``jax.jit``'s one
+compile per input shape) and replays it for every scan, each gate a
+CUDA-graph IF node that runs its arm only where JAX's would run;
+``Pipeline(graphs=False)`` runs the same step eagerly (the counterpart of
+``jax.disable_jit()``), and the CPU always does, with every arm run and
+picked by ``torch.where`` (the masked form, which JAX's own ``vmap`` of a
+``lax.cond`` is too).  The step from the feed buffer is ``packed_step``, which
 ``batch.BatchPipeline`` runs under ``torch.func.vmap`` for B streams.  Two host reads remain, as in the JAX package: once during
 startup, whether the first scan seeded the map, and with
 ``Config.stage_timing`` the wait for each scan's outputs.
 
 With the map sharded across ranks (``Pipeline(cfg, group=...)``,
 ``parallel/sharding.py``) the step is the same sync-free program with the
-ranks' collectives in it; every rank runs every pass and every arm, so the
-ranks enter the same collectives in the same order.  On NCCL ranks it is
+ranks' collectives in it; every rank runs every pass and every arm (the
+masked form, never gated), so the ranks enter the same collectives in the
+same order.  On NCCL ranks it is
 captured the same way, one graph per pad bucket on every rank, with the
 collectives inside (the counterpart of ``jax.jit(shard_map(...))``); gloo
 ranks run it eagerly, since gloo's collectives copy through the host and no
@@ -42,6 +46,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import control_flow as cf
 from . import imu as imu_mod
 from . import state as st
 from .config import Config, LidarType
@@ -103,8 +108,8 @@ def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
     search (fewer than 5 neighbors, or the 5th beyond the guaranteed
     coverage radius cell_size/2) take the rows of the centered 3x3x3 search,
     or every row does when more than ``knn_wide_max_queries`` are
-    unsaturated (``wide_fallback``: both searches run, the device picks, no
-    host read).
+    unsaturated (``wide_fallback``: the wide search gated on an
+    unsaturated query, no host read).
 
     With ``Config.rescore_research`` the function instead returns the plain
     search with its candidate block, ``(nbrs, sq, found, cand_pts,
@@ -132,8 +137,8 @@ def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
 def wide_fallback(base, queries: torch.Tensor, mask: torch.Tensor,
                   rcov2: float, K_w: int):
     """The adaptive wide-region fallback with no host read: JAX's
-    ``make_knn_fn`` fallback (``fast_lio_tpu/pipeline.py:92-125``) with each
-    ``lax.cond`` turned into a ``torch.where`` on the device.
+    ``make_knn_fn`` fallback (``fast_lio_tpu/pipeline.py:92-125``), its
+    ``lax.cond(n_unsat > 0, ...)`` a ``control_flow.gate``.
 
     ``base(q, wide=False) -> (nbrs, sq, found)`` is the search (the sharded
     step passes its merged search).  The live queries (``mask``) that the
@@ -141,23 +146,30 @@ def wide_fallback(base, queries: torch.Tensor, mask: torch.Tensor,
     beyond the coverage radius, ``sq > rcov2``) take the centred 3x3x3
     search's rows; when more than ``K_w`` are, every row takes them (with
     ``K_w`` 0 or at least N, which JAX never compacts, as soon as one query
-    is unsaturated).  JAX re-searches only
-    the unsaturated queries, compacted into K_w slots, when there are at
-    most K_w of them; a query's search does not depend on the other queries
-    of the batch, so those rows are the full wide search's rows, and the
-    one full wide search that runs on every call serves both of JAX's wide
-    arms.  A device-side gate that skips it when no query needs it is in
-    ROADMAP.md."""
+    is unsaturated).  The wide search and the row pick are the gate's body,
+    on the narrow search's results as its carry: in the single pipeline's
+    captured step an IF node runs them only when a query is unsaturated,
+    as JAX's ``lax.cond`` does; in the masked form they run on every call,
+    and with no unsaturated query they pick the narrow rows anyway.  JAX
+    re-searches only the unsaturated queries, compacted into K_w slots,
+    when there are at most K_w of them; a query's search does not depend on
+    the other queries of the batch, so those rows are the full wide
+    search's rows, and one full wide search serves both of JAX's wide
+    arms."""
     N = queries.shape[0]
     narrow = base(queries)
     nbrs, sq, found = narrow
     unsat = (~found[:, -1] | (sq[:, -1] > rcov2)) & mask
     n_unsat = torch.sum(unsat)
-    every = n_unsat > (K_w if K_w and K_w < N else 0)
-    pick = unsat | every
-    wide = base(queries, wide=True)
-    return tuple(torch.where(pick.view((N,) + (1,) * (a.dim() - 1)), a, b)
-                 for a, b in zip(wide, narrow))
+
+    def widen(rows):
+        every = n_unsat > (K_w if K_w and K_w < N else 0)
+        pick = unsat | every
+        wide = base(queries, wide=True)
+        return tuple(torch.where(pick.view((N,) + (1,) * (a.dim() - 1)), a, b)
+                     for a, b in zip(wide, rows))
+
+    return cf.gate(n_unsat > 0, widen, narrow)
 
 
 @dataclasses.dataclass
@@ -344,9 +356,10 @@ def lio_step(
     -> map insert.  Returns (x, P, map, imu_carry, (lm_lo, lm_hi, lm_init),
     clouds, diag).  The map is updated in place.
 
-    ``ekf_inited`` and ``do_update`` are () bool tensors.  The update runs
-    and its result is kept where ``do_update`` is True (JAX's ``lax.cond``
-    between ``run_update`` and ``skip_update``).  Nothing here reads the
+    ``ekf_inited`` and ``do_update`` are () bool tensors.  The update is
+    ``control_flow.gate(do_update, ...)`` (JAX's ``lax.cond`` between
+    ``run_update`` and ``skip_update``), as are the prune, the passes, the
+    re-searches and the wide search inside it.  Nothing here reads the
     device on the host."""
     deskew = cfg.lidar_type != LidarType.MARSIM
 
@@ -356,8 +369,8 @@ def lio_step(
         last_end_rel, pcl_end_rel, imu_carry, pts, pt_time, deskew=deskew,
     )
 
-    # 2. local-map slide; the prune runs under a device-side `moved` gate
-    # (no host read), the same map as pruning only when the cube moved
+    # 2. local-map slide; the prune gated on `moved` (JAX's lax.cond), no
+    # host read
     pos_lid = x.pos + so3.quat_rotate(x.rot, x.offset_T_L_I)
     new_lo, new_hi, lm_init2 = fov_segment(cfg, pos_lid, lm_lo, lm_hi, lm_init)
     moved = torch.any(new_lo != lm_lo) | ~lm_init
@@ -386,12 +399,18 @@ def lio_step(
             x_i, pts_ds, ds_mask, knn_fn, cache, converge, cfg.extrinsic_est_en)
         return ekf.MeasOut(h_x, h, sel, valid, cache)
 
-    res = ekf.update_iterated(x, P, h_fn, cache0, cfg.laser_point_cov,
-                              cfg.max_iteration, cfg.epsi)
-    # skip_update where the flag is False
-    x, P, cache = ekf.select(do_update, (res.x, res.P, res.carry),
-                             (x, P, cache0))
-    iters = torch.where(do_update, res.iterations, 0)
+    def run_update(c):
+        x_u, P_u, cache_u, _ = c
+        res = ekf.update_iterated(x_u, P_u, h_fn, cache_u,
+                                  cfg.laser_point_cov, cfg.max_iteration,
+                                  cfg.epsi)
+        return res.x, res.P, res.carry, res.iterations
+
+    # JAX's lax.cond(do_update, run_update, skip_update): the skip arm keeps
+    # x, P and the empty cache, with no iteration
+    iters0 = torch.zeros((), dtype=torch.int32, device=pts_ds.device)
+    x, P, cache, iters = cf.gate(do_update, run_update,
+                                 cf.own((x, P, cache0, iters0)))
     n_eff = torch.sum(cache.selected)
 
     # 5. map insert with hysteresis
@@ -517,8 +536,11 @@ class Pipeline:
 
     ``graphs``: on CUDA (the default None) the step is captured in a CUDA
     graph at the first scan of each pad bucket and replayed for every later
-    one (``step_graph.StepGraphs``); ``graphs=False`` runs the same step
-    eagerly, the counterpart of ``jax.disable_jit()``.  The CPU never
+    one (``step_graph.StepGraphs``), its gates recorded as IF nodes, so a
+    replay runs the update passes, re-searches, wide search, prune and
+    update that JAX's step runs and skips the rest; ``graphs=False`` runs
+    the same step eagerly with every arm masked, the counterpart of
+    ``jax.disable_jit()``.  The CPU never
     captures (``graphs=True`` there raises), nor do gloo ranks (``graphs=
     True`` with a gloo group raises); NCCL ranks do, each its own graph
     with the collectives inside (``step_graph.captures_by_default``).  A
@@ -606,7 +628,9 @@ class Pipeline:
         self._warned_truncation = False
         # the scan's feed buffer: pinned host memory on CUDA
         self.feed = PinnedFeed() if device.type == "cuda" else None
-        self.graphs = StepGraphs(device, group) if graphs else None
+        # alone, the captured step is gated (IF nodes); sharded, masked
+        self.graphs = (StepGraphs(device, group, gates=group is None)
+                       if graphs else None)
 
         # host state
         self.imu_stats = imu_mod.empty_stats()

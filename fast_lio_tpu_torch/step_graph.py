@@ -13,11 +13,19 @@ device constants before anything is recorded.  Then it is captured into a
 scan of the bucket is one copy from a pinned host buffer into it and one
 replay.  A capture that fails raises; nothing falls back to the eager step.
 
+The single pipeline's step is captured with gates (``gates=True``,
+``control_flow.gated_capture``): JAX's ``lax.cond`` arms and the
+``lax.while_loop``'s passes are recorded as CUDA-graph conditional (IF)
+nodes, so a replay skips what JAX skips.  The batch (``torch.func.vmap``)
+and the sharded step capture without gates: their arms and passes are
+masked with ``torch.where``, as JAX's are under ``vmap``.
+
 The graph's outputs are static tensors that the next replay overwrites, so
 ``Pipeline`` copies what it keeps (on the device, with no sync).  The kernel
 launch counters count at Python call time, so each graph records how many
-launches of each kernel it holds and every replay adds them
-(``kernels.counts``), per rank on a sharded map.
+launches of each kernel it holds outside any IF node and every replay adds
+them (``kernels.counts``), per rank on a sharded map; the launches inside
+IF nodes are counted on the device as they run (``counts.add_on_device``).
 
 A sharded step (``parallel/sharding.py``, the counterpart of
 ``jax.jit(shard_map(...))``) is captured the same way on every NCCL rank,
@@ -32,11 +40,13 @@ captured (``captures_by_default``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from . import control_flow
 from .kernels import counts
 
 Shape = Union[int, Tuple[int, ...]]  # a feed buffer's length, or (B, L)
@@ -108,7 +118,7 @@ class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     static_in: torch.Tensor
     static_out: dict
-    launches: counts.Counts  # kernel launches one replay makes
+    launches: counts.Counts  # kernel launches a replay makes outside IFs
 
 
 class StepGraphs:
@@ -118,11 +128,19 @@ class StepGraphs:
     is held by them would be freed only by the garbage collector.
 
     ``group`` (a ``parallel.ShardGroup`` on NCCL): the step's collectives
-    run over it; every rank of it must run the same scans."""
+    run over it; every rank of it must run the same scans.
 
-    def __init__(self, device: torch.device, group=None):
+    ``gates``: capture inside ``control_flow.gated_capture``, so that the
+    step's ``control_flow.gate``s record IF nodes (the single pipeline's
+    step; not with a group)."""
+
+    def __init__(self, device: torch.device, group=None, gates=False):
+        if gates and group is not None:
+            raise ValueError("a sharded step is captured without gates: "
+                             "every rank must enter the same collectives")
         self.device = torch.device(device)
         self.group = group
+        self.gates = gates
         self._graphs: Dict[Shape, _Captured] = {}
         self.replays: Dict[Shape, int] = collections.Counter()
 
@@ -171,6 +189,8 @@ class StepGraphs:
         main.wait_stream(side)
         for v in out.values():  # used on the main stream from here on
             v.record_stream(main)
+        if self.gates:
+            counts.device_counter(self.device)  # made outside the graph
         before = counts.snapshot()
         graph = torch.cuda.CUDAGraph()
         # a graph that the collector frees while this one records (another
@@ -179,8 +199,10 @@ class StepGraphs:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        gated = (control_flow.gated_capture(self.device) if self.gates
+                 else contextlib.nullcontext())
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph), gated:
                 static_out = step(static_in)
         except RuntimeError as e:
             raise RuntimeError(
@@ -195,8 +217,10 @@ class StepGraphs:
         return out
 
     def stats(self) -> dict:
-        """Per captured feed shape (a length, or (B, L)): replays so far and
-        the kernel launches one replay makes."""
-        return {n: {"replays": self.replays[n],
+        """Per captured feed shape (a length, or (B, L)): replays so far,
+        whether IF nodes gate the step, and the kernel launches one replay
+        makes outside them (the launches inside them count as run, on the
+        device: ``counts.settle``)."""
+        return {n: {"replays": self.replays[n], "gated": self.gates,
                     "launches_per_replay": counts.total(c.launches)}
                 for n, c in self._graphs.items()}

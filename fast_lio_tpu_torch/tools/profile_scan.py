@@ -6,9 +6,9 @@ Run from the repository root on a machine with a CUDA device:
     python3 -m fast_lio_tpu_torch.tools.profile_scan [avia|ouster64 ...]
 
 For each preset it feeds the same simulated run as ``chip_smoke.py`` through
-``Pipeline`` on the card twice, in turns: the eager step
-(``graphs=False``) and the captured one (the default: one CUDA graph per pad
-bucket, replayed).  After ``--warm`` scans (the capture among them) it
+``Pipeline`` on the card twice, in turns: the captured step (the default:
+one CUDA graph per pad bucket, replayed, its gates IF nodes) and the eager
+one (``graphs=False``, every gate masked).  After ``--warm`` scans (the capture among them) it
 measures, one after the other, windows of ``--scans`` scans each:
 
 * a plain window: host clock around the scans, nothing added, the device
@@ -20,7 +20,12 @@ measures, one after the other, windows of ``--scans`` scans each:
   the op that made them, and ``cudaEventSynchronize`` calls the waits of
   the pinned feed ring (``step_graph.PinnedFeed``: the host ran that many
   scans ahead of the device).  The profiler slows the host, so this
-  window's wall time is longer than the plain one's;
+  window's wall time is longer than the plain one's.  Beside it, what the
+  step executed a scan: update passes, re-searches (narrow kNN searches)
+  and wide searches, from the iterations and the kNN launches counted as
+  run (``kernels.counts``, settled after the window: in the captured step
+  the passes, re-searches and the wide search are CUDA-graph IF nodes, so
+  they run only where JAX's step runs them; the eager step runs every one);
 * eager only, a stage-timing window, where each stage function of
   ``lio_step`` is wrapped with ``torch.cuda.synchronize()`` on both sides.
   The syncs stop the host from running ahead of the device, so the stages
@@ -39,7 +44,6 @@ import dataclasses
 import functools
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -50,6 +54,7 @@ import torch
 
 from .. import config, pipeline, sim
 from ..filter import ekf
+from ..kernels import counts
 from ..kernels import knn as knn_kernel
 from ..kernels import knn_grouped
 from ..map import hash_map as hm
@@ -203,6 +208,30 @@ def profile_window(step, n_scans: int) -> dict:
     }
 
 
+def executed_per_scan(cfg, gated: bool, iterations, ran) -> dict:
+    """What the step executed a scan over a window: the update's passes
+    (the iterations where IF nodes gate them, ``gated``, else every pass
+    of an updating scan), the re-searches and wide searches (the kNN search
+    launches counted as run at R = 8 and R = 27; ``ran`` is
+    ``counts.since`` over the window, settled), and their sum, which the
+    profiler's ``knn_search_launches_per_scan`` must equal."""
+    n = len(iterations)
+    if cfg.knn_backend == "grouped":
+        search = knn_grouped.launches
+    elif cfg.compute_dtype == "float64":
+        search = knn_kernel.launches_f64
+    else:
+        search = knn_kernel.launches
+    by_r = ran[[id(c) for c in counts.counters()].index(id(search))]
+    passes = (sum(iterations) if gated else
+              sum(cfg.max_iteration + 1 for i in iterations if i > 0))
+    return {"iterations_per_scan": sum(iterations) / n,
+            "passes_run_per_scan": passes / n,
+            "researches_per_scan": by_r.get(8, 0) / n,
+            "wide_searches_per_scan": by_r.get(27, 0) / n,
+            "knn_search_launches_counted_per_scan": sum(by_r.values()) / n}
+
+
 def stage_window(step, n_scans: int) -> dict:
     """Synced wall time per stage over ``n_scans`` calls of ``step``."""
     acc = defaultdict(float)
@@ -270,10 +299,13 @@ def run(name: str, n_scans: int, warm: int, graphs: bool) -> dict:
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0) / n_scans
     n_done = len(pipe.diags)
+    counts.settle()
+    before = counts.snapshot()
     profile = profile_window(step, n_scans)
-    # the device's work per scan grows with the update's iterations
-    profile["iterations_per_scan"] = statistics.mean(
-        int(d.iterations) for d in pipe.diags[n_done:])
+    counts.settle()
+    profile.update(executed_per_scan(
+        cfg, graphs, [int(d.iterations) for d in pipe.diags[n_done:]],
+        counts.since(before)))
     out = {"tool": "profile_scan", "preset": name,
            "mode": "captured" if graphs else "eager", "scans": n_scans,
            "warm_scans": warm, "plain_wall_ms_per_scan": plain_ms,
@@ -304,7 +336,9 @@ def main(argv=None) -> int:
         print("profile_scan: no CUDA device; nothing measured", file=sys.stderr)
         return 1
     for name in args.presets or RUNS:
-        for graphs in (False, True):
+        # captured first: a process that had profiled several windows
+        # before named some kernels inside IF nodes wrongly (PERF.md)
+        for graphs in (True, False):
             print(json.dumps(run(name, args.scans, args.warm, graphs)),
                   flush=True)
     print(subprocess.run(

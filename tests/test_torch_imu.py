@@ -6,10 +6,13 @@ and ``deskew=False`` (MARSIM), each on a random rotating, accelerating
 platform, in f64 and f32.
 
 Tolerances: the port chains the per-interval quaternions and the (F, G)
-covariance products in a sequential loop where JAX uses an associative scan
-(another association order), so results agree to rounding: f64 state and
-points to 1e-10, P to 1e-10 relative; f32 state and points to 2e-5 (m, rad
-over ~20 chained steps), P to 1e-4 relative.
+covariance products with JAX's associative scan, in its association order
+(``control_flow.associative_scan``), so only the products' own rounding
+differs (XLA's and torch's matmuls and fused multiply-adds): f64 state and
+points to 1e-10, P to 1e-10 relative; f32 state to 1e-6 and points to 1e-5
+(m, rad; measured 3.7e-8 and 1.9e-6, the carry 2.4e-7), P to 2e-5 relative
+(measured 4.2e-6).  The sequential loops the port ran before needed 2e-5
+and 1e-4.
 """
 import numpy as np
 import pytest
@@ -27,7 +30,7 @@ from fast_lio_tpu_torch.filter import process as tproc
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOLS = {"f64": (np.float64, torch.float64, 1e-10, 1e-10),
-        "f32": (np.float32, torch.float32, 2e-5, 1e-4)}
+        "f32": (np.float32, torch.float32, 1e-6, 2e-5)}
 
 
 def _block(case, np_dt, rng):

@@ -2,9 +2,11 @@
 
 The port's step is the counterpart of the JAX package's jitted step
 (``fast_lio_tpu/pipeline.py:744-746``: "NO host<->device syncs below"): every
-``lax.cond``, ``lax.while_loop`` and ``mode="drop"`` scatter became arms that
-all run and a ``torch.where`` that picks, so on CUDA the step is captured in
-one CUDA graph per pad bucket and replayed.
+``lax.cond`` and ``lax.while_loop`` pass became a ``control_flow.gate`` on a
+device flag (arms that all run and a ``torch.where`` that picks, or in the
+single pipeline's captured step a CUDA-graph IF node), and every
+``mode="drop"`` scatter a write to a dump row, so on CUDA the step is
+captured in one CUDA graph per pad bucket and replayed.
 
 On the CPU (tier 1):
 
@@ -52,6 +54,9 @@ from fast_lio_tpu_torch import sim as tsim
 from fast_lio_tpu_torch import state as tst
 from fast_lio_tpu_torch.batch import BatchPipeline
 from fast_lio_tpu_torch.filter import ekf as tekf
+from fast_lio_tpu_torch.kernels import counts as tcounts
+from fast_lio_tpu_torch.kernels import knn as tknn
+from fast_lio_tpu_torch.kernels import knn_grouped as tkg
 from fast_lio_tpu_torch.map import hash_map as thm
 from fast_lio_tpu_torch.parallel import ShardGroup, launch
 from fast_lio_tpu_torch.step_graph import captures_by_default
@@ -632,6 +637,8 @@ def test_cuda_captured_step_equals_eager(run):
                  "ouster64_two_buckets": _ouster_two_buckets}[run]()
     eager = tpipe.Pipeline(cfg, graphs=False)
     _feed(eager, data)
+    tcounts.settle()
+    before = sum(tknn.launches.values()) + sum(tkg.launches.values())
     captured = tpipe.Pipeline(cfg)
     _feed(captured, data)
     a, b = _positions(eager), _positions(captured)
@@ -640,10 +647,16 @@ def test_cuda_captured_step_equals_eager(run):
     stats = captured.graphs.stats()
     assert len(stats) == len(cfg.pad_buckets or (1,))
     assert all(s["replays"] > 0 for s in stats.values())
-    # rescore_research searches in plain torch ops (its candidate block),
-    # as the JAX package does in XLA: no kernel launch to count there
-    assert all((s["launches_per_replay"] > 0) != cfg.rescore_research
+    # the single step's graph is gated: every kNN launch sits in an IF node
+    # and counts as run, on the device; outside them a replay launches the
+    # set kernels of the two outermost IF nodes (the prune's and the
+    # update's); rescore_research searches in plain torch ops (its candidate
+    # block), as the JAX package does in XLA: no kNN launch to count there
+    assert all(s["gated"] and s["launches_per_replay"] == 2
                for s in stats.values())
+    tcounts.settle()
+    knn_ran = sum(tknn.launches.values()) + sum(tkg.launches.values())
+    assert (knn_ran > before) != cfg.rescore_research
     assert eager.graphs is None
 
 
