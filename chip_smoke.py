@@ -80,18 +80,24 @@ Phases, in order; any failed check exits non-zero:
    single one.
 9. sharded_avia_1rank — the map sharded (``Pipeline(cfg, group=...)``,
    ``parallel/sharding.py``) on one rank over NCCL, a worker process
-   (``parallel.launch`` running ``tools/bench_scaling.drive_modes``): the
-   first ``SHARDED_SCANS`` scans of phase 4's run at the AVIA preset,
-   eager (``graphs=False``), then the same scans captured (the default on
-   NCCL ranks: one CUDA graph per pad bucket with the collectives inside).
+   (``parallel.launch`` running ``tools/multicard.drive_modes_probed``).
+   First the probe (``multicard.if_node_rank``): an all-reduce and an
+   all-gather recorded inside one CUDA-graph IF node, replayed with the
+   predicate True and False, right on every replay.  Then the first
+   ``SHARDED_SCANS`` scans of phase 4's run at the AVIA preset,
+   eager (``graphs=False``, every pass and arm masked), then the same
+   scans captured (the default on NCCL ranks: one CUDA graph per pad
+   bucket with the collectives inside, its gates IF nodes).
    In each run the first ``GRAPH_WARM_SCANS`` scans run one by one, the
    next ones in one window under ``torch.cuda.set_sync_debug_mode("error")``
    drained at its end (scans/s), the last ``SHARDED_PROFILE_SCANS`` under
-   the profiler (device busy, activities, syncs a scan); the health check
-   comes after.  Checks: the captured run within 5 mm of the eager one and
-   of phase 4's on the same scans, phase 4's health and ATE checks on both,
-   the same kNN launches in both (the R = 8 kernel on the rank's table,
-   counted through the replays), one graph per pad bucket and replays equal
+   the profiler (device busy, activities, syncs, NCCL kernels, passes and
+   re-searches a scan); the health check comes after.  Checks: the
+   captured run within 5 mm of the eager one and of phase 4's on the same
+   scans, phase 4's health and ATE checks on both, the captured run's kNN
+   launches (counted as run) at most the eager run's and equal to the
+   profiler's count, its NCCL kernels at most the eager run's, IF nodes in
+   the captured run only, one graph per pad bucket and replays equal
    to the steps less the graphs, no host sync in the window or the profiled
    scans, and ``measure_stage_times`` on the captured pipeline (against the
    gathered global map) positive in each stage.
@@ -141,31 +147,50 @@ Phases, in order; any failed check exits non-zero:
 14. fleet_batch4 — ``tools/scenarios.py``'s ``avia_batch4`` (bench.py's
    four-stream fleet at the AVIA preset's full width), cut to
    ``BATCH_ROUNDS`` rounds, through ``BatchPipeline`` (one vmapped step a
-   round, captured in one graph for the fleet) and each stream through its
-   own captured ``Pipeline``.  After ``BATCH_WARM_ROUNDS`` rounds (IMU
-   init, the maps seeded, the capture), a window of
+   round, captured in one graph for the fleet, gated: the filter's passes
+   are IF nodes that run while any lane is active, JAX's batched
+   ``while_loop``), through the same with its gates masked
+   (``StepGraphs(gates=False)``: every pass a round), and each stream
+   through its own captured ``Pipeline``.  After ``BATCH_WARM_ROUNDS``
+   rounds (IMU init, the maps seeded, the capture), a window of
    ``BATCH_WINDOW_ROUNDS`` rounds runs under
-   ``torch.cuda.set_sync_debug_mode("error")``, drained at its end: the
+   ``torch.cuda.set_sync_debug_mode("error")``, drained at its end: each
    batch's aggregate scans/s; each single pipeline times the same scans in
    a window of its own, drained at its end: the time-sliced aggregate
    scans/s.  The rest of the rounds run under ``torch.profiler``
-   (``tools/profile_scan.profile_window``): device busy ms, activities and
-   kNN launches per round, and the idle share; stream 0's single pipeline
-   the same, per scan.  Checks: no sync in the window, no host sync in the
-   profiled rounds, each lane within 5 mm per scan of its single run, ATE
-   per lane within the JAX package's (its ``BatchPipeline`` over the same
-   rounds) + 1 cm, one graph, the batched kNN kernel launched and no
-   single launch, no NaN, no drop, no truncation.
+   (``tools/profile_scan.profile_window``): device busy ms, activities,
+   passes and kNN launches per round (counted as run, and the profiler's),
+   and the idle share; stream 0's single pipeline the same, per scan.
+   Then both graphs again under ``torch.use_deterministic_algorithms``.
+   The passes are read from the device: every pass runs one batched R = 8
+   search, counted inside its IF node only where the node runs; the
+   counters are settled after every round outside the window and the
+   profile (``fleet_pair``).  Checks: there the gated graph bit for bit
+   the masked one, iterations too; the passes of every round (of the
+   window and the profile as one sum each) JAX's: the most any lane ran,
+   every pass in a round with a lane that does not update, and some
+   round exits early; no sync in the window, no host sync in the profiled rounds, each
+   lane within 5 mm per scan of its single run, ATE per lane within the
+   JAX package's (its ``BatchPipeline`` over the same rounds) + 1 cm, one
+   gated graph, the batched kNN kernel launched (in IF nodes) and no single
+   launch, no NaN, no drop, no truncation.
 
 15. fleet_ouster64 — phase 5's run as a two-stream ``BatchPipeline`` (stream
    1 the same run cut to three quarters, so its lane ends early and runs
    no-op packets), in float32 and float64: the batched kNN kernel at R = 8
-   and R = 27 (the wide fallback) in both types.  Checks: each lane within
-   5 mm per scan of phase 5's single run (float32) or phase 11's
-   (float64), the batched launches of both R and no single launch.
+   and R = 27 (the wide fallback) in both types, each through the gated
+   and the masked graph under ``torch.use_deterministic_algorithms``, the
+   last rounds (the no-op lane riding along) profiled.  Checks: the two
+   graphs bit for bit, iterations too; each lane within 5 mm per scan of
+   phase 5's single run (float32) or phase 11's (float64); the passes
+   read from the device JAX's, every filter pass run in each round with
+   the no-op lane (its loop never exits, as in JAX), and the gated graph's activities there at least the masked
+   one's; no host sync; the batched launches of both R and no single
+   launch.
 
 16. sharded_ouster64_cards — ``tools/multicard``'s ouster64 phase on as
-   many NCCL ranks as there are cards, up to 4 (one on one card).
+   many NCCL ranks as there are cards, up to 4 (one on one card): the IF
+   node probe, then the gated graph against the eager step on every rank.
 
 17. gated — inside phase 13, for avia and ouster64: the single pipeline's
    captured step records JAX's ``lax.cond`` arms and ``lax.while_loop``
@@ -191,8 +216,11 @@ Phases, in order; any failed check exits non-zero:
    some kernels inside a gated graph's IF nodes wrongly (a fresh process
    names them right), and phase 17 counts kNN kernels by name.
 
-The single pipeline's captured step is gated (IF nodes); the batch's and the
-sharded step's graphs are masked, as JAX's ``vmap`` of ``lax.cond`` is.
+Every captured step is gated (IF nodes): the single pipeline's, the
+batch's (its passes; a predicate that differs from lane to lane stays a
+select, as JAX's ``vmap`` of ``lax.cond`` does) and the sharded step's on
+NCCL ranks (every predicate replicated, so the ranks run or skip each IF
+node's collectives together).
 Phases 3-9, 11, 12, 14 and 15 run the captured step (``Pipeline``'s
 default on CUDA, on one NCCL rank too); phases 9 and 13 hold it against the
 eager one; phase 10 (gloo) runs eagerly.
@@ -917,12 +945,14 @@ def sharded_row(r) -> dict:
                              "ate_aligned_m", "iterations_mean",
                              "n_effective_last", "health")}
     out.update(scans=len(r["stamps"]), graphs=r["graphs"] is not None,
-               launches={f"r{k}": n for k, n in r["launches"].items()})
+               launches={f"r{k}": n for k, n in r["launches"].items()},
+               if_nodes_run=r["if_nodes_run"])
     if r["graphs"] is not None:
         out["per_graph"] = {str(k): v for k, v in r["graphs"].items()}
     if "profile" in r:
         out["profile_per_scan"] = {k: v for k, v in r["profile"].items()
                                    if k != "host_syncs_by_op_per_scan"}
+        out["executed_per_scan"] = r["executed"]
     return out
 
 
@@ -932,11 +962,12 @@ def phase_sharded_1rank(pkg, cfg, sim_cfg, traj_ref, card) -> dict:
     phase 4's (``traj_ref``).  Returns the captured run's report."""
     name = "sharded_avia_1rank"
     t0 = time.perf_counter()
-    res = pkg["launch"](pkg["bench_scaling"].drive_modes, 1,
+    res = pkg["launch"](pkg["multicard"].drive_modes_probed, 1,
                         args=(cfg, sim_cfg, SHARDED_SCANS, GRAPH_WARM_SCANS,
                               SHARDED_PROFILE_SCANS), backend="nccl",
                         device="cuda:0", timeout_s=600.0)[0]
     wall = time.perf_counter() - t0
+    pkg["multicard"].if_node_row([res["if_node"]], f"{name}_if_node_probe")
     cap, eager = res["captured"], res["eager"]
     trajs = {mode: [(t, p, None) for t, p in zip(r["stamps"], r["positions"])]
              for mode, r in (("captured", cap), ("eager", eager))}
@@ -968,9 +999,19 @@ def phase_sharded_1rank(pkg, cfg, sim_cfg, traj_ref, card) -> dict:
         check(prof["host_syncs_per_scan"] == 0,
               f"{name} {mode}: {prof['host_syncs_per_scan']} host syncs a "
               "scan in the profiled scans")
-    check(cap["launches"] == eager["launches"] and cap["launches"][8] > 0,
+    # the gated graph skips passes and re-searches the eager step runs
+    check(all(cap["launches"][r] <= eager["launches"][r] for r in (8, 27))
+          and cap["launches"][8] > 0 and cap["if_nodes_run"] > 0
+          and eager["if_nodes_run"] == 0,
           f"{name}: captured launches {cap['launches']}, eager "
-          f"{eager['launches']}")
+          f"{eager['launches']}, IF nodes {cap['if_nodes_run']}")
+    ex = cap["executed"]
+    check(ex["knn_search_launches_counted_per_scan"]
+          == cap["profile"]["knn_search_launches_per_scan"],
+          f"{name}: kNN launches counted {ex}, profiled {cap['profile']}")
+    coll = [r["profile"]["collective_kernels_per_scan"] for r in (cap, eager)]
+    check(all(coll[0][k] <= coll[1][k] for k in coll[1]),
+          f"{name}: collectives a scan {coll[0]} captured, {coll[1]} eager")
     check(eager["graphs"] is None and 1 <= len(graphs) <= len(
         cap["pad_buckets"]) and replays == steps - len(graphs),
           f"{name}: not one graph per pad bucket replayed for the other "
@@ -1303,10 +1344,167 @@ def time_sliced(pkg, cfg, data) -> dict:
                 seconds=time.perf_counter() - t0, pipe=pipe, push=push)
 
 
+def fleet_iterations(bp) -> np.ndarray:
+    """(rounds, B) iterations of each lane a round; 0 where the lane did
+    not update (the first round, and an ended stream's no-op lane, which
+    records nothing)."""
+    its = np.zeros((bp.rounds, bp.B), np.int64)
+    for i in range(bp.B):
+        d = [x.iterations for x in bp.get_diags(i)]
+        its[:len(d), i] = d
+    return its
+
+
+def fleet_passes_jax(cfg, its, gated: bool) -> np.ndarray:
+    """The filter passes JAX's vmapped step runs each round, from the
+    lanes' (rounds, B) iterations ``its``: its batched ``while_loop`` runs
+    while any lane is active, so the most any lane ran, and every pass in a
+    round with a lane that does not update (the first round, and an ended
+    stream's no-op lane), whose loop never exits.  The masked graph runs
+    every pass."""
+    n = cfg.max_iteration + 1
+    if not gated:
+        return np.full(len(its), n)
+    return np.where(its.min(axis=1) > 0, its.max(axis=1), n)
+
+
+def fleet_pair(pkg, cfg, datas, deterministic: bool, lead_rounds=None,
+               lead_steps=None, window_rounds: int = 0,
+               profile_steps: int = 0, to_end: bool = True) -> dict:
+    """The fleet of ``datas`` through its gated graph (``BatchPipeline``'s)
+    and through its masked graph (``StepGraphs(gates=False)``: every pass
+    a round), one after the other, each under
+    ``torch.use_deterministic_algorithms`` where ``deterministic`` (the
+    downsample's ``index_add_`` otherwise sums atomically, in another
+    order each run).  Each run feeds the streams' scans (``round_feeder``)
+    one step at a time until ``lead_rounds`` rounds or ``lead_steps``
+    steps (every scan where neither is given); then ``window_rounds``
+    rounds under ``set_sync_debug_mode("error")``, drained and timed at
+    the end; then ``profile_steps`` steps under the profiler; then, with
+    ``to_end``, the scans left and the rounds still pending.
+
+    The passes a round are read from the device: every pass runs one
+    batched R = 8 search (under vmap the re-search is a select), inside
+    the pass's IF node in the gated graph, where the search's launch is
+    counted on the device only when the node runs.  The counters are
+    settled after every lead step (a host read), and around the window and
+    the profile: ``segments`` holds (first round, end round, passes run)
+    for each, held against JAX's passes (``fleet_passes_jax``).  Returns
+    {"gated": run, "masked": run}, each with its pipeline, trajectories,
+    iterations, segments, window seconds and rounds, launches and
+    profile."""
+    kind = "knn_batched" + ("_f64" if cfg.compute_dtype == "float64" else "")
+    runs = {}
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("gated", "masked"):
+            bp = pkg["BatchPipeline"](cfg, len(datas))  # CUDA, gated
+            if mode == "masked":
+                bp.graphs = pkg["StepGraphs"](bp.device, gates=False)
+            reset_launches(pkg)
+            feed_it = round_feeder(bp, datas)
+            segments = []
+
+            def settled(fn):
+                """Run ``fn`` and append its segment."""
+                r0, n0 = bp.rounds, read_launches(pkg)[kind][8]
+                out = fn()
+                segments.append((r0, bp.rounds,
+                                 read_launches(pkg)[kind][8] - n0))
+                return out
+
+            def leading(steps):
+                if lead_rounds is not None:
+                    return bp.rounds < lead_rounds
+                return lead_steps is None or steps < lead_steps
+
+            steps = 0
+            while leading(steps):
+                if settled(lambda: next(feed_it, None)) is None:
+                    break
+                steps += 1
+            run = dict(wall=None, window_rounds=0, profile=None)
+            if window_rounds:
+                torch.cuda.synchronize()
+
+                def window():
+                    r0 = bp.rounds
+                    torch.cuda.set_sync_debug_mode("error")
+                    t0 = time.perf_counter()
+                    try:
+                        while bp.rounds < r0 + window_rounds:
+                            next(feed_it)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t0
+
+                before = read_launches(pkg)
+                run["wall"] = settled(window)
+                run["window_rounds"] = segments[-1][1] - segments[-1][0]
+                run["window_launches"] = {
+                    k: {r: n - before[k][r] for r, n in v.items()}
+                    for k, v in read_launches(pkg).items()}
+            if profile_steps:
+                before = read_launches(pkg)[kind]
+                prof = settled(lambda: pkg["profile_scan"].profile_window(
+                    lambda: next(feed_it), profile_steps))
+                after = read_launches(pkg)[kind]
+                r0, r1, n = segments[-1]
+                prof["passes_run_per_scan"] = n / (r1 - r0)
+                prof["knn_search_launches_counted_per_scan"] = sum(
+                    after[r] - before[r] for r in after) / (r1 - r0)
+                run["profile"] = {k: v for k, v in prof.items()
+                                  if k != "host_syncs_by_op_per_scan"}
+            if to_end:
+                settled(lambda: [None for _ in feed_it])
+                while settled(bp.spin_once):
+                    pass
+            its = fleet_iterations(bp)
+            run.update(
+                bp=bp, segments=segments, iterations=its,
+                trajs=[bp.get_trajectory(i) for i in range(bp.B)],
+                passes_jax=fleet_passes_jax(cfg, its, mode == "gated"),
+                launches=read_launches(pkg))
+            runs[mode] = run
+    finally:
+        if deterministic:
+            torch.use_deterministic_algorithms(False)
+    return runs
+
+
+def passes_by_round(run) -> list:
+    """The passes run in each round that was settled alone (None where a
+    segment held several rounds)."""
+    out = [None] * run["bp"].rounds
+    for r0, r1, n in run["segments"]:
+        if r1 == r0 + 1:
+            out[r0] = n
+    return out
+
+
+def passes_as_jax(run) -> bool:
+    """Whether every segment's passes, read from the device, are JAX's."""
+    want = run["passes_jax"]
+    return all(n == int(want[r0:r1].sum()) for r0, r1, n in run["segments"])
+
+
+def same_fleet_runs(runs) -> bool:
+    """Whether the gated and masked runs are bit-equal, iterations too."""
+    g, m = runs["gated"], runs["masked"]
+    return (np.array_equal(g["iterations"], m["iterations"])
+            and all(len(a) == len(b) and all(
+                np.array_equal(p[1], q[1]) and np.array_equal(p[2], q[2])
+                for p, q in zip(a, b)) for a, b in zip(g["trajs"],
+                                                       m["trajs"])))
+
+
 def phase_fleet_batch4(pkg, card: str):
-    """avia_batch4 through the batched step against its streams
-    time-sliced through single captured pipelines.  Returns the batch's
-    launches."""
+    """avia_batch4 through the batched step, its gated graph and its masked
+    graph, against its streams time-sliced through single captured (gated)
+    pipelines; then the gated and masked graphs under deterministic
+    algorithms.  Returns the gated batch's launches."""
     cfg, datas = pkg["scenarios"].batch_scenario("avia_batch4")
     S, n_profiled = len(datas), BATCH_ROUNDS - BATCH_WARM_ROUNDS - (
         BATCH_WINDOW_ROUNDS)
@@ -1323,27 +1521,13 @@ def phase_fleet_batch4(pkg, card: str):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    bp = pkg["BatchPipeline"](cfg, S)  # CUDA, captured, by default
-    reset_launches(pkg)
-    feed_it = round_feeder(bp, datas)
-    while bp.rounds < BATCH_WARM_ROUNDS:
-        next(feed_it)
-    torch.cuda.synchronize()
-    before = read_launches(pkg)
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    try:
-        while bp.rounds < BATCH_WARM_ROUNDS + BATCH_WINDOW_ROUNDS:
-            next(feed_it)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    window_rounds = bp.rounds - BATCH_WARM_ROUNDS
-    window_launches = {k: {r: n - before[k][r] for r, n in v.items()}
-                       for k, v in read_launches(pkg).items()}
-    prof = profile_window(lambda: next(feed_it), n_profiled)
-    launches = read_launches(pkg)
+    fleets = fleet_pair(pkg, cfg, datas, False, lead_rounds=BATCH_WARM_ROUNDS,
+                        window_rounds=BATCH_WINDOW_ROUNDS,
+                        profile_steps=n_profiled, to_end=False)
+    det = fleet_pair(pkg, cfg, datas, True)
+    run = fleets["gated"]
+    bp, launches, window_launches = (run["bp"], run["launches"],
+                                     run["window_launches"])
     check(bp.rounds == BATCH_ROUNDS, f"fleet_batch4: {bp.rounds} rounds")
 
     trajs = [bp.get_trajectory(i) for i in range(S)]
@@ -1355,24 +1539,37 @@ def phase_fleet_batch4(pkg, card: str):
     graphs = bp.graphs.stats()
     sliced_s = sum(one["seconds"] for one in singles)
     sliced_scans = sum(one["scans"] for one in singles)
+    sliced_rate = sliced_scans / sliced_s
+    rate = {mode: S * f["window_rounds"] / f["wall"]
+            for mode, f in fleets.items()}
     out = {
         "phase": "fleet_batch4", "card": card, "streams": S,
-        "rounds": bp.rounds, "window_rounds": window_rounds,
-        "batch_scans_per_s": S * window_rounds / wall,
-        "batch_round_ms": 1e3 * wall / window_rounds,
-        "time_sliced_scans_per_s": sliced_scans / sliced_s,
+        "rounds": bp.rounds, "window_rounds": run["window_rounds"],
+        "batch_scans_per_s": rate["gated"],
+        "batch_round_ms": 1e3 * run["wall"] / run["window_rounds"],
+        "masked_batch_scans_per_s": rate["masked"],
+        "time_sliced_scans_per_s": sliced_rate,
         "time_sliced_scans_per_s_by_stream": [
             one["scans"] / one["seconds"] for one in singles],
-        "batch_over_time_sliced": (S * window_rounds / wall)
-        / (sliced_scans / sliced_s),
+        "batch_over_time_sliced": rate["gated"] / sliced_rate,
+        "masked_batch_over_time_sliced": rate["masked"] / sliced_rate,
+        "gated_over_masked_batch": rate["gated"] / rate["masked"],
         "knn_launches_per_round": {
-            k: {f"r{r}": n / window_rounds for r, n in v.items() if n}
+            k: {f"r{r}": n / run["window_rounds"] for r, n in v.items() if n}
             for k, v in window_launches.items() if sum(v.values())},
-        "profile_per_round": {k: v for k, v in prof.items()
-                              if k != "host_syncs_by_op_per_scan"},
+        "profile_per_round": run["profile"],
+        "masked_profile_per_round": fleets["masked"]["profile"],
         "single_stream0_profile_per_scan": {
             k: v for k, v in singles[0]["profile"].items()
             if k != "host_syncs_by_op_per_scan"},
+        # read from the device: in the deterministic runs, round by round
+        "passes_by_round": passes_by_round(det["gated"]),
+        "passes_jax_by_round": det["gated"]["passes_jax"].tolist(),
+        "passes_as_jax": {f"{m}{'_deterministic' if d else ''}":
+                          passes_as_jax(r[m]) for d, r in ((False, fleets),
+                                                           (True, det))
+                          for m in r},
+        "deterministic_gated_equals_masked": same_fleet_runs(det),
         "graphs": {str(k): v for k, v in graphs.items()},
         "feed_waits": bp.feed.waits,
         "max_pos_diff_m": diffs, "tol_m": POS_TOL_M,
@@ -1384,18 +1581,33 @@ def phase_fleet_batch4(pkg, card: str):
                      for k, v in launches.items()},
     }
     log(out)
+    check(out["deterministic_gated_equals_masked"],
+          "fleet_batch4: the gated graph is not the masked one bit for bit "
+          "under deterministic algorithms")
+    check(all(out["passes_as_jax"].values()),
+          f"fleet_batch4: the passes run (the device's count) are not JAX's "
+          f"{out['passes_as_jax']}: gated segments {run['segments']}, "
+          f"deterministic {det['gated']['segments']}")
+    check(any(n < cfg.max_iteration + 1 for n in passes_by_round(det["gated"])
+              if n is not None),
+          "fleet_batch4: no round of the gated graph exited early")
     check(max(diffs) <= POS_TOL_M,
           f"fleet_batch4: lanes left their single runs {diffs}")
     for i, (got, ref) in enumerate(zip(ate, JAX_ATE_M["fleet_batch4"])):
         check(all(g <= r + ATE_SLACK_M for g, r in zip(got, ref)),
               f"fleet_batch4: lane {i} ATE {got} > JAX {ref} + {ATE_SLACK_M}")
-    check(len(graphs) == 1 and all(g["replays"] > 0 for g in graphs.values()),
-          f"fleet_batch4: not one replayed graph ({graphs})")
+    check(len(graphs) == 1 and all(g["replays"] > 0 and g["gated"]
+                                   for g in graphs.values()),
+          f"fleet_batch4: not one replayed gated graph ({graphs})")
     check(window_launches["knn_batched"][8] > 0
-          and sum(launches["knn"].values()) == 0,
-          f"fleet_batch4: not the batched kNN launch ({launches})")
-    check(prof["host_syncs_per_scan"] == 0,
-          f"fleet_batch4: {prof['host_syncs_per_scan']} host syncs a round")
+          and sum(launches["knn"].values()) == 0
+          and window_launches["graph_if"][0] > 0,
+          f"fleet_batch4: not the batched kNN launch in IF nodes "
+          f"({launches})")
+    for mode, f in fleets.items():
+        check(f["profile"]["host_syncs_per_scan"] == 0,
+              f"fleet_batch4 {mode}: {f['profile']['host_syncs_per_scan']} "
+              "host syncs a round")
     check(bool(torch.isfinite(bp.P).all())
           and all(bool(torch.isfinite(v).all()) for v in bp.x),
           "fleet_batch4: non-finite state")
@@ -1408,33 +1620,69 @@ def phase_fleet_ouster64(pkg, cfg, sim_cfg, refs) -> dict:
     """Phase 5's run as a two-stream batch (stream 1 the same run cut to
     three quarters, so its lane runs no-op packets at the end), in float32
     and float64: the batched kernel at R = 8 and R = 27 (the wide
-    fallback) in both types.  Each lane within 5 mm of the single run of
-    its dtype (``refs``: phases 5 and 11).  Returns the launches of the two
-    runs, added."""
+    fallback) in both types.  Each run under deterministic algorithms,
+    through the gated graph and the masked graph, the last
+    ``GATED_PROFILE_SCANS`` rounds (the no-op lane riding along) profiled.
+    Checks: the two graphs bit-equal, iterations too; each lane within
+    5 mm of the single run of its dtype (``refs``: phases 5 and 11); every
+    pass run in the no-op lane's rounds.  Returns the gated runs'
+    launches, added."""
     simlib = pkg["sim"]
     datas = [simlib.generate(sim_cfg), simlib.generate(dataclasses.replace(
         sim_cfg, duration=0.75 * sim_cfg.duration))]
+    n_feed = max(len(d.scans) for d in datas)
     total = {}
     for dtype, ref in refs.items():
-        bp = pkg["BatchPipeline"](dataclasses.replace(
-            cfg, compute_dtype=dtype), 2)
-        reset_launches(pkg)
-        for _ in round_feeder(bp, datas):
-            pass
-        while bp.spin_once():
-            pass
-        launches = read_launches(pkg)
-        trajs = [bp.get_trajectory(i) for i in range(2)]
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        runs = fleet_pair(pkg, dcfg, datas, True,
+                          lead_steps=n_feed - GATED_PROFILE_SCANS,
+                          profile_steps=GATED_PROFILE_SCANS)
+        bp, launches = runs["gated"]["bp"], runs["gated"]["launches"]
+        trajs = runs["gated"]["trajs"]
         diffs = [max_pos_diff(t, ref[:len(t)]) for t in trajs]
+        noop = range(len(trajs[1]), bp.rounds)
         log({"phase": "fleet_ouster64", "dtype": dtype, "rounds": bp.rounds,
              "scans": [len(t) for t in trajs], "max_pos_diff_m": diffs,
              "tol_m": POS_TOL_M,
+             "deterministic_gated_equals_masked": same_fleet_runs(runs),
+             # read from the device (None: a round in the profiled window,
+             # whose passes are read as one sum)
+             "passes_by_round": passes_by_round(runs["gated"]),
+             "passes_jax_by_round": runs["gated"]["passes_jax"].tolist(),
+             "segments": runs["gated"]["segments"],
+             "passes_as_jax": {m: passes_as_jax(r) for m, r in runs.items()},
+             "noop_lane_rounds": list(noop),
+             "profile_per_round": {m: r["profile"] for m, r in runs.items()},
              "graphs": {str(k): v for k, v in bp.graphs.stats().items()},
              "launches": {k: {f"r{r}": n for r, n in v.items()}
                           for k, v in launches.items()}})
+        check(all(passes_as_jax(r) for r in runs.values()),
+              f"fleet_ouster64 {dtype}: the passes run (the device's count) "
+              f"are not JAX's: {runs['gated']['segments']} against "
+              f"{runs['gated']['passes_jax'].tolist()}")
+        # the no-op lane's rounds, read from the device: each round alone,
+        # and the profiled ones (all of them no-op rounds) as one sum
+        n_pass = dcfg.max_iteration + 1
+        noop_segments = [(r0, r1, n) for r0, r1, n in runs["gated"]["segments"]
+                         if r0 in noop and r1 > r0]
+        check(len(noop) > 0 and all(n == n_pass * (r1 - r0)
+                                    for r0, r1, n in noop_segments)
+              and sum(r1 - r0 for r0, r1, _ in noop_segments) == len(noop),
+              f"fleet_ouster64 {dtype}: a round with the no-op lane ran "
+              f"fewer passes than {n_pass}: {noop_segments}")
         kind = "knn_batched" + ("_f64" if dtype == "float64" else "")
+        check(same_fleet_runs(runs),
+              f"fleet_ouster64 {dtype}: the gated graph is not the masked "
+              "one bit for bit under deterministic algorithms")
         check(len(trajs[1]) < len(trajs[0]) == bp.rounds,
               f"fleet_ouster64 {dtype}: no no-op lane")
+        # the profiled rounds carry the no-op lane: every pass runs, so the
+        # gated graph does at least the masked graph's work there
+        prof = {m: r["profile"] for m, r in runs.items()}
+        check(all(p["host_syncs_per_scan"] == 0 for p in prof.values())
+              and prof["gated"]["device_activities_per_scan"]
+              >= prof["masked"]["device_activities_per_scan"],
+              f"fleet_ouster64 {dtype}: profiled rounds {prof}")
         check(max(diffs) <= POS_TOL_M,
               f"fleet_ouster64 {dtype}: lanes left the single run {diffs}")
         check(launches[kind][8] > 0 and launches[kind][27] > 0
@@ -1649,6 +1897,8 @@ def main() -> int:
         by_path[path] = {k: {r: 0 for r in v} for k, v in l_avia.items()}
         by_path[path]["knn"] = {r: sum(rk["launches"][r] for rk in ranks)
                                 for r in (8, 27)}
+        by_path[path]["graph_if"] = {0: sum(rk["if_nodes_run"]
+                                            for rk in ranks)}
     for name, row in kernel_rows.items():
         kind, r = (name, 0) if name == "graph_if" else name.rsplit("_", 1)
         r = int(r[1:]) if isinstance(r, str) else r

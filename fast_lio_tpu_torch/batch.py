@@ -10,10 +10,10 @@ comparison at matched timestamps).  On a TPU v5e the JAX package's batch
 ran about 4x below time-slicing the same streams through single pipelines
 (``fast_lio_tpu/batch.py``'s docstring).  Here it is the faster way on an
 NVIDIA H100 80GB HBM3 at 700 W: four avia streams (``avia_batch4`` at the
-AVIA preset) ran at 305.9 aggregate scans/s against 90.7 time-sliced
-through four captured single pipelines, 3.37x (``chip_smoke.py`` phase
+AVIA preset) ran at 318.7 aggregate scans/s against 115.3 time-sliced
+through four captured single pipelines, 2.76x (``chip_smoke.py`` phase
 ``fleet_batch4``; PERF.md).  A round of four lanes keeps the device busy
-11.0 ms where one scan keeps it 9.0 ms: the step's count of device
+11.0 ms where one scan keeps it 8.4 ms: the step's count of device
 activities, not their size, sets its time.
 
 How a round runs: the counterpart of ``jax.vmap(packed)``.  The estimator
@@ -28,7 +28,14 @@ kernel (``kernels/knn.py``).  The step runs with vmap's per-example
 fallback disabled, so an op without a batching rule raises instead of
 looping over the lanes.  On CUDA the batched step is captured in one CUDA
 graph per pad bucket for the whole fleet (``step_graph.StepGraphs``) and
-replayed once per round, with no host sync in steady state.
+replayed once per round, with no host sync in steady state.  The graph is
+gated as JAX's vmapped step is: the filter's passes are CUDA-graph IF nodes
+that run while any lane is active (JAX's batched ``while_loop``:
+``control_flow.loop_pass``), each lane keeping a pass's result only while
+it is active itself, and every ``lax.cond`` whose predicate differs from
+lane to lane (the re-search, the wide search, the prune, the update) stays
+a select.  An ended stream's no-op lane never exits the loop, so a round
+with one runs every pass, as in JAX.
 
 Semantics, as in the JAX package: one packet per stream per round, and a
 round fires only when every stream is ready or declared ended via

@@ -14,13 +14,13 @@
   tensors, or of named tuples of them) to a new carry of the same
   structure.  Two forms:
 
-  - *masked*, everywhere by default (eager, the CPU, the batch under
-    ``torch.func.vmap``, the sharded step): the body runs and its results
-    are picked with ``torch.where(pred, new, old)``, out of place.  JAX's
-    ``lax.cond`` under ``jax.vmap`` is the same select.
+  - *masked*, everywhere by default (eager, the CPU, and wherever no
+    step is being captured with gates): the body runs and its results are
+    picked with ``torch.where(pred, new, old)``, out of place.
   - *gated*, only while a step is being captured inside ``gated_capture``
-    (``step_graph.StepGraphs`` for the single pipeline): the body is
-    recorded inside a CUDA-graph conditional (IF) node on ``pred``
+    (``step_graph.StepGraphs`` with ``gates=True``: the single pipeline,
+    the batch and the sharded step on NCCL ranks): the body is recorded
+    inside a CUDA-graph conditional (IF) node on ``pred``
     (``kernels/graph_if.py``, ``csrc/graph_if.cu``), and its
     results are ``copy_``'d into the carry's own tensors inside that node,
     so a replay runs the body only where ``pred`` holds and leaves the
@@ -32,6 +32,21 @@
     operands' layout reads a carried matrix in one layout
     (``filter/ekf.py``'s ``P_post``), so both forms give the same bits.  A
     gated capture that cannot record the node raises.
+
+  Under ``torch.func.vmap`` (the batch) the gate follows JAX's rule for
+  ``lax.cond`` under ``jax.vmap``: a batched predicate (one flag a lane)
+  always takes the masked form, a select, even inside ``gated_capture``;
+  an unbatched one keeps a real conditional, an IF node there.  Inside a
+  gated body under vmap the carry's tensors must be batched too (made from
+  a batched input: ``new_zeros``, ``new_full``), since vmap writes no
+  batched value into an unbatched tensor.
+
+* ``loop_pass(active, body, carry)`` — one pass of a bounded
+  ``lax.while_loop``: ``gate(active, body, carry)``, and for a batched
+  ``active`` JAX's batching rule for ``while``: the pass runs while any
+  lane is active (``any_lane``, an unbatched flag, so an IF node in a
+  gated capture) and each lane keeps its own result only where it is
+  active itself.
 
   The kernel launch counters (``kernels/counts.py``) count at Python call
   time, and a replay skips a gated body's launches where ``pred`` is False.
@@ -116,7 +131,7 @@ def _assign(dst, src) -> None:
 @contextlib.contextmanager
 def gated_capture(device):
     """Within: ``gate`` records IF nodes into the graph being captured on
-    ``device`` (the single captured step; ``step_graph.StepGraphs``)."""
+    ``device`` (``step_graph.StepGraphs`` with ``gates=True``)."""
     token = _gated_device.set(torch.device(device))
     try:
         yield
@@ -160,13 +175,48 @@ def _record_if(pred: torch.Tensor, fn: Callable[[], None]) -> None:
     graph_if.record_if(pred, fn)
 
 
+def batched(t: torch.Tensor) -> bool:
+    """Whether ``t`` carries a lane axis of ``torch.func.vmap`` (a value
+    that may differ from lane to lane)."""
+    return torch._C._functorch.is_batchedtensor(t)
+
+
+@torch.library.custom_op("fast_lio_tpu_torch::any_lane", mutates_args=())
+def _any_lane_op(pred: torch.Tensor) -> torch.Tensor:
+    return pred.clone()  # one lane: its own flag
+
+
+@_any_lane_op.register_fake
+def _any_lane_fake(pred):
+    return torch.empty_like(pred)
+
+
+def _any_lane_vmap(info, in_dims, pred):
+    """The reduction over the lanes: one unbatched flag, on the device."""
+    if in_dims[0] is None:
+        return pred.clone(), None
+    return pred.any(dim=in_dims[0]), None
+
+
+torch.library.register_vmap("fast_lio_tpu_torch::any_lane", _any_lane_vmap)
+
+
+def any_lane(pred: torch.Tensor) -> torch.Tensor:
+    """JAX's ``reduce_or`` of a batched ``while_loop`` predicate over the
+    lanes: under ``torch.func.vmap`` a () bool that holds where any lane's
+    ``pred`` holds, unbatched (the same for every lane) and on the device,
+    with no host read; outside vmap ``pred`` itself (one lane)."""
+    return torch.ops.fast_lio_tpu_torch.any_lane(pred)
+
+
 def gate(pred: torch.Tensor, body: Callable[[Tree], Tree], carry: Tree) -> Tree:
     """``lax.cond(pred, body, lambda c: c, carry)`` on the device: the
     masked form (``torch.where`` of the body's results and the carry),
     or inside ``gated_capture`` the body recorded in an IF node that writes
-    the carry in place (the module's docstring)."""
+    the carry in place, where ``pred`` is the same for every lane (the
+    module's docstring)."""
     device = _gated_device.get()
-    if device is None:
+    if device is None or batched(pred):
         return select(pred, body(carry), carry)
     from .kernels import counts  # the counters import the kernels
 
@@ -179,3 +229,16 @@ def gate(pred: torch.Tensor, body: Callable[[Tree], Tree], carry: Tree) -> Tree:
 
     _record_if(pred, run)
     return carry
+
+
+def loop_pass(active: torch.Tensor, body: Callable[[Tree], Tree],
+              carry: Tree) -> Tree:
+    """One pass of a bounded ``lax.while_loop`` whose predicate is
+    ``active``: ``gate(active, body, carry)``.  For a batched ``active``
+    in a gated capture, the pass is an IF node on ``any_lane(active)``
+    whose body keeps each lane's result where that lane is active (JAX's
+    batched ``while``); masked, it is the same select as for one lane."""
+    if not (batched(active) and gating()):
+        return gate(active, body, carry)
+    return gate(any_lane(active), lambda c: select(active, body(c), c),
+                carry)

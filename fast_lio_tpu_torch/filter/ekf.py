@@ -9,13 +9,16 @@ Port of ``fast_lio_tpu/filter/ekf.py`` (the esekfom engine, esekfom.hpp):
   measurement rows are H^T H (12x12) and H^T h (12,).
 
 The JAX ``while_loop`` becomes its most passes, ``max_iter + 1``, each
-``control_flow.gate(~done, pass, carry)`` on a carry of device tensors: no
-host read.  In the single pipeline's captured step each pass is a CUDA-graph
-IF node, so a replay runs the passes JAX's loop runs and skips the rest; in
-the masked form (eager, the CPU, the batch, the sharded step) every pass runs
-and a pass after the exit leaves the carry as it was, through
-``torch.where``.  Inside a pass a measurement with no valid point leaves the
-iterate unchanged, as JAX's ``sel`` does.
+``control_flow.loop_pass(~done, pass, carry)`` on a carry of device
+tensors: no host read.  In a captured step with gates (the single
+pipeline, the batch, the sharded step on NCCL ranks) each pass is a
+CUDA-graph IF node, so a replay runs the passes JAX's loop runs and skips
+the rest: under ``torch.func.vmap`` (the batch) while any lane is active,
+as JAX's batched ``while_loop`` runs, each lane keeping its own result only
+while it is active itself.  In the masked form (eager, the CPU) every pass
+runs and a pass after the exit leaves the carry as it was, through
+``torch.where``.  Inside a pass a measurement with no valid point leaves
+the iterate unchanged, as JAX's ``sel`` does.
 
 Deviations carried over from the JAX package: the predict-step exp factors
 use the mathematically intended scale (the reference's ``scalar(1/2)`` is 0,
@@ -185,13 +188,14 @@ def update_iterated(
     ``t > 1`` or ``i == max_iter-1``, and a pass with ``valid`` False leaves
     the iterate unchanged (but still counts as an evaluation).  The loop
     makes at most ``max_iter + 1`` passes (``i`` from -1 while
-    ``i < max_iter``); here each is ``control_flow.gate(~done, pass,
+    ``i < max_iter``); here each is ``control_flow.loop_pass(~done, pass,
     carry)``, the carry (``i``, ``t``, ``converge``, ``done``,
     ``any_valid``, ``n_evals``, the iterate, ``P_post``, ``dx_final``, the
-    measurement carry) device tensors.  In a gated capture a pass after
-    ``done`` is an IF node that does not run; in the masked form it runs and
-    leaves every carried value as it was.  Either way the results are the
-    loop's, with no host read.
+    measurement carry) device tensors, made from ``P`` so that under
+    ``torch.func.vmap`` they are batched like it.  In a gated capture a
+    pass after ``done`` (after every lane's, in a batch) is an IF node that
+    does not run; in the masked form it runs and leaves every carried value
+    as it was.  Either way the results are the loop's, with no host read.
 
     ``group`` (a ``parallel.ShardGroup``): the measurement rows are split
     across its ranks, and each pass sums H^T H, H^T h and the ranks'
@@ -200,17 +204,18 @@ def update_iterated(
     alike.  ``valid`` joins the sum so that every rank masks the same
     passes: a rank's own ``valid`` comes from its own downsample, whose
     atomic sums on CUDA may differ from another rank's in the last bit.
-    (It is the same flag wherever the ranks' selections agree.)  Every rank
-    runs every pass (a sharded step is never gated), so the collectives
-    match across ranks.  Without a group nothing changes.
+    (It is the same flag wherever the ranks' selections agree.)  So every
+    pass's predicate is the same on every rank, and in a gated capture on
+    NCCL ranks every rank runs or skips each pass, with its collectives,
+    together.  Without a group nothing changes.
     """
     dtype, device = P.dtype, P.device
     epsi, eye = _constants(_hashable(epsi), dtype, device)
     x_prop, P_prop = x, P
     n = st.DOF
 
-    def scalar(v, dt):
-        return torch.full((), v, dtype=dt, device=device)
+    def scalar(v, dt):  # batched like P under vmap, so a gated pass can
+        return P_prop.new_full((), v, dtype=dt)  # write a lane's value
 
     i32 = torch.int32
 
@@ -266,10 +271,10 @@ def update_iterated(
     carry = (scalar(-1, i32), scalar(0, i32), scalar(True, torch.bool),
              scalar(False, torch.bool), scalar(False, torch.bool),
              scalar(0, i32), x0, P_post0,
-             torch.zeros(n, dtype=dtype, device=device), h_carry0)
+             P_prop.new_zeros(n), h_carry0)
     for _ in range(max_iter + 1):
         done = carry[3]
-        carry = cf.gate(~done, one_pass, carry)
+        carry = cf.loop_pass(~done, one_pass, carry)
     _, _, _, _, any_valid, n_evals, x, P_post, dx_final, h_carry = carry
 
     # Final covariance: (I - K_x) P_w = R * P_inv in exact arithmetic, so

@@ -130,6 +130,12 @@ def map_size(m: Map, cfg: MapConfig = None) -> torch.Tensor:
     return torch.sum(valid_mask(m), dtype=torch.int64)
 
 
+def points(m: Map, cfg: MapConfig = None) -> torch.Tensor:
+    """(H, B, 3) slot coordinates, live or not, on the map's device."""
+    x, y, z, _ = channels(m)
+    return torch.stack([x, y, z], dim=-1)
+
+
 def flatten(m: Map, cfg: MapConfig = None) -> np.ndarray:
     """All live map points as a host array (n, 3) (ikd-Tree ``flatten``)."""
     p = m.packed.detach().cpu().numpy()

@@ -50,13 +50,19 @@ class NeighborCache(NamedTuple):
     plane_ok: torch.Tensor  # (N,)
 
 
-def empty_cache(n: int, dtype=torch.float32, device=None) -> NeighborCache:
+def empty_cache(n: int, dtype=torch.float32, device=None,
+                like: torch.Tensor = None) -> NeighborCache:
+    """A cache of ``n`` rows with nothing found.  With ``like``, made from
+    that tensor (its dtype and device): under ``torch.func.vmap`` batched
+    like it, so a gated pass can write a lane's values into it."""
+    z = (torch.zeros((), dtype=dtype, device=device) if like is None
+         else like.new_zeros(()))
     return NeighborCache(
-        nbrs=torch.zeros((n, NUM_MATCH, 3), dtype=dtype, device=device),
-        found=torch.zeros((n, NUM_MATCH), dtype=torch.bool, device=device),
-        selected=torch.zeros(n, dtype=torch.bool, device=device),
-        pabcd=torch.zeros((n, 4), dtype=dtype, device=device),
-        plane_ok=torch.zeros(n, dtype=torch.bool, device=device),
+        nbrs=z.new_zeros((n, NUM_MATCH, 3)),
+        found=z.new_zeros((n, NUM_MATCH), dtype=torch.bool),
+        selected=z.new_zeros(n, dtype=torch.bool),
+        pabcd=z.new_zeros((n, 4)),
+        plane_ok=z.new_zeros(n, dtype=torch.bool),
     )
 
 

@@ -13,7 +13,18 @@ is given host tensors: for ranks on a card it copies each tensor to the host
 and back (``ShardGroup.transport`` names it).  That is the transport the
 caller chose, not a fallback.  NCCL's collectives can be recorded in a
 CUDA graph (``ShardGroup.capturable``), so a sharded ``Pipeline`` on NCCL
-ranks captures its step; gloo's cannot.  The group's timeout (120 s) makes a
+ranks captures its step, with its gates as CUDA-graph conditional (IF)
+nodes whose bodies hold collectives; gloo's cannot.  An IF node's body
+takes kernel nodes but no event record or wait nodes, and NCCL adds such
+nodes to a capture unless its graph mixing support is off: NCCL ranks run
+with ``NCCL_GRAPH_MIXING_SUPPORT=0`` (``init_distributed``).  With it on
+(NCCL 2.28.9, CUDA 12.8, four H100s), ending the capture of a step whose IF
+node holds an all-reduce across four ranks raised "CUDA error: invalid
+argument".  With it off, NCCL does not support a replay of a graph that
+holds the communicator's collectives being outstanding together with a
+collective launched outside a capture, whatever the stream order: the
+group drains the card where one kind of launch follows the other
+(``ShardGroup.launching``).  The group's timeout (120 s) makes a
 rank that enters another collective than its peers fail instead of hanging.
 
 ``launch(fn, world, ...)`` runs ``fn(group, *args)`` on ``world`` ranks, one
@@ -26,6 +37,7 @@ import dataclasses
 import datetime
 import gc
 import multiprocessing
+import os
 import queue
 import tempfile
 import time
@@ -51,6 +63,17 @@ def check_world(world: int) -> None:
         raise ValueError(f"the world size must be a power of two (got {world})")
 
 
+class InFlight:
+    """The kind of NCCL work this rank last launched on a group's
+    communicator and has not drained since: "graph" (a replay of a CUDA
+    graph that holds the group's collectives), "eager" (a collective
+    launched outside a capture) or None; ``drains`` counts the drains."""
+
+    def __init__(self):
+        self.kind = None
+        self.drains = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardGroup:
     """The ranks of one sharded map, as this rank sees them."""
@@ -60,6 +83,8 @@ class ShardGroup:
     world: int
     device: torch.device
     backend: str  # "nccl" or "gloo"
+    in_flight: InFlight = dataclasses.field(
+        default_factory=InFlight, compare=False, repr=False)
 
     @property
     def host_copies(self) -> bool:
@@ -76,11 +101,30 @@ class ShardGroup:
         gloo's cannot (on a card they copy through the host)."""
         return self.backend == "nccl" and self.device.type == "cuda"
 
+    def launching(self, kind: str) -> None:
+        """Call before this rank launches NCCL work of ``kind`` on the
+        group: "graph", a replay of a CUDA graph that holds the group's
+        collectives, or "eager", a collective outside a capture (the
+        collectives below call it).  NCCL ranks run with graph mixing
+        support off (``init_distributed``), under which the two kinds must
+        never be outstanding together on one communicator, whatever the
+        stream order: where one kind follows the other, the card is drained
+        first (a host wait).  Replays alone, or eager steps alone, never
+        wait.  Nothing to do on gloo, nor while a graph is being captured
+        (a capture launches nothing)."""
+        if not self.capturable or torch.cuda.is_current_stream_capturing():
+            return
+        if self.in_flight.kind not in (None, kind):
+            torch.cuda.synchronize(self.device)
+            self.in_flight.drains += 1
+        self.in_flight.kind = kind
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(world, *t.shape): every rank's ``t``, in rank order, on ``t``'s
         device.  ``t`` is numeric (gloo takes no bool tensors).  Gathered
         into one flat output tensor made up front, which a CUDA graph can
         record on NCCL."""
+        self.launching("eager")
         src = t.cpu() if self.host_copies else t
         out = src.new_empty((self.world * src.numel(),))
         _all_gather_single(out, src.reshape(-1).contiguous(), group=self.pg)
@@ -89,6 +133,7 @@ class ShardGroup:
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise sum of every rank's ``t``, on ``t``'s device; ``t``
         itself is left alone."""
+        self.launching("eager")
         out = t.cpu().clone() if self.host_copies else t.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.pg)
         return out.to(t.device)
@@ -140,6 +185,13 @@ def init_distributed(init_method: str, world: int, rank: int,
     check_world(world)
     device, backend = _resolve(device, backend)
     check_cards(world, backend)
+    if backend == "nccl":
+        # no event nodes in a capture: an IF node's body refuses them (the
+        # module's docstring); read by NCCL when the communicator is made.
+        # A graph's collectives and eager ones must then never be
+        # outstanding together, even in stream order: ShardGroup.launching
+        # drains the card between the two kinds.
+        os.environ["NCCL_GRAPH_MIXING_SUPPORT"] = "0"
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", rank % torch.cuda.device_count())

@@ -18,14 +18,16 @@ The JAX package runs this under ``shard_map`` in one jitted program; here
 every rank runs ``sharded_lio_step`` in its own process, with the
 collectives of its ``ShardGroup``, and a ``Pipeline`` on NCCL ranks captures
 it in one CUDA graph per pad bucket on every rank (``step_graph.py``; gloo
-ranks run it eagerly).  The step reads nothing on the host: every rank runs
-every arm of the wide fallback and every pass of the filter loop (its
-``control_flow.gate``s are masked: a sharded step is never captured with
-IF nodes, which would let ranks skip collectives), and picks on the device
-from replicated values (the merged kNN results, the summed
-reductions: ``filter/ekf.py``), so all ranks enter the same collectives in
-the same order, and each collective has a fixed shape: two all-gathers per
-merge, one all-reduce per filter pass and one for the map size.  The
+ranks run it eagerly).  The step reads nothing on the host, and every
+``control_flow.gate`` in it (the filter's passes, the re-search with its
+merge, the wide fallback, the prune) picks from replicated values: the
+merged kNN results, the summed reductions (``valid`` among them:
+``filter/ekf.py``) and the state they give.  So in a captured step, where
+each gate is a CUDA-graph IF node, every rank runs or skips each body, with
+the collectives in it, with its peers, as JAX's ``shard_map`` runs its
+``lax.while_loop`` and ``lax.cond``s; eager (gloo) every rank runs every
+arm masked.  Each collective has a fixed shape: two all-gathers per merge,
+one all-reduce per filter pass and one for the map size.  The
 per-rank search is the per-query CUDA kernel (``kernels.knn.knn_search``, its
 plain version on CPU tensors) whatever ``Config.knn_backend`` says, as the
 JAX sharded path always runs the single-table search: ``"grouped"`` does not
@@ -132,9 +134,9 @@ def merged_knn(group: ShardGroup, m_local: hm.Map, lcfg: hm.MapConfig,
                queries: torch.Tensor, k: int, cfg: Config, mask: torch.Tensor):
     """The exact global kNN over every rank's table, with the single map's
     adaptive wide-region fallback (``Config.knn_wide_fallback``):
-    ``pipeline.wide_fallback`` around the merged search.  Both searches run
-    on every rank and a device-side choice picks, so all ranks enter the
-    same collectives with no host read."""
+    ``pipeline.wide_fallback`` around the merged search.  The wide search
+    is gated on a count of the merged narrow results, the same on every
+    rank, so all ranks enter the same collectives, with no host read."""
     from ..pipeline import wide_fallback
 
     def local(q, wide=False):

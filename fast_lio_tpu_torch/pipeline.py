@@ -27,13 +27,14 @@ startup, whether the first scan seeded the map, and with
 
 With the map sharded across ranks (``Pipeline(cfg, group=...)``,
 ``parallel/sharding.py``) the step is the same sync-free program with the
-ranks' collectives in it; every rank runs every pass and every arm (the
-masked form, never gated), so the ranks enter the same collectives in the
-same order.  On NCCL ranks it is
-captured the same way, one graph per pad bucket on every rank, with the
-collectives inside (the counterpart of ``jax.jit(shard_map(...))``); gloo
-ranks run it eagerly, since gloo's collectives copy through the host and no
-graph can record them.
+ranks' collectives in it.  On NCCL ranks it is captured the same way, one
+graph per pad bucket on every rank, with the collectives inside, its gates
+IF nodes too (the counterpart of ``jax.jit(shard_map(...))``, whose
+``lax.while_loop`` exits early there as well): every predicate comes from
+replicated values, so every rank runs or skips each gate, with the
+collectives in it, together.  gloo ranks run it eagerly, every arm masked,
+since gloo's collectives copy through the host and no graph can record
+them.
 """
 from __future__ import annotations
 
@@ -384,7 +385,7 @@ def lio_step(
     )
 
     # 4. iterated point-to-plane update
-    cache0 = meas.empty_cache(cfg.n_ds_max, pts_ds.dtype, pts_ds.device)
+    cache0 = meas.empty_cache(cfg.n_ds_max, like=pts_ds)
     knn_fn = make_knn_fn(cfg, map_cfg, m)
     if cfg.rescore_research:
         # one map gather per scan: the full search runs here at the
@@ -408,7 +409,7 @@ def lio_step(
 
     # JAX's lax.cond(do_update, run_update, skip_update): the skip arm keeps
     # x, P and the empty cache, with no iteration
-    iters0 = torch.zeros((), dtype=torch.int32, device=pts_ds.device)
+    iters0 = pts_ds.new_zeros((), dtype=torch.int32)  # batched like pts_ds
     x, P, cache, iters = cf.gate(do_update, run_update,
                                  cf.own((x, P, cache0, iters0)))
     n_eff = torch.sum(cache.selected)
@@ -543,7 +544,8 @@ class Pipeline:
     ``jax.disable_jit()``.  The CPU never
     captures (``graphs=True`` there raises), nor do gloo ranks (``graphs=
     True`` with a gloo group raises); NCCL ranks do, each its own graph
-    with the collectives inside (``step_graph.captures_by_default``).  A
+    with the collectives inside, in its IF nodes too
+    (``step_graph.captures_by_default``).  A
     capture that fails raises; nothing falls back to the eager step.
 
     ``group`` (a ``parallel.ShardGroup``, from ``init_distributed``) shards
@@ -628,9 +630,8 @@ class Pipeline:
         self._warned_truncation = False
         # the scan's feed buffer: pinned host memory on CUDA
         self.feed = PinnedFeed() if device.type == "cuda" else None
-        # alone, the captured step is gated (IF nodes); sharded, masked
-        self.graphs = (StepGraphs(device, group, gates=group is None)
-                       if graphs else None)
+        # the captured step is gated (IF nodes), alone and on NCCL ranks
+        self.graphs = StepGraphs(device, group) if graphs else None
 
         # host state
         self.imu_stats = imu_mod.empty_stats()
@@ -729,9 +730,9 @@ class Pipeline:
         size_drops = torch.stack([hm.map_size(self.map),
                                   self.map.dropped.sum(dtype=torch.int64)])
         if self.group is not None:
-            # an eager collective between two replays of the captured step:
-            # NCCL takes captured and eager work on one communicator, in the
-            # order the ranks issue it, so every rank calls this here
+            # an eager collective after replays of the captured step: every
+            # rank calls this here, and the group drains the replays first
+            # (ShardGroup.launching: NCCL's graph mixing support is off)
             size_drops = self.group.all_reduce_sum(size_drops)
         size, dropped = size_drops.tolist()
         return {

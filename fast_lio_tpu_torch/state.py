@@ -138,3 +138,8 @@ def oplus(s: State, f: torch.Tensor, dt) -> State:
         ba=s.ba + f[..., IDX_BA:IDX_BA + 3] * dt,
         grav=s2.oplus(s.grav, f[..., IDX_GRAV:IDX_GRAV + 3], dt),
     )
+
+
+def astype(s: State, dtype) -> State:
+    """Every field of ``s`` cast to ``dtype``."""
+    return State(*(v.to(dtype) for v in s))

@@ -13,12 +13,15 @@ device constants before anything is recorded.  Then it is captured into a
 scan of the bucket is one copy from a pinned host buffer into it and one
 replay.  A capture that fails raises; nothing falls back to the eager step.
 
-The single pipeline's step is captured with gates (``gates=True``,
+Every step is captured with gates (``gates=True``,
 ``control_flow.gated_capture``): JAX's ``lax.cond`` arms and the
 ``lax.while_loop``'s passes are recorded as CUDA-graph conditional (IF)
-nodes, so a replay skips what JAX skips.  The batch (``torch.func.vmap``)
-and the sharded step capture without gates: their arms and passes are
-masked with ``torch.where``, as JAX's are under ``vmap``.
+nodes, so a replay skips what JAX skips.  In the batch
+(``torch.func.vmap``) a predicate that differs from lane to lane stays a
+select, as JAX's ``lax.cond`` under ``vmap`` does, and the filter's passes
+run while any lane is active (``control_flow.loop_pass``); on NCCL ranks
+every predicate is replicated, so every rank runs or skips each IF node's
+collectives with its peers.
 
 The graph's outputs are static tensors that the next replay overwrites, so
 ``Pipeline`` copies what it keeps (on the device, with no sync).  The kernel
@@ -34,7 +37,12 @@ every rank captures the same bucket at the same scan and replays in step
 with the others.  Before a rank captures, one eager all-gather of the feed
 shape checks that every rank is about to capture the same one.  The
 warm-up runs each collective once before the capture, so the communicator
-exists by then.  gloo's collectives copy through the host and cannot be
+exists by then.  NCCL runs with graph mixing support off, so a replay and
+an eager collective of the group are never outstanding together: the
+group drains the card where one follows the other
+(``ShardGroup.launching``: at a new bucket after replays, before its
+capture, and before an eager gather such as ``health_check``'s), never
+between two replays.  gloo's collectives copy through the host and cannot be
 captured (``captures_by_default``).
 """
 from __future__ import annotations
@@ -130,14 +138,17 @@ class StepGraphs:
     ``group`` (a ``parallel.ShardGroup`` on NCCL): the step's collectives
     run over it; every rank of it must run the same scans.
 
-    ``gates``: capture inside ``control_flow.gated_capture``, so that the
-    step's ``control_flow.gate``s record IF nodes (the single pipeline's
-    step; not with a group)."""
+    ``gates`` (the default): capture inside ``control_flow.gated_capture``,
+    so that the step's ``control_flow.gate``s record IF nodes; with a
+    group, its collectives inside them (NCCL: ``group.capturable``).
+    ``gates=False`` captures every gate masked: the reference that
+    ``chip_smoke.py`` and the card tests hold the gated graph to."""
 
-    def __init__(self, device: torch.device, group=None, gates=False):
-        if gates and group is not None:
-            raise ValueError("a sharded step is captured without gates: "
-                             "every rank must enter the same collectives")
+    def __init__(self, device: torch.device, group=None, gates=True):
+        if gates and group is not None and not group.capturable:
+            raise ValueError(
+                f"a {group.backend} group's collectives cannot be recorded "
+                "in a CUDA graph, nor in its IF nodes")
         self.device = torch.device(device)
         self.group = group
         self.gates = gates
@@ -155,6 +166,8 @@ class StepGraphs:
         if cap is None:
             return self._run_and_capture(host, step)
         cap.static_in.copy_(host, non_blocking=True)
+        if self.group is not None:
+            self.group.launching("graph")
         cap.graph.replay()
         counts.add(cap.launches)
         self.replays[n] += 1
@@ -162,7 +175,8 @@ class StepGraphs:
 
     def _same_shape_on_every_rank(self, n: Shape) -> None:
         """Raise unless every rank of the group is about to capture a feed
-        of shape ``n``: one eager all-gather and a host read, once a
+        of shape ``n``: one eager all-gather (after the group drains any
+        replay: ``ShardGroup.launching``) and a host read, once a
         bucket."""
         dims = n if isinstance(n, tuple) else (n,)
         mine = torch.tensor((len(dims), *dims, *(0,) * (2 - len(dims))),
@@ -191,6 +205,8 @@ class StepGraphs:
             v.record_stream(main)
         if self.gates:
             counts.device_counter(self.device)  # made outside the graph
+        if self.group is not None:  # the warm-up's eager collectives
+            self.group.launching("graph")
         before = counts.snapshot()
         graph = torch.cuda.CUDAGraph()
         # a graph that the collector frees while this one records (another

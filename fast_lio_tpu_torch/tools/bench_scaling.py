@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import config, sim
+from ..kernels import counts, graph_if
 from ..kernels import knn as knn_kernel
 from ..parallel import check_cards, launch
 from ..parallel import sharding
@@ -168,11 +169,16 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
     under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
     raises), drained at its end (scans/s: the window's), but for the last
     ``profile_scans``, which run under ``torch.profiler``
-    (``profile_scan.profile_window``: device busy, activities, syncs a
-    scan)."""
+    (``profile_scan.profile_window``: device busy, activities, syncs and
+    NCCL kernels a scan; and ``executed``, what the step ran there:
+    ``profile_scan.executed_per_scan``).  The kNN launches are counted as
+    run: a gated graph's IF nodes count theirs on the device
+    (``kernels.counts.settle``)."""
     pipe = Pipeline(cfg, group=group, graphs=graphs)
     n = len(data.scans) if n_scans is None else n_scans
-    for c in (knn_kernel.launches, knn_kernel.launches_f64):
+    counts.settle()  # a gated graph's launches, counted on the device
+    for c in (knn_kernel.launches, knn_kernel.launches_f64,
+              graph_if.launches):
         for r in c:
             c[r] = 0
     cuda = pipe.device.type == "cuda"
@@ -199,10 +205,18 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
         torch.cuda.synchronize()
         scans_per_s = n_window / (time.perf_counter() - t0)
         if profile_scans:
-            from .profile_scan import profile_window
+            from .profile_scan import executed_per_scan, profile_window
 
+            counts.settle()
+            before = counts.snapshot()
             figures["profile"] = profile_window(lambda: next(push),
                                                 profile_scans)
+            counts.settle()
+            figures["executed"] = executed_per_scan(
+                cfg, pipe.graphs is not None,
+                [int(d.iterations) for d in pipe.diags[-profile_scans:]],
+                counts.since(before))
+    counts.settle()
     launches = dict(knn_kernel.launches)
     launches_f64 = dict(knn_kernel.launches_f64)
     traj = pipe.get_trajectory()
@@ -216,6 +230,8 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
         ate_aligned_m=sim.ate_rmse_aligned(traj, data),
         health=pipe.health_check(), launches=launches,
         launches_f64=launches_f64, scans_per_s=scans_per_s,
+        if_nodes_run=graph_if.launches[0],
+        iterations=[int(d.iterations) for d in pipe.diags],
         iterations_mean=float(np.mean([int(d.iterations) for d in pipe.diags])),
         n_effective_last=int(pipe.diags[-1].n_effective))
     return pipe, figures

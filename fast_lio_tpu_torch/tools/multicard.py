@@ -28,13 +28,19 @@ power limit:
   global map drops within 10% of its 307, the R = 8 and R = 27 kernels
   launched on every rank (counted through the replays), one graph per pad
   bucket with replays = steps - graphs, no host sync, positive stage
-  times, NCCL's all-gather and all-reduce kernels (profiler) as many a
-  step captured as eager, and on two or more cards some of each.
+  times; the captured step is gated (its passes, re-searches, wide search
+  and prune CUDA-graph IF nodes, with their collectives inside), so its
+  kNN launches and NCCL all-gather and all-reduce kernels (profiler) a
+  step are at most the eager step's, which runs every pass and arm, the
+  same on every rank, and on two or more cards some of each; the kNN
+  launches counted as run equal the profiler's.  The row gives the passes
+  a step run in the profiled scans, captured and eager.
   Positions are not held against the unsharded run in float32: a reordered
   sum may flip a gate (tests/test_torch_sharding.py).
 * ``sharded_ouster64_ranks_f64``: the same scans in float64, captured,
   against the unsharded float64 captured run on rank 0's card: within
-  1e-6 m per scan (no gate flips in float64).
+  1e-6 m per scan, with the same passes (iterations) scan by scan (no gate
+  flips in float64).
 * ``checkpoint_ranks``: the captured run checkpointed after scan 10 (every
   rank writes the global map to its own file); N fresh ranks resume it and
   run the rest captured, within 5 mm of the uninterrupted run; a pipeline
@@ -53,6 +59,7 @@ import json
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 from typing import Optional
 
@@ -139,10 +146,94 @@ def _ckpt_path(outdir, rank: int) -> Path:
 # ---------------------------------------------------------------------------
 
 
+IF_PROBE_FLAGS = (True, False, True, True, False)
+
+
+def if_node_rank(group) -> dict:
+    """On a card: an ``all_reduce_sum`` and an ``all_gather`` of the group
+    recorded inside one IF node body (``kernels.graph_if.record_if``) of a
+    captured graph, replayed with each predicate of ``IF_PROBE_FLAGS`` (the
+    same on every rank) and a new input each replay: what the gated
+    sharded step needs of NCCL and the graph.  Returns per replay whether
+    the outputs are the collectives' where the predicate held and untouched
+    where it did not, and the traceback where recording or a replay
+    raised."""
+    from ..kernels import graph_if
+
+    dev, world = group.device, group.world
+
+    def value(k, rank):
+        return torch.arange(4, dtype=torch.float32, device=dev) + 10 * k + rank
+
+    x = value(0, group.rank)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    summed = torch.zeros(4, device=dev)
+    gathered = torch.zeros((world, 4), device=dev)
+    group.all_reduce_sum(x)  # the communicator, made before the capture
+    group.all_gather(x)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+
+    def body():
+        summed.copy_(group.all_reduce_sum(x * 2))
+        gathered.copy_(group.all_gather(x + 1))
+
+    try:
+        with torch.cuda.graph(graph):
+            graph_if.record_if(flag, body)
+    except RuntimeError:
+        return dict(error=traceback.format_exc(), replays=[])
+    replays = []
+    for k, f in enumerate(IF_PROBE_FLAGS, start=1):
+        x.copy_(value(k, group.rank))
+        summed.fill_(-1.0)
+        gathered.fill_(-1.0)
+        flag.fill_(f)
+        try:
+            group.launching("graph")
+            graph.replay()
+            torch.cuda.synchronize(dev)
+        except RuntimeError:
+            return dict(error=traceback.format_exc(), replays=replays)
+        peers = torch.stack([value(k, r) for r in range(world)])
+        ok = (torch.equal(summed, 2 * peers.sum(0)) and torch.equal(
+            gathered, peers + 1)) if f else (
+            bool((summed == -1).all()) and bool((gathered == -1).all()))
+        replays.append(dict(flag=f, ok=bool(ok)))
+    del graph
+    torch.cuda.synchronize(dev)
+    return dict(error=None, replays=replays)
+
+
+def if_node_row(probes: list, name: str) -> dict:
+    """Log the probe's row from every rank's ``if_node_rank``, then check
+    it: recorded, and every replay right on every rank."""
+    row = {"phase": name, "ranks": len(probes),
+           "errors": [p["error"] for p in probes],
+           "replays_ok_by_rank": [[r["ok"] for r in p["replays"]]
+                                  for p in probes],
+           "flags": list(IF_PROBE_FLAGS)}
+    log(row)
+    for p in probes:
+        check(p["error"] is None, f"{name}: {p['error']}")
+        check([r["flag"] for r in p["replays"]] == list(IF_PROBE_FLAGS)
+              and all(r["ok"] for r in p["replays"]),
+              f"{name}: replays {p['replays']}")
+    return row
+
+
+def drive_modes_probed(group, *args) -> dict:
+    """On a card, ``if_node_rank`` first (under "if_node"; None on the
+    CPU); then ``bench_scaling.drive_modes(group, *args)``."""
+    probe = if_node_rank(group) if group.device.type == "cuda" else None
+    return dict(bench_scaling.drive_modes(group, *args), if_node=probe)
+
+
 def ouster64_rank(group, scale: Scale) -> dict:
-    """``bench_scaling.drive_modes`` on this rank: eager, then captured."""
-    return bench_scaling.drive_modes(group, scale.cfg, scale.sim_cfg,
-                                     scale.scans, scale.warm, scale.profile)
+    """``drive_modes_probed`` on this rank: the probe on a card, then
+    eager, then captured."""
+    return drive_modes_probed(group, scale.cfg, scale.sim_cfg, scale.scans,
+                              scale.warm, scale.profile)
 
 
 def f64_rank(group, scale: Scale) -> dict:
@@ -155,13 +246,16 @@ def f64_rank(group, scale: Scale) -> dict:
     out = dict(positions=fig["positions"], graphs=fig["graphs"],
                scans_per_s=fig["scans_per_s"],
                launches_f64=fig["launches_f64"], launches=fig["launches"],
-               dtype=str(pipe.x.pos.dtype), health=fig["health"])
+               dtype=str(pipe.x.pos.dtype), health=fig["health"],
+               iterations=fig["iterations"])
     if group.rank == 0:
         single = Pipeline(cfg, device=group.device)
         for _ in bench_scaling.run_scans(single, data, scale.scans):
             pass
         out.update(unsharded=_positions(single), unsharded_graphs=(
-            None if single.graphs is None else single.graphs.stats()))
+            None if single.graphs is None else single.graphs.stats()),
+                   unsharded_iterations=[int(d.iterations)
+                                         for d in single.diags])
     return out
 
 
@@ -246,8 +340,8 @@ def _profile_row(fig) -> Optional[dict]:
     keys = ("wall_ms_per_scan", "device_busy_ms_per_scan",
             "device_idle_share", "device_activities_per_scan",
             "host_syncs_per_scan", "knn_kernel_ms_per_scan",
-            "collective_kernels_per_scan")
-    return {k: prof[k] for k in keys}
+            "knn_search_launches_per_scan", "collective_kernels_per_scan")
+    return {**{k: prof[k] for k in keys}, **fig["executed"]}
 
 
 def dryrun_row(ranks: list) -> dict:
@@ -287,11 +381,19 @@ def ouster64_row(ranks: list, scale: Scale, name: str, card: str) -> dict:
         "jax_map_dropped": (None if scale.jax_ref is None
                             else scale.jax_ref["dropped"]),
         "iterations_mean": cap0["iterations_mean"],
+        # the gated graph's collectives a scan, the same on every rank
+        "collectives_equal_on_every_rank": all(
+            _collectives(r["captured"]) == _collectives(cap0) for r in ranks),
+        "ranks_bit_identical": all(
+            np.array_equal(r[m]["positions"], ranks[0][m]["positions"])
+            for r in ranks for m in ("captured", "eager")),
         "max_pos_diff_captured_vs_eager_m": d_eager, "tol_m": POS_TOL_M,
         "stage_times_s_by_rank": [r["stage_times"] for r in ranks],
         "pose_covariance_diag": np.diag(ranks[0]["pose_covariance"]).tolist(),
         "card": card,
     }
+    if on_card:
+        if_node_row([r["if_node"] for r in ranks], f"{name}_if_node_probe")
     log(row)
     for mode in ("captured", "eager"):
         figs = [r[mode] for r in ranks]
@@ -305,9 +407,13 @@ def ouster64_row(ranks: list, scale: Scale, name: str, card: str) -> dict:
     check(steps >= scale.scans - 2, f"{name}: {steps} estimates")
     check(d_eager <= POS_TOL_M,
           f"{name}: captured and eager positions differ {d_eager} m")
+    check(row["collectives_equal_on_every_rank"],
+          f"{name}: the ranks ran other collectives a scan")
     for r in ranks:
         cap, eager = r["captured"], r["eager"]
-        check(cap["launches"] == eager["launches"],
+        # the gated graph skips passes and re-searches the eager step runs
+        check(all(cap["launches"][k] <= eager["launches"][k]
+                  for k in eager["launches"]),
               f"{name}: rank {cap['rank']} launched {cap['launches']} "
               f"captured, {eager['launches']} eager")
         check(all(v > 0 for v in r["stage_times"].values()),
@@ -329,14 +435,26 @@ def ouster64_row(ranks: list, scale: Scale, name: str, card: str) -> dict:
             check(prof["host_syncs_per_scan"] == 0,
                   f"{name} {mode}: rank {cap['rank']} "
                   f"{prof['host_syncs_per_scan']} host syncs a scan")
-        # one rank's collectives are copies; across cards, NCCL kernels
+        # one rank's collectives are copies; across cards, NCCL kernels,
+        # fewer where the gates skip passes and re-searches
         coll = [r[mode]["profile"]["collective_kernels_per_scan"]
                 for mode in ("captured", "eager")]
-        check(coll[0] == coll[1] and (len(ranks) == 1
-                                      or min(coll[0].values()) > 0),
+        check(all(coll[0][k] <= coll[1][k] for k in coll[1])
+              and (len(ranks) == 1 or min(coll[0].values()) > 0),
               f"{name}: rank {cap['rank']} collectives' kernels a scan "
               f"{coll[0]} captured, {coll[1]} eager")
+        ex = cap["executed"]
+        check(ex["knn_search_launches_counted_per_scan"]
+              == r["captured"]["profile"]["knn_search_launches_per_scan"],
+              f"{name}: rank {cap['rank']} kNN launches counted {ex}, "
+              f"profiled {r['captured']['profile']}")
     return row
+
+
+def _collectives(fig) -> Optional[dict]:
+    """The NCCL kernels a scan of a profiled run (None off a card)."""
+    prof = fig.get("profile")
+    return None if prof is None else prof["collective_kernels_per_scan"]
 
 
 def f64_row(ranks: list, name: str) -> dict:
@@ -358,8 +476,20 @@ def f64_row(ranks: list, name: str) -> dict:
            "scans_per_s_synced": [r["scans_per_s"] for r in ranks],
            "max_pos_diff_vs_unsharded_m": float(diff.max()),
            "worst_scan": int(np.argmax(diff.max(axis=1))),
-           "tol_m": F64_TOL_M, "health": r0["health"]}
+           "tol_m": F64_TOL_M, "health": r0["health"],
+           # the gated passes a scan (the iterations), the unsharded
+           # step's on the scans where it updates (not the first: the
+           # sharded step updates then too, finding no point in the empty
+           # map, as JAX's sharded step does)
+           "iterations_equal_unsharded": all(
+               len(r["iterations"]) == len(r0["unsharded_iterations"])
+               and all(a == b for a, b in zip(r["iterations"],
+                                              r0["unsharded_iterations"])
+                       if b > 0) for r in ranks),
+           "iterations_mean": float(np.mean(r0["iterations"]))}
     log(row)
+    check(row["iterations_equal_unsharded"],
+          f"{name}: the passes a scan differ from the unsharded run's")
     check(r0["dtype"] == "torch.float64", f"{name}: {r0['dtype']}")
     check(all(np.array_equal(r["positions"], r0["positions"]) for r in ranks),
           f"{name}: the ranks' trajectories differ")

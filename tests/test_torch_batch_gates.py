@@ -1,0 +1,188 @@
+"""The fleet's gates (``control_flow.any_lane``, ``gate``'s rule for a
+batched predicate, ``loop_pass``), on the CPU.
+
+* ``any_lane`` under ``torch.func.vmap`` is JAX's ``reduce_or`` over the
+  lanes: one unbatched () bool equal to ``pred.any()``; outside vmap, and
+  for an unbatched input, the flag itself.
+* Inside ``gated_capture`` a batched predicate takes the masked form (a
+  select, as JAX's ``lax.cond`` under ``jax.vmap``) and records nothing; an
+  unbatched one records an IF node, also under vmap; ``loop_pass`` with a
+  batched ``active`` records its IF node on ``any_lane(active)``.
+* The gated fleet with each IF node a host branch (``if bool(pred):
+  body``): a float64 ``BatchPipeline`` on the small wide run, three lanes
+  drawn with other range noise (so their iterations differ) and one that
+  ends early, equals the masked batch bit for bit; each lane's iterations
+  equal the JAX package's vmapped ``BatchPipeline``'s; the passes a round
+  are the most any lane ran, and ``max_iteration + 1`` in a round with a
+  lane that does not update (the first round, and the ended stream's
+  no-op lane, whose loop never exits, as in JAX); the positions are within
+  the batch step's float64 tolerance of JAX's (1e-8,
+  ``tests/test_torch_batch_step.py``).
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from fast_lio_tpu_torch import config as tcfg
+from fast_lio_tpu_torch import control_flow as cf
+from fast_lio_tpu_torch import sim as tsim
+from fast_lio_tpu_torch.batch import BatchPipeline
+from test_torch_batch import _feed_batch, _positions
+from test_torch_control_flow import SMALL_WIDE
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+F64_TOL = 1e-8  # tests/test_torch_batch_step.py's float64 bound
+
+
+def test_any_lane_is_an_unbatched_reduce_or_under_vmap():
+    rng = np.random.default_rng(0)
+    for pred in (torch.from_numpy(rng.random(5) < 0.3),
+                 torch.zeros(3, dtype=torch.bool)):
+        seen = []
+
+        def lane(p):
+            got = cf.any_lane(p)
+            seen.append((cf.batched(p), cf.batched(got), got.shape, got))
+            return p
+
+        torch.func.vmap(lane)(pred)
+        (p_batched, got_batched, shape, got), = seen
+        assert p_batched and not got_batched and shape == ()
+        assert torch.equal(got, pred.any())
+    one = torch.tensor(True)
+    assert torch.equal(cf.any_lane(one), one)
+    shared = torch.tensor(False)  # unbatched inside vmap: the flag itself
+    out = []
+    torch.func.vmap(lambda v: out.append(cf.any_lane(shared)) or v)(
+        torch.zeros(4))
+    assert not cf.batched(out[0]) and torch.equal(out[0], shared)
+
+
+def test_a_batched_predicate_stays_masked_in_a_gated_capture(monkeypatch):
+    recorded = []
+
+    def host_if(pred, fn):
+        recorded.append(bool(pred))
+        if bool(pred):
+            fn()
+
+    monkeypatch.setattr(cf, "_record_if", host_if)
+    flags = torch.tensor([True, False, True])
+    vals = torch.arange(3.0)
+
+    def body(c):
+        return (c[0] * 2 + 1,)
+
+    def lane(f, v):
+        carry = cf.own((v.clone(),))
+        masked = cf.gate(f, body, carry)[0]
+        shared = cf.gate(torch.tensor(True), body, cf.own((v.clone(),)))[0]
+        passed = cf.loop_pass(f, body, cf.own((v.clone(),)))[0]
+        return masked, shared, passed
+
+    with cf.gated_capture("cpu"):
+        masked, shared, passed = torch.func.vmap(lane)(flags, vals)
+    # the batched gate recorded nothing; the unbatched gate and the pass
+    # (on any_lane of the flags: True) recorded one IF node each
+    assert recorded == [True, True]
+    want = torch.where(flags, vals * 2 + 1, vals)
+    assert torch.equal(masked, want) and torch.equal(passed, want)
+    assert torch.equal(shared, vals * 2 + 1)
+
+    recorded.clear()
+    with cf.gated_capture("cpu"):  # no lane active: the pass is skipped
+        _, _, passed = torch.func.vmap(lane)(torch.zeros(3, dtype=torch.bool),
+                                             vals)
+    assert recorded == [True, False] and torch.equal(passed, vals)
+
+
+def _fleet_data():
+    """Three streams of the small wide run with other range noise (seeds
+    0-2), the third ending three scans early."""
+    datas = [tsim.generate(tsim.SimConfig(duration=1.3, n_rings=8,
+                                          n_azimuth=200, range_noise=0.01,
+                                          seed=s)) for s in range(3)]
+    k = len(datas[2].scans) - 3
+    datas[2] = dataclasses.replace(
+        datas[2], scans=datas[2].scans[:k],
+        scan_pt_times=datas[2].scan_pt_times[:k],
+        scan_stamps=datas[2].scan_stamps[:k])
+    return datas
+
+
+def test_host_branch_fleet_gates_equal_the_masked_batch_and_jax(monkeypatch):
+    """The gated fleet's semantics on the CPU: each IF node a host branch."""
+    from fast_lio_tpu.batch import BatchPipeline as JBatchPipeline
+    from fast_lio_tpu.config import Config as JConfig
+    from fast_lio_tpu.config import LidarType as JLidarType
+
+    cfg = tcfg.Config(lidar_type=tcfg.LidarType.AVIA, compute_dtype="float64",
+                      **SMALL_WIDE)
+    datas = _fleet_data()
+    B = len(datas)
+    masked = BatchPipeline(cfg, B, device="cpu")
+    rounds = _feed_batch(masked, datas)
+
+    passes = []  # per round: the IF nodes taken (every one is a pass)
+
+    def host_if(pred, fn):
+        assert not cf.batched(pred)
+        passes[-1].append(bool(pred))
+        if bool(pred):
+            fn()
+
+    gated = BatchPipeline(cfg, B, device="cpu")
+    step = gated._batched_step
+
+    def round_(buf):
+        passes.append([])
+        return step(buf)
+
+    gated._batched_step = round_
+    monkeypatch.setattr(cf, "_record_if", host_if)
+    with cf.gated_capture("cpu"):
+        assert _feed_batch(gated, datas) == rounds
+    monkeypatch.undo()
+
+    for i in range(B):
+        tm, tg = masked.get_trajectory(i), gated.get_trajectory(i)
+        assert len(tm) == len(tg) >= 8
+        assert all(a[0] == b[0] and np.array_equal(a[1], b[1])
+                   and np.array_equal(a[2], b[2]) for a, b in zip(tm, tg))
+    # the no-op lane's state is not finite after its end (as JAX's):
+    # equal where finite, and not finite at the same places
+    for a, b in zip((*masked.x, masked.P, masked.map.rows),
+                    (*gated.x, gated.P, gated.map.rows)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+    # per round and lane: iterations, 0 where the lane did not update (the
+    # first round, and the ended stream's no-op lane, which records none)
+    iters = np.zeros((rounds, B), np.int64)
+    for i in range(B):
+        its = [d.iterations for d in gated.get_diags(i)]
+        assert its == [d.iterations for d in masked.get_diags(i)]
+        iters[:len(its), i] = its
+    n_pass = cfg.max_iteration + 1
+    assert all(len(p) == n_pass for p in passes)
+    # a pass runs only after the passes before it: the taken ones lead
+    assert all(p == sorted(p, reverse=True) for p in passes)
+    ran = [sum(p) for p in passes]
+    want = [int(r.max()) if r.min() > 0 else n_pass for r in iters]
+    assert ran == want
+    live = [r for r, row in enumerate(iters) if row.min() > 0]
+    assert any(ran[r] < n_pass for r in live)  # an early exit
+    assert any(len(set(iters[r])) > 1 for r in live)  # lanes that differ
+    ended = len(gated.get_trajectory(2))
+    assert ended < rounds and all(ran[r] == n_pass
+                                  for r in range(ended, rounds))
+
+    jbp = JBatchPipeline(JConfig(lidar_type=JLidarType.AVIA,
+                                 compute_dtype="float64", **SMALL_WIDE), B)
+    assert _feed_batch(jbp, datas) == rounds
+    for i in range(B):
+        assert [int(d.iterations) for d in jbp.get_diags(i)] == [
+            d.iterations for d in gated.get_diags(i)]
+        np.testing.assert_allclose(
+            _positions(gated.get_trajectory(i)),
+            _positions(jbp.get_trajectory(i)), rtol=0, atol=F64_TOL)

@@ -30,7 +30,9 @@ from fast_lio_tpu_torch import config as tcfg
 from fast_lio_tpu_torch import convert
 from fast_lio_tpu_torch import pipeline as tpipe
 from fast_lio_tpu_torch.batch import BatchPipeline
+from fast_lio_tpu_torch.kernels import counts, graph_if
 from fast_lio_tpu_torch.kernels import knn as tknn
+from fast_lio_tpu_torch.step_graph import StepGraphs
 from test_torch_batch import KW, _feed_batch, _feed_single, _positions
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -333,25 +335,81 @@ def _card_run(n_streams, duration=1.6):
 def test_cuda_captured_batch_matches_captured_single_pipelines():
     """The captured batched step (AVIA preset, B = 3, stream 2 shorter)
     against three single captured Pipelines on the card: 5 mm per scan,
-    one graph for the fleet, one batched kNN launch a search."""
+    one graph for the fleet, one batched kNN launch a search, and the
+    passes a round (counted on the device) those of JAX's batched
+    ``while_loop``."""
     _card()
     cfg, datas = _card_run(3)
     datas[2] = dataclasses.replace(datas[2], scans=datas[2].scans[:10],
                                    scan_stamps=datas[2].scan_stamps[:10])
     singles = [_feed_single(tpipe.Pipeline(cfg), d) for d in datas]
     bp = BatchPipeline(cfg, 3)
-    before = (tknn.launches[8], tknn.batched_launches[8])
+    counts.settle()
+    before = (tknn.launches[8], tknn.batched_launches[8], graph_if.launches[0])
     rounds = _feed_batch(bp, datas)
+    counts.settle()
     stats = bp.graphs.stats()
-    assert len(stats) == 1 and all(s["replays"] > 0 for s in stats.values())
-    per_round = next(iter(stats.values()))["launches_per_replay"]
-    assert tknn.batched_launches[8] - before[1] == per_round * rounds
+    assert len(stats) == 1 and all(s["replays"] > 0 and s["gated"]
+                                   for s in stats.values())
+    n_pass = cfg.max_iteration + 1
+    # outside the IF nodes a replay launches the passes' set kernels, one
+    # a pass, each replay
+    (st,) = stats.values()
+    assert st["launches_per_replay"] == n_pass
+    assert graph_if.launches[0] - before[2] == st["replays"] * n_pass
+    # every pass runs one batched R = 8 search (under vmap the re-search
+    # is a select), inside its IF node, counted on the device only where
+    # the node runs: the passes run.  JAX's batched while_loop runs the
+    # most any lane ran, and every pass in a round with a lane that does
+    # not update (the first round, whose eager step runs them all, and
+    # the ended stream's no-op lane)
+    iters = np.zeros((rounds, 3), np.int64)
+    for i in range(3):
+        its = [d.iterations for d in bp.get_diags(i)]
+        iters[:len(its), i] = its
+    want = np.where(iters.min(axis=1) > 0, iters.max(axis=1), n_pass)
+    searches = tknn.batched_launches[8] - before[1]
+    assert searches == want.sum()
+    assert rounds <= searches < rounds * n_pass  # an early exit
     assert tknn.launches[8] == before[0]  # no single launch
     for i in range(3):
         got = _positions(bp.get_trajectory(i))
         want = _positions(singles[i].get_trajectory())
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_cuda_gated_fleet_equals_masked_fleet_bit_for_bit():
+    """Under ``torch.use_deterministic_algorithms`` (the downsample's
+    ``index_add_`` sums atomically otherwise, in another order each run)
+    the fleet's gated graph (its passes IF nodes, run while any lane is
+    active) computes what its masked graph computes, bit for bit, with the
+    same iterations lane by lane, stream 2 ending early (its no-op lane
+    keeps every pass running, as JAX's)."""
+    _card()
+    cfg, datas = _card_run(3, duration=1.2)
+    datas[2] = dataclasses.replace(datas[2], scans=datas[2].scans[:8],
+                                   scan_stamps=datas[2].scan_stamps[:8])
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("gated", "masked"):
+            bp = BatchPipeline(cfg, 3)
+            if mode == "masked":
+                bp.graphs = StepGraphs(bp.device, gates=False)
+            _feed_batch(bp, datas)
+            runs[mode] = bp
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for i in range(3):
+        got = _positions(runs["gated"].get_trajectory(i))
+        assert np.isfinite(got).all() and len(got) >= 6
+        np.testing.assert_array_equal(
+            got, _positions(runs["masked"].get_trajectory(i)))
+        assert [d.iterations for d in runs["gated"].get_diags(i)] == [
+            d.iterations for d in runs["masked"].get_diags(i)]
+    assert all(s["gated"] for s in runs["gated"].graphs.stats().values())
 
 
 @pytest.mark.cuda

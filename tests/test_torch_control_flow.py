@@ -34,6 +34,7 @@ imports it lazily).
 """
 import dataclasses
 import itertools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -158,8 +159,14 @@ def test_a_gated_capture_that_cannot_record_raises():
             cf.gate(torch.tensor(True), lambda c: (c[0] + 1,), carry)
         assert cf.own(carry)[0] is not carry[0]
     assert not cf.gating() and torch.equal(carry[0], torch.zeros(3))
-    with pytest.raises(ValueError, match="without gates"):
-        StepGraphs("cpu", group=object(), gates=True)
+    # a group whose collectives no graph can record (gloo) still refuses a
+    # gated capture; an NCCL group takes one (its gates hold collectives)
+    # (gates=True is the default)
+    gloo = SimpleNamespace(backend="gloo", capturable=False)
+    with pytest.raises(ValueError, match="cannot be recorded"):
+        StepGraphs("cpu", group=gloo)
+    nccl = SimpleNamespace(backend="nccl", capturable=True)
+    assert StepGraphs("cpu", group=nccl).gates
 
 
 def _feed(pipe, data):

@@ -113,6 +113,21 @@ def test_packed_bit_identical_after_scans_of_inserts(dtype):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_points_matches_jax(dtype):
+    cfg = thm.MapConfig(h_log2=5, bucket_slots=8, cell_size=2.0,
+                        voxel_size=0.5)
+    rows = np.random.default_rng(54).normal(
+        size=(cfg.num_buckets, 4 * cfg.bucket_slots)).astype(dtype)
+    tm = thm.from_packed(torch.tensor(rows),
+                         torch.zeros((), dtype=torch.int32))
+    jm = jhm.Map(packed=jnp.asarray(rows), dropped=jnp.zeros((), jnp.int32))
+    got = thm.points(tm, cfg)
+    assert got.shape == (cfg.num_buckets, cfg.bucket_slots, 3)
+    want = jhm.points(jm, jhm.MapConfig(*cfg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_prune_outside_matches_jax_and_gates():
     cfg = thm.MapConfig(h_log2=8, bucket_slots=16, cell_size=2.0, voxel_size=0.5)
     pts = _world_scans(1)[0]

@@ -140,6 +140,18 @@ def test_state_ops_match_jax(dt):
            jst.normalize_grav(jnp.asarray(g)), rtol, atol)
 
 
+@pytest.mark.parametrize("to", ["float32", "float64"])
+def test_astype_matches_jax(to):
+    rng = np.random.default_rng(15)
+    ja, ta = _rand_states(rng, np.float64)
+    got = tst.astype(ta, getattr(torch, to))
+    want = jst.astype(ja, jnp.dtype(to))
+    assert type(got) is tst.State
+    for g, w in zip(got, want):
+        assert g.dtype == getattr(torch, to)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_state_constants_and_identity():
     assert tst.S2_LENGTH == jst.S2_LENGTH == 9.809
     assert tst.G_M_S2 == jst.G_M_S2 == 9.81

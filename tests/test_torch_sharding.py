@@ -19,7 +19,11 @@ after the update round map size and effective points are equal, and the
 state and covariance within 1e-8 of JAX's single-device step: in f64 no gate
 flips, and only the order of the summed reductions differs (gloo's ring
 against one matmul).  At one rank the sharded step is bit-equal to the
-port's unsharded step.
+port's unsharded step.  Each case runs again with the step's gates as in a
+captured NCCL rank, each IF node a host branch: bit-equal to the masked
+step, the same predicates on every rank (all-gathered), the state within
+1e-8 of JAX's.  On cards (``cuda``): NCCL collectives inside an IF node at
+one and four ranks (``multicard.if_node_rank``).
 """
 import functools
 import time
@@ -204,6 +208,30 @@ def test_sharded_step_matches_jax(name, eight_ranks):
 
 
 @pytest.mark.parametrize("name", list(w.CASES))
+def test_host_branch_sharded_gates_equal_the_masked_step_and_jax(
+        name, eight_ranks):
+    """The sharded step's gates (each IF node a host branch) on the 8 gloo
+    ranks: bit for bit the masked step, every rank seeing the same
+    predicates in the same order (so on NCCL ranks every rank runs or skips
+    each IF node's collectives together), some of them False (passes after
+    the exit, a prune of a cube that did not move), and the state within
+    1e-8 of JAX's single-device step."""
+    out_j = _jax_case(name)[3]
+    ranks = eight_ranks.result()
+    for r in ranks:
+        g = r[name]["gated"]
+        assert g["equal"] == dict(x=True, P=True, map=True, diag=True)
+        assert g["same_on_every_rank"] and g["ifs"] == ranks[0][name][
+            "gated"]["ifs"]
+        assert 0 < g["skipped"] < g["ifs"]
+    g = ranks[0][name]["gated"]
+    assert g["iters"] == int(out_j[6]["iters"])
+    x_j = tst.State(*(torch.tensor(np.asarray(v)) for v in out_j[0]))
+    x_t = tst.State(**{f: torch.tensor(v) for f, v in g["x"].items()})
+    np.testing.assert_allclose(tst.boxminus(x_t, x_j).numpy(), 0.0, atol=1e-8)
+
+
+@pytest.mark.parametrize("name", list(w.CASES))
 def test_one_rank_step_equals_unsharded_step(name, eight_ranks):
     assert eight_ranks.result()[0]["one_rank"][name] == dict(
         x=True, P=True, map=True, diag=True)
@@ -328,3 +356,21 @@ def test_cuda_one_nccl_rank_equals_unsharded_run():
     assert res["sharded"].shape == res["unsharded"].shape
     assert np.isfinite(res["sharded"]).all()
     assert np.abs(res["sharded"] - res["unsharded"]).max() <= POS_TOL_M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+def test_cuda_collectives_inside_an_if_node(world):
+    """On NCCL ranks, one card each: an all-reduce and an all-gather
+    recorded inside a CUDA-graph IF node (``multicard.if_node_rank``) run
+    where the predicate holds and leave their outputs alone where it does
+    not, on every rank."""
+    from fast_lio_tpu_torch.tools import multicard as mc
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    res = launch(mc.if_node_rank, world, backend="nccl", timeout_s=300.0)
+    for r in res:
+        assert r["error"] is None, r["error"]
+        assert [p["flag"] for p in r["replays"]] == list(mc.IF_PROBE_FLAGS)
+        assert all(p["ok"] for p in r["replays"]), r["replays"]

@@ -559,6 +559,34 @@ def test_capture_default_by_device_and_group():
     assert not any(group("gloo", d).capturable for d in (cuda, cpu))
 
 
+def test_nccl_group_drains_between_graph_and_eager_launches(monkeypatch):
+    """NCCL runs with graph mixing support off: a group drains the card
+    where a graph replay follows an eager collective or the reverse, never
+    between two launches of one kind, nor while capturing; gloo never."""
+    syncs, capturing = [], [False]
+    monkeypatch.setattr(torch.cuda, "synchronize", syncs.append)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    cuda = torch.device("cuda", 0)
+    g = ShardGroup(None, 0, 1, cuda, "nccl")
+    for kind, drains in (("eager", 0), ("eager", 0), ("graph", 1),
+                         ("graph", 1), ("eager", 2), ("graph", 3)):
+        g.launching(kind)
+        assert g.in_flight.drains == drains and len(syncs) == drains
+    capturing[0] = True  # a capture records its collectives: no launch
+    g.launching("eager")
+    assert g.in_flight.kind == "graph" and len(syncs) == 3
+    assert syncs == [cuda] * 3
+    capturing[0] = False
+    other = ShardGroup(None, 0, 1, cuda, "nccl")  # a group of its own
+    other.launching("graph")
+    assert other.in_flight.drains == 0 and g.in_flight.drains == 3
+    gloo = ShardGroup(None, 0, 1, cuda, "gloo")
+    for kind in ("eager", "graph", "eager"):
+        gloo.launching(kind)
+    assert gloo.in_flight.kind is None and len(syncs) == 3
+
+
 def test_state_lives_in_place_and_kept_outputs_are_copies():
     """``load_state`` writes into the pipeline's tensors (the ones a graph
     reads); what a scan keeps does not change under later scans."""
@@ -763,17 +791,20 @@ def nccl_rank(tmp_path_factory):
 
 @pytest.mark.cuda
 def test_cuda_nccl_rank_captures_one_graph_per_bucket(nccl_rank):
-    """A sharded pipeline on an NCCL rank captures by default: one graph per
-    pad bucket, replayed for every later step, its kNN launches counted
-    through the replays as the eager step's."""
+    """A sharded pipeline on an NCCL rank captures by default: one gated
+    graph per pad bucket, replayed for every later step, its kNN launches
+    counted as run (in its IF nodes, on the device), at most the eager
+    step's, which runs every pass and re-search."""
     r = nccl_rank
     assert r["transport"] == "nccl" and r["device"].startswith("cuda")
     graphs, steps = r["graphs"], len(r["captured"])
     assert 1 <= len(graphs) <= len(r["pad_buckets"])
     assert sum(g["replays"] for g in graphs.values()) == steps - len(graphs)
     assert all(g["launches_per_replay"] > 0 for g in graphs.values())
+    assert all(g["gated"] for g in graphs.values())
     assert r["eager_graphs"] is None
-    assert r["captured_launches"] == r["eager_launches"]
+    assert all(n <= r["eager_launches"][k]
+               for k, n in r["captured_launches"].items())
     assert r["captured_launches"][8] > 0
 
 
@@ -798,6 +829,50 @@ def test_cuda_state_loaded_into_a_captured_nccl_rank(nccl_rank, how):
     assert got["had_graphs"]
     a, b = nccl_rank["captured"], got["positions"]
     assert a.shape == b.shape
+    assert np.abs(a - b).max() <= POS_TOL_M
+
+
+@pytest.fixture(scope="module", params=[1, 4], ids=lambda n: f"world{n}")
+def two_bucket_ranks(request):
+    """``torch_shard_workers.two_bucket_rank`` on n NCCL ranks, one card
+    each; skips unless there are n cards."""
+    _card()
+    n = request.param
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, one a rank")
+    return launch(w.two_bucket_rank, n, backend="nccl")
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_ranks_capture_a_second_bucket_after_replays(
+        two_bucket_ranks):
+    """A sharded pipeline on NCCL ranks meets its second pad bucket after
+    replays of the first: the group drains the replays before the eager
+    all-gather and warm-up of the new bucket (NCCL's graph mixing support
+    is off), never in the steady state (run under
+    ``set_sync_debug_mode("error")``), and again before ``health_check``'s
+    eager all-reduce.  Both buckets are captured gated and replayed; the
+    ranks' trajectories are bit-identical and within 5 mm per scan of the
+    unsharded captured run."""
+    first, steady = w.TWO_BUCKET_FIRST, w.TWO_BUCKET_STEADY
+    r0 = two_bucket_ranks[0]
+    assert r0["pads"][first] == 2048 and r0["pads"][first + 1] == 1024
+    for r in two_bucket_ranks:
+        graphs = r["graphs"]  # by feed buffer length
+        assert len(graphs) == 2
+        assert all(g["gated"] and g["replays"] > 0 for g in graphs.values())
+        # the scan that captured the second bucket, after the first's
+        # replays: the drains grew there, and not after it
+        k = r["n_graphs"].index(2)
+        assert first <= k < steady - 1 and r["n_graphs"][k - 2] == 1
+        d = r["drains"]
+        assert d[k] > d[k - 1]
+        assert d[k] == d[steady - 1] == r["steady_drains"]
+        assert r["health_drains"] == r["steady_drains"] + 1
+        assert not r["health"]["nan"]
+        np.testing.assert_array_equal(r["positions"], r0["positions"])
+    a, b = r0["positions"], r0["unsharded"]
+    assert a.shape == b.shape and len(a) >= 15 and np.isfinite(a).all()
     assert np.abs(a - b).max() <= POS_TOL_M
 
 

@@ -5,6 +5,7 @@ same for the JAX side of the tests (``tests/test_torch_sharding.py``,
 ``tests/test_torch_distributed.py``)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from pathlib import Path
@@ -14,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 from fast_lio_tpu_torch import config as tcfg
+from fast_lio_tpu_torch import control_flow as tcf
 from fast_lio_tpu_torch import convert as tconvert
 from fast_lio_tpu_torch import imu as timu
 from fast_lio_tpu_torch import pipeline as tpipe
@@ -129,11 +131,45 @@ def _two_rounds(step, m, init, ins1, ins2, device, after_round1=None):
     return x, P, m, d
 
 
+@contextlib.contextmanager
+def host_branch_ifs(device, flags: list):
+    """Within: a gated capture on ``device`` whose IF nodes are host
+    branches (``if bool(pred): body``), each predicate appended to
+    ``flags``: the gated step's semantics where no graph records."""
+    real = tcf._record_if
+
+    def host_if(pred, fn):
+        flags.append(bool(pred))
+        if flags[-1]:
+            fn()
+
+    tcf._record_if = host_if
+    try:
+        with tcf.gated_capture(device):
+            yield
+    finally:
+        tcf._record_if = real
+
+
+def same_on_every_rank(group: ShardGroup, flags: list) -> bool:
+    """Whether every rank of ``group`` saw the sequence ``flags`` (one
+    all-gather of the lengths, one of the flags)."""
+    dev = group.device
+    n = group.all_gather(torch.tensor([len(flags)], device=dev))
+    if not bool((n == len(flags)).all()):
+        return False
+    seen = group.all_gather(torch.tensor(flags, dtype=torch.int32, device=dev))
+    return bool((seen == seen[0]).all())
+
+
 def sharding_cases(group: ShardGroup, init, ins1, ins2) -> dict:
     """Every rank: each case of CASES on the whole group (round-1 global
-    map, merged kNN on it, round-2 state); then ``sharding.dryrun_rank``;
-    then, on rank 0 in a group of its own, each case at one rank against the
-    port's unsharded ``lio_step`` (bit-equal or not)."""
+    map, merged kNN on it, round-2 state), masked, and again gated with its
+    IF nodes host branches (``host_branch_ifs``), against the masked run
+    (bit-equal or not) and its predicates against every rank's; then
+    ``sharding.dryrun_rank``; then, on rank 0 in a group of its own, each
+    case at one rank against the port's unsharded ``lio_step`` (bit-equal
+    or not)."""
     dev = group.device
     map_cfg = thm.make_config(**step_map_cfg())
     lcfg = tshd.local_map_cfg(map_cfg, group.world)
@@ -167,11 +203,26 @@ def sharding_cases(group: ShardGroup, init, ins1, ins2) -> dict:
 
         step = lambda *a, do_update: tshd.sharded_lio_step(  # noqa: E731
             cfg, map_cfg, group, *a, do_update=do_update)
-        x, P, _m, d = _two_rounds(step, tshd.make_sharded_map(map_cfg, group, DT),
-                                  init, ins1, ins2, dev, after_round1)
+        x, P, m, d = _two_rounds(
+            step, tshd.make_sharded_map(map_cfg, group, DT), init, ins1,
+            ins2, dev, after_round1)
+        flags = []
+        with host_branch_ifs(dev, flags):
+            xg, Pg, mg, dg = _two_rounds(
+                step, tshd.make_sharded_map(map_cfg, group, DT), init, ins1,
+                ins2, dev)
+        gated = dict(
+            x={f: v.cpu().numpy() for f, v in zip(xg._fields, xg)},
+            equal=dict(x=all(torch.equal(a, b) for a, b in zip(x, xg)),
+                       P=torch.equal(P, Pg),
+                       map=torch.equal(m.packed, mg.packed),
+                       diag=all(int(d[k]) == int(dg[k]) for k in d)),
+            ifs=len(flags), skipped=flags.count(False),
+            iters=int(dg["iters"]), same_on_every_rank=same_on_every_rank(
+                group, flags))
         out[name] = dict(seen, x={f: v.cpu().numpy() for f, v in zip(x._fields, x)},
                          P=P.cpu().numpy(), map_size=int(d["map_size"]),
-                         n_eff=int(d["n_eff"]))
+                         n_eff=int(d["n_eff"]), gated=gated)
     out["dryrun"] = tshd.dryrun_rank(group)
 
     # one rank: a group of rank 0 alone (every rank creates every group)
@@ -373,7 +424,7 @@ def capture_shape_check(group: ShardGroup) -> dict:
     """``StepGraphs``' check before a capture, on the group's device: the
     ranks about to capture the same feed shape pass, other shapes raise
     (on every rank).  Returns {"same": error or None, "other": ...}."""
-    graphs = StepGraphs(group.device, group)
+    graphs = StepGraphs(group.device, group, gates=False)  # gloo ranks
     out = {}
     for case, n in (("same", 1000), ("other", 1000 + group.rank)):
         try:
@@ -530,14 +581,14 @@ CAPTURED_WARM, HANDOVER_AT = 6, 9  # scans
 
 def captured_rank(group: ShardGroup, outdir: str) -> dict:
     """On a card, one NCCL rank, the avia preset on 22 sim scans: the
-    sharded pipeline captured (its default), the scans after the first
+    sharded pipeline captured (its default, gated), the scans after the first
     ``CAPTURED_WARM`` under ``set_sync_debug_mode("error")``; the same
     scans eager (``graphs=False``) and through the unsharded pipeline
     (captured); and two captured sharded pipelines that have run 4 scans
     take the state of a run at scan ``HANDOVER_AT``, by a checkpoint and by
     ``convert``'s handover, and run the rest.  Returns the positions, the
     kNN launches of the captured and eager runs, and the graphs' stats."""
-    from fast_lio_tpu_torch.kernels import knn
+    from fast_lio_tpu_torch.kernels import counts, knn
 
     cfg = tcfg.PRESETS["avia"]
     data = tsim.generate(tsim.SimConfig(duration=2.2, n_rings=32,
@@ -547,6 +598,7 @@ def captured_rank(group: ShardGroup, outdir: str) -> dict:
         return np.stack([p for _, p, _ in pipe.get_trajectory()])
 
     def run(pipe, warm=len(data.scans)):
+        counts.settle()  # a gated graph's launches, counted as run
         for r in knn.launches:
             knn.launches[r] = 0
         feed(pipe, data, 0, warm)
@@ -556,6 +608,7 @@ def captured_rank(group: ShardGroup, outdir: str) -> dict:
             feed(pipe, data, warm)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        counts.settle()
         return dict(knn.launches)
 
     out = {"transport": group.transport, "device": str(group.device)}
@@ -580,6 +633,65 @@ def captured_rank(group: ShardGroup, outdir: str) -> dict:
         take_over(target, src, how, Path(outdir) / "captured_rank.npz")
         feed(target, data, HANDOVER_AT)
         out[how] = dict(positions=positions(target), had_graphs=had_graphs)
+    return out
+
+
+# two_bucket_rank: scans fed to the large bucket first (its capture and
+# replays), then every other scan cut to half its points (the small bucket,
+# captured after those replays); the scans from TWO_BUCKET_STEADY on run
+# under set_sync_debug_mode("error")
+TWO_BUCKET_FIRST, TWO_BUCKET_STEADY = 6, 10
+
+
+def two_bucket_rank(group: ShardGroup) -> dict:
+    """On a card, every NCCL rank: a small float32 avia run with two pad
+    buckets, the small one captured after replays of the large one, where
+    the group drains the replays before its eager all-gather and warm-up
+    (``ShardGroup.launching``); the last scans under
+    ``set_sync_debug_mode("error")``; then ``health_check``, an eager
+    collective after replays.  Returns the positions, the graphs' stats,
+    the group's drains and graphs after each of the first scans, the
+    drains after the steady scans and after the health check, and on
+    rank 0 the same scans through the unsharded captured pipeline."""
+    cfg = tcfg.Config(lidar_type=tcfg.LidarType.AVIA, filter_size_surf=0.3,
+                      filter_size_map=0.3, n_points_max=2048, n_ds_max=1024,
+                      n_imu_max=32, map_h_log2=12, det_range=40.0,
+                      cube_side_length=300.0, pad_buckets=(1024, 2048))
+    data = tsim.generate(tsim.SimConfig(duration=2.0, n_rings=8,
+                                        n_azimuth=200, range_noise=0.01))
+    cut = [k >= TWO_BUCKET_FIRST and k % 2 == 1
+           for k in range(len(data.scans))]
+    data = dataclasses.replace(
+        data, scans=[sc[::2] if c else sc for sc, c in zip(data.scans, cut)],
+        scan_pt_times=[t[::2] if c else t
+                       for t, c in zip(data.scan_pt_times, cut)])
+
+    def positions(pipe):
+        return np.stack([p for _, p, _ in pipe.get_trajectory()])
+
+    pipe = tpipe.Pipeline(cfg, group=group)
+    drains, n_graphs = [], []
+    for k in range(TWO_BUCKET_STEADY):
+        feed(pipe, data, k, k + 1)
+        drains.append(group.in_flight.drains)
+        n_graphs.append(len(pipe.graphs.stats()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feed(pipe, data, TWO_BUCKET_STEADY)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    steady_drains = group.in_flight.drains
+    health = pipe.health_check()
+    out = dict(rank=group.rank, positions=positions(pipe),
+               graphs=pipe.graphs.stats(), pad_buckets=pipe.pad_buckets,
+               pads=[tpipe.pad_for(pipe.pad_buckets, len(sc)) for sc in data.scans],
+               drains=drains, n_graphs=n_graphs, steady_drains=steady_drains,
+               health_drains=group.in_flight.drains, health=health)
+    if group.rank == 0:
+        single = tpipe.Pipeline(cfg, device=group.device)
+        feed(single, data)
+        out["unsharded"] = positions(single)
     return out
 
 
@@ -633,3 +745,4 @@ def multicard_ranks(group: ShardGroup, outdir: str) -> dict:
                 resumed=mc.resume_rank(group, scale, outdir),
                 dryrun_f64=dryrun_step_f64(group),
                 collectives=collectives_per_step(group))
+
