@@ -5,7 +5,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, in order; any failed check exits non-zero:
+Phases, in order (but phases 13 and 17 run right after the build, see
+phase 17, and phase 15 beside phase 12, before 14); any failed check exits
+non-zero:
 
 1. build — compile every CUDA kernel of the port from ``csrc/`` (nvcc, one
    process per source, all started together) and print the build time.
@@ -175,9 +177,9 @@ Phases, in order; any failed check exits non-zero:
    gated graph, the batched kNN kernel launched (in IF nodes) and no single
    launch, no NaN, no drop, no truncation.
 
-15. fleet_ouster64 — phase 5's run as a two-stream ``BatchPipeline`` (stream
-   1 the same run cut to three quarters, so its lane ends early and runs
-   no-op packets), in float32 and float64: the batched kNN kernel at R = 8
+15. fleet_ouster64 (in a worker process) — phase 5's run as a two-stream
+   ``BatchPipeline`` (stream 1 the same run cut to three quarters, so its
+   lane ends early and runs no-op packets), in float32 and float64: the batched kNN kernel at R = 8
    and R = 27 (the wide fallback) in both types, each through the gated
    and the masked graph under ``torch.use_deterministic_algorithms``, the
    last rounds (the no-op lane riding along) profiled.  Checks: the two
@@ -213,17 +215,55 @@ Phases, in order; any failed check exits non-zero:
    Phases 13 and 17 run first, right after the build, their captured runs
    before their eager ones: in a process that had profiled several windows
    before (phase 2's microbenchmark among them), ``torch.profiler`` named
-   some kernels inside a gated graph's IF nodes wrongly (a fresh process
-   names them right), and phase 17 counts kNN kernels by name.
+   some kernels inside a gated graph's IF nodes wrongly and dropped some
+   activities (a fresh process names and counts them right), and phase 17
+   counts kNN kernels by name.  For the same reason phase 15, which counts
+   a gated graph's activities, runs in a worker process of its own.
+
+18. presets — the sensor presets no earlier phase runs, each unchanged (its
+   pads and map) on a 2 s sim run that fits the sensor
+   (``tools/scenarios.py`` ``preset_run``): horizon (81.7 x 25.1 deg
+   ahead, in velodyne_outdoor's hall), mid360 (360 x 59 deg; wide fallback), velodyne (16 rings
+   spinning clockwise; wide fallback) and marsim (no deskew, the packet's
+   end its stamp, five filter passes), through the packet API, captured:
+   ``GRAPH_WARM_SCANS`` scans one by one, the rest in one window under
+   ``set_sync_debug_mode("error")``.  Checks: ATE within the JAX package's
+   on the same run + 1 cm, phase 4's health checks, the R = 8 kernel and
+   IF nodes ran (R = 27 too with the wide fallback), and the per-query
+   kernel bit for bit its plain version at the run's shape (its last
+   scan's queries in its final map).  Then marsim eager and captured
+   under deterministic algorithms, the counters settled after every scan:
+   the filter passes the device ran (the IF nodes evaluated, less the
+   replay's two outermost and the update's five pass nodes) equal each
+   scan's iterations, which equal the eager run's (JAX's ``while_loop``);
+   the two bit-equal, and the natural captured run within 5 mm of them.
+19. scenarios — bench.py's mid360 (100 Hz, 1024/512 pads, partial-wide
+   budget 128; 200 scans) and velodyne_outdoor (20 scans), configs
+   unchanged, as phase 18 (checks too); mid360's last scans each drained
+   (``MID360_SYNCED_SCANS``: per-scan wall p50/p99 against bench.py's
+   10 ms budget, recorded, not held) and profiled (busy ms, activities,
+   no host sync).
+20. pointcloud2_bags — phase 18's velodyne and marsim runs and an Ouster
+   OS1-64 run (1024 x 64) written as ``sensor_msgs/PointCloud2`` bags
+   (``sim.write_pointcloud2_bag``: Velodyne with its time field and with
+   none, so the decoder reconstructs it from the azimuth; Ouster; MARSIM),
+   1.5 s each, replayed by ``fast_lio_tpu_torch.cli.main`` at the
+   presets (``scenarios.bag_argv``: ``--feature-extract-enable 1`` on the
+   timed Velodyne bag, ``--extrinsic-est-en 0`` on Ouster's,
+   ``--runtime-pos-log --profile`` on MARSIM's) with ``--health``.
+   Checks: an estimate a scan, ATE within the JAX package's runner on the
+   same bag + 1 cm, phase 4's health checks, every step after the warm
+   ones under ``set_sync_debug_mode("error")``, the R = 8 kernel and IF
+   nodes ran, the trace holds kernels and the pose log a row a pose.
 
 Every captured step is gated (IF nodes): the single pipeline's, the
 batch's (its passes; a predicate that differs from lane to lane stays a
 select, as JAX's ``vmap`` of ``lax.cond`` does) and the sharded step's on
 NCCL ranks (every predicate replicated, so the ranks run or skip each IF
 node's collectives together).
-Phases 3-9, 11, 12, 14 and 15 run the captured step (``Pipeline``'s
-default on CUDA, on one NCCL rank too); phases 9 and 13 hold it against the
-eager one; phase 10 (gloo) runs eagerly.
+Phases 3-9, 11, 12, 14, 15 and 18-20 run the captured step (``Pipeline``'s
+default on CUDA, on one NCCL rank too); phases 9, 13 and 18 (marsim) hold
+it against the eager one; phase 10 (gloo) runs eagerly.
 
 Phases 4 and 5 also print how many distinct bucket rows each tile of their
 searches stages in ``csrc/knn.cu`` (16 queries at R = 8, 8 at R = 27;
@@ -244,6 +284,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -251,9 +292,10 @@ import numpy as np
 import torch
 
 # The JAX package's ATE (raw, aligned) and map drops on the runs of phases 4,
-# 5 and 11 (same presets, same sim data; phase 6 is held to phase 5's), of
-# phase 7's bag replay and of phase 14's fleet (the JAX BatchPipeline over
-# the same rounds), computed once on a CPU by tests/torch_reference_ate.py.
+# 5, 11, 18 and 19 (same presets, same sim data; phase 6 is held to phase
+# 5's), of phases 7 and 20's bag replays and of phase 14's fleet (the JAX
+# BatchPipeline over the same rounds), computed once on a CPU by
+# tests/torch_reference_ate.py.
 JAX_ATE_M = {
     # phase 14, one (raw, aligned) per lane (the four streams carry the
     # same data: the sim's seed draws only noise, and avia_batch4 has none)
@@ -262,8 +304,30 @@ JAX_ATE_M = {
     "ouster64": (0.03198349476697826, 0.01154589455923144),
     "cli_bag": (0.034757444004670235, 0.013331892125377977),
     "ouster64_f64": (0.03385058027489391, 0.011881821316236246),
+    # phases presets, scenarios and pointcloud2_bags
+    "preset_horizon": (0.020170777933761996, 0.007414680950414853),
+    "preset_mid360": (0.017446324233475634, 0.010956919993366782),
+    "preset_velodyne": (0.03527227297195919, 0.005842246790813003),
+    "preset_marsim": (0.15530177775631454, 0.09601967911953617),
+    "scenario_mid360": (0.057896445840900826, 0.014573595698999388),
+    "scenario_velodyne_outdoor": (0.17648146496980235, 0.12741753731892552),
+    "bag_velodyne": (0.024717805144237083, 0.00552770378705734),
+    "bag_velodyne_no_time": (0.013995289645069523, 0.005631936634919247),
+    "bag_ouster64": (0.025687441515357803, 0.011528905354179624),
+    "bag_marsim": (0.12927609896154663, 0.09363299691384992),
 }
-JAX_MAP_DROPPED = {"avia": 0, "ouster64": 307, "ouster64_f64": 279}
+JAX_MAP_DROPPED = {"avia": 0, "ouster64": 307, "ouster64_f64": 279,
+                   "bag_ouster64": 138,
+                   **{name: 0 for name in (
+                       "preset_horizon", "preset_mid360", "preset_velodyne",
+                       "preset_marsim", "scenario_mid360",
+                       "scenario_velodyne_outdoor", "bag_velodyne",
+                       "bag_velodyne_no_time", "bag_marsim")}}
+# phase presets: the JAX package's iterations a scan on the marsim run (its
+# float32 step on a CPU; printed beside the card's, not held: rounding may
+# move a convergence test by a pass, PR 10)
+JAX_ITERATIONS = {"preset_marsim": [0, 3, 3, 3, 3, 4, 3, 5, 4, 4, 4, 4, 4, 4,
+                                    4, 4, 4, 5]}
 # positions: the CUDA path against the CPU path (phase 3); the same run
 # twice on the card, resumed or batched (phases 6-8)
 POS_TOL_M = 5e-3
@@ -308,6 +372,16 @@ SHARDED_PROFILE_SCANS = 4
 BATCH_ROUNDS = 30
 BATCH_WARM_ROUNDS = 6
 BATCH_WINDOW_ROUNDS = 12
+# phase presets: the presets the main-path phases do not run, each on the
+# sim run that fits it (tools/scenarios.py preset_run)
+PRESET_NAMES = ("horizon", "mid360", "velodyne", "marsim")
+# phase scenarios: bench.py's mid360 at 100 Hz: its latency budget, and of
+# its 200 scans, after the warm ones and the window with no sync, the ones
+# run each drained (per-scan wall, as bench.py's synced latency) and the
+# ones profiled
+MID360_BUDGET_MS = 10.0
+MID360_SYNCED_SCANS = 80
+MID360_PROFILE_SCANS = 4
 
 
 def log(obj) -> None:
@@ -1697,18 +1771,328 @@ def phase_fleet_ouster64(pkg, cfg, sim_cfg, refs) -> dict:
     return total
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
-        return 1
-    repo = Path(__file__).resolve().parent
-    if not (repo / "fast_lio_tpu_torch" / "__init__.py").is_file():
-        print("chip_smoke: run it from a checkout of the repository",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(repo))
-    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+# --------------------------------------------------------------------------
+# phases 18-20: every sensor preset, bench.py's mid360 and velodyne_outdoor,
+# and PointCloud2 bags through the runner
+# --------------------------------------------------------------------------
 
+
+def kernel_at_path_shape(pkg, pipe) -> dict:
+    """The per-query kernel held to its plain version (``compare_knn``) at
+    the shape the run's main path gave it: the last scan's downsampled
+    world points (``n_ds_max`` queries, padding included) in the final map,
+    at R = 8 and, with the wide fallback, R = 27.  These launches are not
+    the main path's: the counters are put back."""
+    hm, knn, counts = pkg["hm"], pkg["knn"], pkg["counts"]
+    q = pipe.last_pts_world
+    before = counts.snapshot()
+    err = {}
+    for wide in (False, True) if pipe.cfg.knn_wide_fallback else (False,):
+        got = knn.knn_search_cuda(pipe.map.packed, pipe.map_cfg, q, wide=wide)
+        ref = hm.knn_search(pipe.map, pipe.map_cfg, q, wide=wide)
+        torch.cuda.synchronize()
+        err[f"r{27 if wide else 8}"] = compare_knn(got, ref)
+    counts.restore(before)
+    return {"queries": q.shape[0], "max_abs_err": err}
+
+
+def run_captured(pkg, phase, name, cfg, data, synced_scans=0,
+                 profile_scans=0):
+    """Run ``name`` through the packet API, captured (the default on
+    CUDA): GRAPH_WARM_SCANS scans one by one (IMU init, the map seeded, the
+    capture), the next ones in one window under
+    ``set_sync_debug_mode("error")`` drained at its end (scans/s), then
+    ``synced_scans`` scans each drained (per-scan wall: bench.py's synced
+    latency), then ``profile_scans`` under the profiler.  Checks: phase 4's
+    health and ATE checks against the JAX package's run ``name``, the R = 8
+    kernel and IF nodes ran (and R = 27 with the wide fallback), every
+    graph gated and replayed, no host sync in the profile, the kernel held
+    to its plain version at the path's shape.  Returns (row, launches,
+    pipeline)."""
+    simlib = pkg["sim"]
+    pipe = pkg["Pipeline"](cfg)
+    reset_launches(pkg)
+    push = scan_pusher(pipe, data)
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_WARM_SCANS):
+        next(push)
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n_window = (len(data.scans) - GRAPH_WARM_SCANS - synced_scans
+                - profile_scans)
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        for _ in range(n_window):
+            next(push)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    synced = []
+    for _ in range(synced_scans):
+        t0 = time.perf_counter()
+        next(push)
+        torch.cuda.synchronize()
+        synced.append(time.perf_counter() - t0)
+    prof = (pkg["profile_scan"].profile_window(lambda: next(push),
+                                               profile_scans)
+            if profile_scans else None)
+    check(next(push, None) is None, f"{name}: scans left after the run")
+    launches = read_launches(pkg)
+    traj = pipe.get_trajectory()
+    hc = pipe.health_check()
+    graphs = pipe.graphs.stats()
+    out = {"phase": phase, "run": name, "scans": len(traj),
+           "pts_per_scan": float(np.mean([len(s) for s in data.scans])),
+           "pads": [cfg.n_points_max, cfg.n_ds_max], "map": [
+               cfg.map_h_log2, pipe.map_cfg.bucket_slots],
+           "warm_s": warm_s, "window_scans": n_window,
+           "window_scans_per_s": n_window / window_s,
+           "ate_raw_m": simlib.ate_rmse(traj, data),
+           "ate_aligned_m": simlib.ate_rmse_aligned(traj, data),
+           "jax_ate_m": JAX_ATE_M[name],
+           "iterations": [int(d.iterations) for d in pipe.diags],
+           "launches": {k: {f"r{r}": n for r, n in v.items()}
+                        for k, v in launches.items()},
+           "graphs": {str(k): v for k, v in graphs.items()}, "health": hc,
+           "kernel_at_path_shape": kernel_at_path_shape(pkg, pipe)}
+    if synced:
+        p50, p99 = np.percentile(1e3 * np.asarray(synced), [50, 99])
+        out["synced_scan_ms"] = {"scans": len(synced), "p50": float(p50),
+                                 "p99": float(p99),
+                                 "max": 1e3 * max(synced)}
+    if prof is not None:
+        out["profile_per_scan"] = {k: v for k, v in prof.items()
+                                   if k != "host_syncs_by_op_per_scan"}
+    log(out)
+    check_health(name, hc, name)
+    check_ate(name, out, name)
+    check(launches["knn"][8] > 0 and launches["graph_if"][0] > 0,
+          f"{name}: the R=8 kNN kernel or the IF nodes never ran "
+          f"({launches})")
+    check(launches["knn"][27] > 0 or not cfg.knn_wide_fallback,
+          f"{name}: the wide fallback's R=27 kernel never ran")
+    check(graphs and all(g["gated"] and g["replays"] > 0
+                         for g in graphs.values()),
+          f"{name}: no gated graph replayed ({graphs})")
+    check(prof is None or prof["host_syncs_per_scan"] == 0,
+          f"{name}: host syncs in the profiled scans")
+    return out, launches, pipe
+
+
+def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
+    """MARSIM's five passes (``max_iteration=4``), on the device.  The run
+    eager (each pass masked, its ``iterations`` JAX's ``while_loop``
+    count) and captured (each pass an IF node), both under
+    ``torch.use_deterministic_algorithms``; the captured run settles the
+    counters after every scan.  A replay evaluates the prune's and the
+    update's IF nodes (``launches_per_replay``: in the gated graph every
+    other launch sits in an IF node), the update's body its
+    ``max_iteration + 1`` pass nodes, and each pass that runs the node of
+    its re-search: so the IF nodes evaluated in a scan, less those, are
+    the passes the device ran.  Checks: those passes equal the scan's
+    iterations, scan by scan, and the iterations the eager run's (JAX's
+    rule), the two runs bit-equal, and the captured run of the phase
+    (``traj_captured``) within 5 mm of the eager one.  Returns the two runs'
+    launches."""
+    n_nodes = cfg.max_iteration + 1
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_launches(pkg)
+        eager = pkg["Pipeline"](cfg, graphs=False)
+        feed(eager, data)
+        gated = pkg["Pipeline"](cfg)
+        push = scan_pusher(gated, data)
+        seen, if_by_scan = read_launches(pkg)["graph_if"][0], []
+        while True:
+            replays, n_diags = sum(gated.graphs.replays.values()), len(
+                gated.diags)
+            if next(push, None) is None:
+                break
+            now = read_launches(pkg)["graph_if"][0]
+            if (len(gated.diags) > n_diags
+                    and sum(gated.graphs.replays.values()) > replays):
+                if_by_scan.append((n_diags, now - seen))
+            seen = now
+        launches = read_launches(pkg)  # the two runs'
+    finally:
+        torch.use_deterministic_algorithms(False)
+    per_replay = [g["launches_per_replay"]
+                  for g in gated.graphs.stats().values()]
+    its = {"eager": [int(d.iterations) for d in eager.diags],
+           "gated": [int(d.iterations) for d in gated.diags]}
+    passes = [(k, n - per_replay[0] - n_nodes) for k, n in if_by_scan]
+    jax_its = JAX_ITERATIONS["preset_marsim"]
+    dpos = max_pos_diff(gated.get_trajectory(), eager.get_trajectory())
+    d_captured = max_pos_diff(traj_captured, eager.get_trajectory())
+    log({"phase": "presets", "run": "preset_marsim_passes",
+         "deterministic": True, "pass_nodes": n_nodes,
+         "if_nodes_per_replay_outside": per_replay,
+         "passes_device_by_scan": dict(passes),
+         "iterations": its, "iterations_jax": jax_its,
+         "scans_with_jax_iterations": sum(
+             a == b for a, b in zip(its["gated"], jax_its)),
+         "scans_with_all_passes": its["gated"].count(n_nodes),
+         "max_pos_diff_gated_eager_m": dpos,
+         "max_pos_diff_captured_eager_m": d_captured, "tol_m": POS_TOL_M})
+    check(len(per_replay) == 1 and len(passes) >= len(data.scans) - 8,
+          f"marsim: graphs {per_replay}, {len(passes)} replays counted")
+    check(all(n == its["gated"][k] and 1 <= n <= n_nodes for k, n in passes),
+          f"marsim: the passes run on the device {passes} are not the "
+          f"scans' iterations {its['gated']}")
+    check(its["eager"] == its["gated"] and dpos == 0.0,
+          f"marsim: deterministic gated and eager runs differ ({its}, "
+          f"{dpos} m)")
+    check(d_captured <= POS_TOL_M,
+          f"marsim: captured and eager positions differ {d_captured} m")
+    return launches
+
+
+def phase_presets(pkg) -> dict:
+    """Phase 18: horizon, mid360, velodyne and marsim, each preset
+    unchanged on its sim run (``scenarios.preset_run``), through
+    ``run_captured``; marsim's passes then as ``marsim_passes``.  Returns
+    the launches by path."""
+    by_path = {}
+    for name in PRESET_NAMES:
+        cfg, _, data = pkg["scenarios"].preset_run(name)
+        _, launches, pipe = run_captured(pkg, "presets", f"preset_{name}",
+                                         cfg, data)
+        by_path[f"preset_{name}"] = launches
+        if name == "marsim":
+            by_path["preset_marsim_passes"] = marsim_passes(
+                pkg, cfg, data, pipe.get_trajectory())
+    return by_path
+
+
+def phase_scenarios(pkg, card) -> dict:
+    """Phase 19: bench.py's mid360 (100 Hz scans, 1024/512 pads, the
+    partial-wide budget 128) and velodyne_outdoor, each config unchanged
+    and cut to ``scenarios.CUT_DURATION_S``, through ``run_captured``;
+    mid360's drained scans against bench.py's 10 ms budget (recorded, not
+    held).  Returns the launches by path."""
+    sc = pkg["scenarios"]
+    by_path = {}
+    for name, synced, prof in (("mid360", MID360_SYNCED_SCANS,
+                                MID360_PROFILE_SCANS),
+                               ("velodyne_outdoor", 0, 0)):
+        cfg, data = sc.scenario(name, sc.CUT_DURATION_S)
+        out, launches, _ = run_captured(pkg, "scenarios", f"scenario_{name}",
+                                        cfg, data, synced, prof)
+        by_path[f"scenario_{name}"] = launches
+        if name == "mid360":
+            ms = out["synced_scan_ms"]
+            log({"phase": "scenarios", "run": "scenario_mid360_budget",
+                 "card": card, "budget_ms": MID360_BUDGET_MS,
+                 "synced_scan_ms": ms,
+                 "p99_within_budget": ms["p99"] < MID360_BUDGET_MS,
+                 "busy_ms_per_scan":
+                     out["profile_per_scan"]["device_busy_ms_per_scan"],
+                 "activities_per_scan":
+                     out["profile_per_scan"]["device_activities_per_scan"]})
+    return by_path
+
+
+@contextlib.contextmanager
+def sync_free_after(pkg, warm: int):
+    """Within: every ``Pipeline.process_packet`` after each pipeline's
+    first ``warm`` ones (IMU init, the map seeded, the capture) runs under
+    ``set_sync_debug_mode("error")``, which raises on a host sync.  Yields
+    the number of packets so checked."""
+    cls = pkg["Pipeline"]
+    process = cls.process_packet
+    seen, checked = {}, [0]
+
+    def checking(pipe, pkt):
+        n = seen[id(pipe)] = seen.get(id(pipe), 0) + 1
+        if n <= warm:
+            return process(pipe, pkt)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return process(pipe, pkt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            checked[0] += 1
+
+    cls.process_packet = checking
+    try:
+        yield checked
+    finally:
+        cls.process_packet = process
+
+
+def phase_pointcloud2_bags(pkg, tmp: Path) -> dict:
+    """Phase 20: the sim runs of the velodyne, ouster64 and marsim presets
+    written as PointCloud2 bags (``sim.write_pointcloud2_bag``: Velodyne
+    with its time field and with none, Ouster, MARSIM), each replayed by
+    ``fast_lio_tpu_torch.cli.main`` with ``scenarios.bag_argv``'s flags
+    (feature extraction on the timed Velodyne bag, the extrinsic estimate
+    off on Ouster's, the pose log on MARSIM's, there with ``--profile``)
+    and ``--health``.  Checks: one estimate a scan (less the IMU init and
+    the last), phase 4's health and ATE checks against the JAX package's
+    runner on the same bag, no host sync in a step after the warm ones,
+    the R = 8 kernel and IF nodes ran; the trace and the pose log parse.
+    Returns the launches by path."""
+    sc, simlib = pkg["scenarios"], pkg["sim"]
+    by_path, datas = {}, {}
+    for name, (kind, preset, _) in sc.POINTCLOUD2_BAGS.items():
+        if preset not in datas:
+            datas[preset] = sc.preset_run(preset, sc.BAG_DURATION_S)[1:]
+        sim_cfg, data = datas[preset]
+        bag, out = tmp / f"{name}.bag", tmp / name
+        simlib.write_pointcloud2_bag(bag, data, kind, sim_cfg)
+        argv = sc.bag_argv(name, bag, out) + ["--health"]
+        if "--runtime-pos-log" in argv:
+            argv.append("--profile")
+        reset_launches(pkg)
+        t0 = time.perf_counter()
+        with sync_free_after(pkg, GRAPH_WARM_SCANS) as checked:
+            summary = run_cli(pkg, argv)
+        wall = time.perf_counter() - t0
+        launches = read_launches(pkg)
+        by_path[f"bag_{name}"] = launches
+        traj = read_tum(out / "trajectory_tum.txt")
+        row = {"phase": "pointcloud2_bags", "run": f"bag_{name}",
+               "kind": kind, "argv": argv[:2] + argv[6:],
+               "bag_mb": bag.stat().st_size / 2**20,
+               "pts_per_scan": float(np.mean([len(s) for s in data.scans])),
+               "scans": len(traj), "runner_wall_s": wall,
+               "runner_scans_per_s": summary["scans_per_sec"],
+               "steps_without_sync": checked[0],
+               "ate_raw_m": simlib.ate_rmse(traj, data),
+               "ate_aligned_m": simlib.ate_rmse_aligned(traj, data),
+               "jax_ate_m": JAX_ATE_M[f"bag_{name}"],
+               "launches": {k: {f"r{r}": n for r, n in v.items()}
+                            for k, v in launches.items()},
+               "health": summary["health"]}
+        if "--profile" in argv:
+            trace = json.loads((out / "trace" / "trace.json").read_text())
+            row["trace_kernels"] = sum(
+                1 for e in trace["traceEvents"] if e.get("cat") == "kernel")
+            check(row["trace_kernels"] > 0,
+                  f"bag_{name}: the trace holds no kernel")
+        if "--runtime-pos-log" in argv:
+            rows = np.loadtxt(out / "pos_log.txt", ndmin=2)
+            row["pos_log_rows"] = len(rows)
+            check(len(rows) == len(traj) and np.isfinite(rows).all(),
+                  f"bag_{name}: {len(rows)} pose log rows, {len(traj)} poses")
+        log(row)
+        check(len(traj) >= len(data.scans) - 2,
+              f"bag_{name}: {len(traj)} estimates of {len(data.scans)}")
+        check(checked[0] >= len(traj) - GRAPH_WARM_SCANS,
+              f"bag_{name}: {checked[0]} steps checked for syncs")
+        check_health(f"bag_{name}", summary["health"], f"bag_{name}")
+        check_ate(f"bag_{name}", row, f"bag_{name}")
+        check(launches["knn"][8] > 0 and launches["graph_if"][0] > 0,
+              f"bag_{name}: the R=8 kNN kernel or the IF nodes never ran")
+    return by_path
+
+
+def load_pkg() -> dict:
+    """The port's modules that the phases use, by name (imported here: the
+    repository's root is on ``sys.path`` only once ``main`` put it there, or
+    in a worker process that ``parallel.launch`` started from it)."""
     from fast_lio_tpu_torch import cli, config, sim
     from fast_lio_tpu_torch.batch import BatchPipeline
     from fast_lio_tpu_torch import control_flow
@@ -1724,13 +2108,60 @@ def main() -> int:
                                           profile_scan, scenarios)
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
-    pkg = dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
-               mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt,
-               launch=launch, sharding=sharding, bench_scaling=bench_scaling,
-               oracle_compare=oracle_compare, BatchPipeline=BatchPipeline,
-               scenarios=scenarios, profile_scan=profile_scan,
-               multicard=multicard, counts=counts, cf=control_flow,
-               graph_if=graph_if, StepGraphs=StepGraphs)
+    return dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
+                mb=microbench_knn, Pipeline=Pipeline, cli=cli, ckpt=ckpt,
+                launch=launch, sharding=sharding,
+                bench_scaling=bench_scaling, oracle_compare=oracle_compare,
+                BatchPipeline=BatchPipeline, scenarios=scenarios,
+                profile_scan=profile_scan, multicard=multicard,
+                counts=counts, cf=control_flow, graph_if=graph_if,
+                StepGraphs=StepGraphs, build=build)
+
+
+def in_background(fn, *args, **kwargs):
+    """Start ``fn(*args, **kwargs)`` in a thread; returns a function that
+    waits for it and returns its result, or raises what it raised."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kwargs)
+        except BaseException as e:  # re-raised where it is awaited
+            box["err"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return wait
+
+
+def fleet_ouster64_rank(group, cfg, sim_cfg, refs) -> dict:
+    """Phase 15 in a worker process (``parallel.launch``, one gloo rank on
+    the card; ``group`` unused): ``phase_fleet_ouster64``'s launches."""
+    return phase_fleet_ouster64(load_pkg(), cfg, sim_cfg, refs)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    repo = Path(__file__).resolve().parent
+    if not (repo / "fast_lio_tpu_torch" / "__init__.py").is_file():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+
+    pkg = load_pkg()
+    build, config, sim = pkg["build"], pkg["config"], pkg["sim"]
+    knn, knn_grouped = pkg["knn"], pkg["kg"]
     card = gpu_name_and_power()
     t_start = time.perf_counter()
     phase_s, t_last = {}, [t_start]
@@ -1866,25 +2297,41 @@ def main() -> int:
           "ouster64_f64: the float32 kernel ran")
 
     lap("11")
+    # 15. phase 5's run as a batch, in float32 and float64, in a worker
+    # process of its own: it holds the gated graph's profiled activities to
+    # the masked one's, and late in a process that has profiled many gated
+    # graphs torch.profiler dropped and misnamed some of them.  It starts
+    # here and runs while phase 12's oracle computes on the host
+    fleet_ouster = in_background(
+        pkg["launch"], fleet_ouster64_rank, 1, args=(ouster_cfg, ouster_sim, {
+            "float32": traj_ouster, "float64": traj_f64}),
+        backend="gloo", device="cuda:0", timeout_s=600.0)
     # 12. the float64 pipeline against the oracle
     l_oracle, l_oracle_f32 = phase_oracle(pkg)
 
     lap("12")
+    l_fleet_ouster = fleet_ouster()[0]
+
+    lap("15")
     # 14. the avia_batch4 fleet through the batched step
     l_batch4 = phase_fleet_batch4(pkg, card)
 
     lap("14")
-    # 15. phase 5's run as a batch, in float32 and float64
-    l_fleet_ouster = phase_fleet_ouster64(
-        pkg, ouster_cfg, ouster_sim, {"float32": traj_ouster,
-                                      "float64": traj_f64})
-
-    lap("15")
     # 16. phase 5's run on NCCL ranks, one card each
     ranks_cards = phase_sharded_cards(pkg, card)
 
     lap("16")
-    by_path = {"fleet_batch4": l_batch4, "fleet_ouster64": l_fleet_ouster,
+    # 18-20. every sensor preset, bench.py's mid360 and velodyne_outdoor,
+    # PointCloud2 bags through the runner
+    l_presets = phase_presets(pkg)
+    lap("18_presets")
+    l_scenarios = phase_scenarios(pkg, card)
+    lap("19_scenarios")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        l_bags = phase_pointcloud2_bags(pkg, Path(tmp))
+    lap("20_pointcloud2_bags")
+    by_path = {**l_presets, **l_scenarios, **l_bags,
+               "fleet_batch4": l_batch4, "fleet_ouster64": l_fleet_ouster,
                "avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,
                "fleet": l_fleet, "ouster64_f64": l_f64, "oracle": l_oracle,

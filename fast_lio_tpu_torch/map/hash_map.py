@@ -67,6 +67,16 @@ class MapConfig(NamedTuple):
     def num_buckets(self):
         return 1 << self.h_log2
 
+    @property
+    def row_width(self):
+        """Floats in one packed row: the planar [x|y|z|w] channels."""
+        return 4 * self.bucket_slots
+
+    @property
+    def knn_candidates(self):
+        """Candidate rows materialized per query by knn_search."""
+        return 8 * self.bucket_slots
+
 
 def make_config(voxel_size: float, h_log2: int = 14,
                 bucket_slots: int = None,

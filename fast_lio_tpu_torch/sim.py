@@ -169,6 +169,14 @@ class SimConfig:
     imu_gyr_bias_walk: float = 0.0
     duration: float = 10.0
     seed: int = 0
+    # the port's own sensor shapes (the JAX package's sim has neither; at
+    # their defaults the runs are bit for bit its runs): ``spin`` -1 sweeps
+    # the azimuth clockwise seen from above, as a Velodyne spins (the
+    # direction its driver's time reconstruction assumes); ``fov_deg`` below
+    # 360 sweeps a forward-looking field of view centred on the body's x
+    # axis instead of a full turn, ``n_azimuth`` columns across it
+    spin: int = 1
+    fov_deg: float = 360.0
 
 
 @dataclasses.dataclass
@@ -220,8 +228,13 @@ def generate(
     for k in range(n_scans):
         t0 = k * sim.scan_period
         # azimuth sweeps a full turn per scan; all rings fire per step
-        az = np.linspace(0, 2 * np.pi, sim.n_azimuth, endpoint=False)
-        tt = t0 + (az / (2 * np.pi)) * sim.scan_period  # (A,)
+        sweep = np.linspace(0, 2 * np.pi, sim.n_azimuth, endpoint=False)
+        tt = t0 + (sweep / (2 * np.pi)) * sim.scan_period  # (A,)
+        az = sweep
+        if sim.fov_deg < 360.0:
+            az = np.deg2rad(sim.fov_deg) * (sweep / (2 * np.pi) - 0.5)
+        if sim.spin < 0:
+            az = -az
         AZ, EL = np.meshgrid(az, elev, indexing="ij")  # (A, R)
         T = np.repeat(tt[:, None], sim.n_rings, 1)  # (A, R)
 
@@ -342,5 +355,91 @@ def write_avia_bag(path, sim: SimData, scans=None, imu_after: float = -np.inf,
                                 (sim.scan_pt_times[k] * 1e9).astype(np.uint32),
                                 np.full(n, 0x10, np.uint8),
                                 (np.arange(n) % 6).astype(np.uint8)))
+    imu_until(np.inf)
+    w.close()
+
+
+# PointCloud2 layouts of the sensors whose drivers publish one
+# (preprocess/drivers.py decodes each): (field, dtype), in wire order
+_XYZI = (("x", np.float32), ("y", np.float32), ("z", np.float32),
+         ("intensity", np.float32))
+POINTCLOUD2_KINDS = {
+    # time: offset from the scan start in ms (the VELODYNE preset's unit)
+    "velodyne": _XYZI + (("time", np.float32), ("ring", np.uint16)),
+    # the same with every time 0: the decoder reconstructs the offsets from
+    # the azimuth, as for a driver that gives none
+    "velodyne_no_time": _XYZI + (("time", np.float32), ("ring", np.uint16)),
+    # t: offset in ns (the OUSTER64 preset's unit)
+    "ouster": _XYZI + (("t", np.uint32), ("ring", np.uint8)),
+    "marsim": _XYZI,
+}
+POINTCLOUD2_TOPICS = {"velodyne": "/velodyne_points",
+                      "velodyne_no_time": "/velodyne_points",
+                      "ouster": "/os_cloud_node/points",
+                      "marsim": "/sim_cloud"}
+
+
+def ring_of(pts: np.ndarray, sim: SimConfig) -> np.ndarray:
+    """Each point's ring: the index of the elevation band of ``sim``'s
+    rings (evenly spaced from ``elev_min`` to ``elev_max``) nearest its
+    elevation (range noise moves a return along its ray, not across)."""
+    p = np.asarray(pts, np.float64)
+    elev = np.rad2deg(np.arctan2(p[:, 2], np.hypot(p[:, 0], p[:, 1])))
+    if sim.n_rings == 1:
+        return np.zeros(len(p), np.int64)
+    step = (sim.elev_max - sim.elev_min) / (sim.n_rings - 1)
+    return np.clip(np.rint((elev - sim.elev_min) / step), 0,
+                   sim.n_rings - 1).astype(np.int64)
+
+
+def pointcloud2_fields(pts: np.ndarray, pt_time: np.ndarray, kind: str,
+                       sim: SimConfig) -> dict:
+    """One scan's PointCloud2 fields in ``kind``'s layout
+    (``POINTCLOUD2_KINDS``): intensity 1, time from ``pt_time`` (seconds
+    from the scan start), ring from ``ring_of``."""
+    n = len(pts)
+    values = {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2],
+              "intensity": np.ones(n),
+              "time": (np.zeros(n) if kind == "velodyne_no_time"
+                       else pt_time * 1e3),
+              "t": np.rint(pt_time * 1e9), "ring": ring_of(pts, sim)}
+    return {name: np.ascontiguousarray(values[name], dtype)
+            for name, dtype in POINTCLOUD2_KINDS[kind]}
+
+
+def write_pointcloud2_bag(path, sim: SimData, kind: str,
+                          sim_cfg: SimConfig = SimConfig(), scans=None,
+                          lidar_topic: str = None,
+                          imu_topic: str = "/imu/data") -> None:
+    """Write a sim run as a ROS1 bag of ``sensor_msgs/PointCloud2`` scans in
+    the layout of ``kind`` (``POINTCLOUD2_KINDS``: velodyne,
+    velodyne_no_time, ouster, marsim), each scan stamped at its start after
+    the Imu messages stamped up to it, then the remaining Imu messages.
+    ``sim_cfg`` is the run's sim config (its rings give the ring field);
+    ``scans`` picks the scan indices (default all); ``lidar_topic`` defaults
+    to ``POINTCLOUD2_TOPICS[kind]``."""
+    from .io.rosbag import BagWriter, serialize_imu, serialize_pointcloud2
+
+    if kind not in POINTCLOUD2_KINDS:
+        raise ValueError(f"unknown PointCloud2 kind {kind!r}: one of "
+                         f"{', '.join(POINTCLOUD2_KINDS)}")
+    lidar_topic = lidar_topic or POINTCLOUD2_TOPICS[kind]
+    w = BagWriter(path)
+    imu_i = 0
+
+    def imu_until(t_max):
+        nonlocal imu_i
+        while imu_i < len(sim.imu_t) and sim.imu_t[imu_i] <= t_max:
+            t = float(sim.imu_t[imu_i])
+            w.write(imu_topic, "sensor_msgs/Imu", t,
+                    serialize_imu(t, sim.imu_acc[imu_i], sim.imu_gyr[imu_i]))
+            imu_i += 1
+
+    for k in (range(len(sim.scans)) if scans is None else scans):
+        stamp = float(sim.scan_stamps[k])
+        imu_until(stamp + 1e-9)
+        w.write(lidar_topic, "sensor_msgs/PointCloud2", stamp,
+                serialize_pointcloud2(stamp, pointcloud2_fields(
+                    sim.scans[k], sim.scan_pt_times[k], kind, sim_cfg)))
     imu_until(np.inf)
     w.close()

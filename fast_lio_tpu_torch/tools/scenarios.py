@@ -24,10 +24,27 @@ and one fleet of streams (``batch_scenario``):
 
 ``tools/oracle_ab.py`` runs them through the pipeline and the oracle; the
 port's benchmark (``ROADMAP.md`` A.18) is to take its cells from here, and
-``chip_smoke.py`` phase ``fleet_batch4`` runs ``avia_batch4``.
+``chip_smoke.py`` phase ``fleet_batch4`` runs ``avia_batch4``, phase
+``scenarios`` mid360 and velodyne_outdoor.
+
+Last, the sensor presets the main-path phases did not run (``preset_run``;
+``chip_smoke.py`` phase ``presets``): each preset unchanged, its pads and
+map, on a sim run whose rings, field of view and range fit the sensor:
+
+  horizon   Livox Horizon: 81.7 x 25.1 deg ahead, 90 m, 24k points a
+            scan, in velodyne_outdoor's hall: in the room its forward view
+            finds too few surfaces, and the JAX package's own raw ATE moved
+            by 1.2 cm with the order of the points alone
+  mid360    Livox MID-360: 360 deg, -7 to 52 deg up, 40 m, 20k points
+  velodyne  Velodyne VLP-16: 16 rings over +-15 deg, 0.2 deg columns,
+            100 m, spinning clockwise as the driver's time reconstruction
+            assumes (``sim.SimConfig.spin``), 28.8k points
+  marsim    the MARSIM preset (no deskew, five filter passes): 32 rings,
+            30 m (its ``det_range``), 12.8k points
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import numpy as np
@@ -36,8 +53,38 @@ from .. import sim
 from ..config import PRESETS, Config, LidarType
 
 NAMES = ("avia", "ouster64", "mid360", "velodyne_outdoor")
+PRESET_SIMS = {
+    "horizon": sim.SimConfig(n_rings=48, n_azimuth=500, elev_min=-12.55,
+                             elev_max=12.55, max_range=90.0, fov_deg=81.7),
+    "mid360": sim.SimConfig(n_rings=32, n_azimuth=640, elev_min=-7.0,
+                            elev_max=52.0),
+    "velodyne": sim.SimConfig(n_rings=16, n_azimuth=1800, elev_min=-15.0,
+                              elev_max=15.0, max_range=100.0, spin=-1),
+    "marsim": sim.SimConfig(n_rings=32, n_azimuth=400, max_range=30.0),
+    # Ouster OS1-64 (1024 x 10 mode): 64 rings over 45 deg, 120 m, 65.5k
+    # points; its preset already ran with bench.py's geometry, so only its
+    # PointCloud2 bag takes this one
+    "ouster64": sim.SimConfig(n_rings=64, n_azimuth=1024, elev_min=-22.5,
+                              elev_max=22.5, max_range=120.0),
+}
+# chip_smoke.py phase ``pointcloud2_bags``: name -> (PointCloud2 layout,
+# ``sim.POINTCLOUD2_KINDS``; the preset, whose sim run the bag carries; the
+# runner's flags beyond --preset, --bag and the topics); the JAX package's
+# runner replays the same bags with the same flags
+# (tests/torch_reference_ate.py)
+POINTCLOUD2_BAGS = {
+    "velodyne": ("velodyne", "velodyne", ["--feature-extract-enable", "1"]),
+    "velodyne_no_time": ("velodyne_no_time", "velodyne", []),
+    "ouster64": ("ouster", "ouster64", ["--extrinsic-est-en", "0"]),
+    "marsim": ("marsim", "marsim", ["--runtime-pos-log"]),
+}
 BATCH_NAMES = ("avia_batch4",)
 DURATION_S = 10.0  # bench.py's runs
+# the depth chip_smoke.py cuts its runs to (tests/torch_reference_ate.py
+# runs the JAX package on the same data): the scenarios and the presets'
+# runs 2 s (mid360: 200 scans at 100 Hz), the PointCloud2 bags 1.5 s
+CUT_DURATION_S = 2.0
+BAG_DURATION_S = 1.5
 
 
 def outdoor_world() -> sim.World:
@@ -104,6 +151,28 @@ def scenario(name: str, duration: float = DURATION_S
             traj=sim.Trajectory(radius=12.0, omega=0.4),
             world=outdoor_world())
     raise ValueError(f"unknown scenario {name!r}: one of {', '.join(NAMES)}")
+
+
+def preset_run(name: str, duration: float = CUT_DURATION_S
+               ) -> Tuple[Config, sim.SimConfig, sim.SimData]:
+    """(preset, sim config of ``duration`` seconds, simulated run) of
+    sensor preset ``name`` (``PRESET_SIMS``; horizon's in the outdoor
+    hall, the others in the sim's room)."""
+    if name not in PRESET_SIMS:
+        raise ValueError(f"unknown preset run {name!r}: one of "
+                         f"{', '.join(PRESET_SIMS)}")
+    sim_cfg = dataclasses.replace(PRESET_SIMS[name], duration=duration)
+    world = outdoor_world() if name == "horizon" else sim.World()
+    return PRESETS[name], sim_cfg, sim.generate(sim_cfg, world=world)
+
+
+def bag_argv(name: str, bag, out) -> List[str]:
+    """The runner's arguments for PointCloud2 bag ``name``
+    (``POINTCLOUD2_BAGS``) at ``bag``, writing to ``out``."""
+    kind, preset, flags = POINTCLOUD2_BAGS[name]
+    return ["--preset", preset, "--bag", str(bag), "--out", str(out),
+            "--lid-topic", sim.POINTCLOUD2_TOPICS[kind],
+            "--imu-topic", "/imu/data", *flags]
 
 
 def batch_scenario(name: str, duration: float = DURATION_S

@@ -40,6 +40,20 @@ def test_cell_hash_and_bucket_bit_identical():
         assert tb.min() >= 0 and tb.max() < 2**h_log2
 
 
+@pytest.mark.parametrize("voxel,mult,slots", [(0.5, 4, None), (0.5, 5, None),
+                                              (0.3, 4, 32)])
+def test_map_config_derived_widths_match_jax(voxel, mult, slots):
+    """``MapConfig``'s row width and candidate rows per query, JAX's."""
+    cfg_t = thm.make_config(voxel, h_log2=12, bucket_slots=slots,
+                            cell_multiplier=mult)
+    cfg_j = jhm.make_config(voxel, h_log2=12, bucket_slots=slots,
+                            cell_multiplier=mult)
+    assert tuple(cfg_t) == tuple(cfg_j)
+    for name in ("num_buckets", "row_width", "knn_candidates"):
+        assert getattr(cfg_t, name) == getattr(cfg_j, name), name
+    assert thm.make_map(cfg_t).packed.shape[1] == cfg_t.row_width
+
+
 def test_search_pieces_match_jax():
     rng = np.random.default_rng(52)
     cfg_t = thm.make_config(0.5, h_log2=6, cell_multiplier=4)

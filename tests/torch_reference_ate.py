@@ -9,16 +9,29 @@ ROS1 bag by the port's ``sim.write_avia_bag``, replayed by the JAX
 package's runner with the same flags) and phase ``fleet_batch4`` (the
 ``avia_batch4`` fleet, ``fast_lio_tpu_torch/tools/scenarios.py``, through
 the JAX package's ``BatchPipeline`` for ``BATCH_ROUNDS`` rounds; one ATE per
-lane).  Not a test (pytest does not
+lane), and the runs of phases ``presets`` (``preset_<name>``: horizon,
+mid360, velodyne and marsim, ``scenarios.preset_run``), ``scenarios``
+(``scenario_<name>``: mid360 and velodyne_outdoor cut to 2 s) and
+``pointcloud2_bags`` (``bag_<name>``: the PointCloud2 bags of
+``scenarios.POINTCLOUD2_BAGS`` through the JAX package's runner); these
+print the per-scan iterations beside the ATE.  Not a test (pytest does not
 collect this file); run it from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py [run ...]
+
+(for example ``... preset_marsim bag_velodyne_no_time``).  With
+``--orders N`` first it runs each named packet run (``preset_*``,
+``scenario_*``, and ``preset_horizon_room``: horizon in the sim's room)
+with its points in N orders and prints the ATEs: how far summation order
+alone moves the JAX package's own answer.
 
 It runs the JAX pipeline at the presets' full size (a few GB of host memory,
 about a minute a run) and prints one JSON line per run; name runs to run
 only those.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import sys
 import tempfile
@@ -35,7 +48,9 @@ from fast_lio_tpu import cli  # noqa: E402
 from fast_lio_tpu import sim as simlib  # noqa: E402
 from fast_lio_tpu.config import PRESETS  # noqa: E402
 from fast_lio_tpu.pipeline import Pipeline  # noqa: E402
+from fast_lio_tpu import config as jconfig  # noqa: E402
 from fast_lio_tpu_torch import sim as port_sim  # noqa: E402
+from fast_lio_tpu_torch.tools import scenarios  # noqa: E402
 
 RUNS = {
     # name: (config, sim config) — the same as chip_smoke.py phases 4 and 5
@@ -51,8 +66,21 @@ RUNS["ouster64_f64"] = (
     RUNS["ouster64"][1])
 
 
+def jax_config(cfg):
+    """The JAX package's Config of the port's ``cfg`` (the same fields)."""
+    return jconfig.Config(**{
+        **dataclasses.asdict(cfg),
+        "lidar_type": jconfig.LidarType(int(cfg.lidar_type)),
+        "time_unit": jconfig.TimeUnit(int(cfg.time_unit))})
+
+
 def run(cfg, sim_cfg):
-    data = simlib.generate(sim_cfg)
+    return run_data(cfg, simlib.generate(sim_cfg))
+
+
+def run_data(cfg, data):
+    """The JAX pipeline on a sim run through the packet API (each scan with
+    the IMU samples up to 0.1 s after its stamp)."""
     pipe = Pipeline(cfg)
     imu_i = 0
     for k in range(len(data.scans)):
@@ -67,7 +95,67 @@ def run(cfg, sim_cfg):
     traj = pipe.get_trajectory()
     return dict(ate_raw_m=simlib.ate_rmse(traj, data),
                 ate_aligned_m=simlib.ate_rmse_aligned(traj, data),
-                scans=len(traj), health=pipe.health_check())
+                scans=len(traj), health=pipe.health_check(),
+                iterations=[int(d.iterations) for d in pipe.diags])
+
+
+def preset_data(name):
+    """chip_smoke.py phase ``presets``: (config, run) of preset ``name``
+    (``scenarios.preset_run``, made by the port's sim)."""
+    cfg, _, data = scenarios.preset_run(name)
+    return cfg, data
+
+
+def horizon_room_data(_):
+    """The horizon preset on its sim run in the sim's room instead of the
+    outdoor hall: where it first ran (see ``--orders``)."""
+    cfg, sim_cfg, _ = scenarios.preset_run("horizon")
+    return cfg, port_sim.generate(sim_cfg)
+
+
+def scenario_data(name):
+    """chip_smoke.py phase ``scenarios``: bench.py's scenario ``name`` cut
+    to ``scenarios.CUT_DURATION_S``."""
+    return scenarios.scenario(name, scenarios.CUT_DURATION_S)
+
+
+def in_order(data, seed):
+    """``data`` with each scan's points shuffled by ``seed`` (0: as made),
+    the last point kept last (its time gives the packet's end): the sums
+    over points then run in another order, as the card's atomic sums do."""
+    if seed == 0:
+        return data
+    rng = np.random.default_rng(seed)
+    perms = [np.append(rng.permutation(len(s) - 1), len(s) - 1)
+             for s in data.scans]
+    return dataclasses.replace(
+        data, scans=[s[p] for s, p in zip(data.scans, perms)],
+        scan_pt_times=[t[p] for t, p in zip(data.scan_pt_times, perms)])
+
+
+def run_pointcloud2_bag(name):
+    """chip_smoke.py phase ``pointcloud2_bags``: the bag of
+    ``scenarios.POINTCLOUD2_BAGS[name]`` (its preset's sim run cut to
+    ``scenarios.BAG_DURATION_S``, written by the port's
+    ``sim.write_pointcloud2_bag``) replayed by the JAX package's runner
+    with the same flags (the port's run adds ``--profile`` to the marsim
+    bag, which changes no estimate)."""
+    kind, preset, _ = scenarios.POINTCLOUD2_BAGS[name]
+    _, sim_cfg, data = scenarios.preset_run(preset, scenarios.BAG_DURATION_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        bag = Path(tmp) / f"{name}.bag"
+        port_sim.write_pointcloud2_bag(bag, data, kind, sim_cfg)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(scenarios.bag_argv(name, bag, tmp) + ["--health"])
+        assert rc == 0
+        rows = np.loadtxt(Path(tmp) / "trajectory_tum.txt", ndmin=2)
+    traj = [(r[0], r[1:4], np.array([r[7], r[4], r[5], r[6]])) for r in rows]
+    health = [json.loads(ln) for ln in printed.getvalue().splitlines()
+              if ln.startswith('{"health"')][0]
+    return dict(ate_raw_m=simlib.ate_rmse(traj, data),
+                ate_aligned_m=simlib.ate_rmse_aligned(traj, data),
+                scans=len(traj), **health)
 
 
 # chip_smoke.py's fleet_batch4: rounds of the avia_batch4 fleet
@@ -124,10 +212,49 @@ def run_cli_bag(sim_cfg):
                 scans=len(traj))
 
 
+# the new runs by name: chip_smoke.py's phases presets, scenarios and
+# pointcloud2_bags
+# the new runs by name: chip_smoke.py's phases presets, scenarios and
+# pointcloud2_bags (and horizon in the room, for --orders)
+PACKET_RUNS = {
+    **{f"preset_{n}": (preset_data, n)
+       for n in ("horizon", "mid360", "velodyne", "marsim")},
+    "preset_horizon_room": (horizon_room_data, None),
+    **{f"scenario_{n}": (scenario_data, n)
+       for n in ("mid360", "velodyne_outdoor")},
+}
+BAG_RUNS = [f"bag_{n}" for n in scenarios.POINTCLOUD2_BAGS]
+
+
+def run_orders(name, n_orders):
+    """The JAX ATE of packet run ``name`` with its points in ``n_orders``
+    orders (``in_order``): how far summation order alone moves it."""
+    fn, arg = PACKET_RUNS[name]
+    cfg, data = fn(arg)
+    outs = [run_data(jax_config(cfg), in_order(data, seed))
+            for seed in range(n_orders)]
+    return {"orders": n_orders,
+            **{k: [o[k] for o in outs] for k in ("ate_raw_m", "ate_aligned_m")}}
+
+
 if __name__ == "__main__":
-    names = sys.argv[1:] or [*RUNS, "cli_bag", "fleet_batch4"]
+    args = sys.argv[1:]
+    orders = 0
+    if args[:1] == ["--orders"]:  # --orders N run ...: ATE over N orders
+        orders, args = int(args[1]), args[2:]
+    names = args or [*RUNS, "cli_bag", "fleet_batch4",
+                     *(n for n in PACKET_RUNS if n != "preset_horizon_room"),
+                     *BAG_RUNS]
     for name in names:
-        if name == "cli_bag":
+        if orders:
+            out = run_orders(name, orders)
+        elif name in PACKET_RUNS:
+            fn, arg = PACKET_RUNS[name]
+            cfg, data = fn(arg)
+            out = run_data(jax_config(cfg), data)
+        elif name in BAG_RUNS:
+            out = run_pointcloud2_bag(name[len("bag_"):])
+        elif name == "cli_bag":
             out = run_cli_bag(RUNS["avia"][1])
         elif name == "fleet_batch4":
             out = run_fleet_batch4()
