@@ -170,6 +170,9 @@ class BatchPipeline:
         self.feed = PinnedFeed() if cuda else None
         self.graphs = StepGraphs(device) if cuda else None
         self.rounds = 0
+        # the last round's (B, N, 3) downsampled world points, as
+        # Pipeline.last_pts_world (a lane without a scan: its no-op's)
+        self.last_pts_world = None
 
     # ---------------- state ----------------
 
@@ -188,12 +191,14 @@ class BatchPipeline:
             self.cfg, self.map_cfg, x, P, m, imu_carry, self.Q, buf,
             lm_lo, lm_hi, lm_init)
         return x, P, m.dropped, imu_carry, lm_state, dict(
-            pose=out["pose"], diag=out["diag"])
+            pose=out["pose"], diag=out["diag"], world=out["world"])
 
     def _batched_step(self, buf: torch.Tensor) -> dict:
         """Every lane's scan from the (B, L) feed buffer in one vmapped
         step; the new state is written into the batch's tensors.  Returns
-        ``pose`` (B, 7) and ``diag`` (B, 4) int64.  Reads nothing on the
+        ``pose`` (B, 7), ``diag`` (B, 4) int64 and ``world`` (B, N, 3),
+        each lane's downsampled points in the world frame (``Pipeline``'s
+        ``last_pts_world``).  Reads nothing on the
         host, so ``StepGraphs`` captures it."""
         with no_vmap_fallback():
             x, P, dropped, imu_carry, lm_state, out = torch.func.vmap(
@@ -207,7 +212,7 @@ class BatchPipeline:
         """Run the batched step on the round's (B, L) buffer: on CUDA a
         graph replay (a new pad's first round runs eagerly, then the
         capture), whose outputs are copied off the graph on the device; on
-        the CPU the eager step.  Returns pose and diag."""
+        the CPU the eager step.  Returns pose, diag and world."""
         if self.feed is None:  # the CPU: no copy
             return self._batched_step(torch.from_numpy(bufs))
         host = self.feed.take(bufs.shape)
@@ -319,6 +324,7 @@ class BatchPipeline:
         out = self._run_round(np.stack(
             [self._lane_buf(i, p, pad) for i, p in enumerate(pkts)]))
         pose, diag = out["pose"], out["diag"]
+        self.last_pts_world = out["world"]
         wall = time.perf_counter() - t0
         r = len(self._round_diags)
         self._round_diags.append(diag)

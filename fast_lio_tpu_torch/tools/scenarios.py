@@ -12,20 +12,24 @@ scans):
   velodyne_outdoor  16 rings in a 90 x 90 m hall, the sparse remedy on
                     (tests/test_sparse_regime.py's outdoor geometry)
 
-and one fleet of streams (``batch_scenario``):
+and fleets of streams: ``batch_runs(n)`` are bench.py's ``main_batch(n)``
+runs (bench.py:169-173): n streams, sim seeds 0 to n - 1, 16 rings x 400
+azimuths.  The sim's seed draws only its noise, and these runs have none,
+so the n streams carry the same data, as in bench.py.  Two configs run them:
 
-  avia_batch4       bench.py's ``main_batch(4)`` (bench.py:153-232): four
-                    streams, sim seeds 0-3, 16 rings x 400 azimuths, at
-                    the AVIA preset's full width (32768-point pad, 8192
-                    downsampled points, 2^15 x 64-slot map); bench.py ran
-                    its avia scenario's config.  The sim's seed draws only
-                    its noise, and this run has none, so the four streams
-                    carry the same data, as in bench.py.
+  avia_batchN       ``tools/bench.py``'s fleet (bench.py's ``main_batch``):
+                    its avia scenario's config (``config("avia")``,
+                    8192-point pad, 4096 downsampled points, 2^13 x 64-slot
+                    map), as bench.py:168 has it
+  avia_preset_batch4  ``batch_scenario``: four streams at the AVIA
+                    preset's full width (32768-point pad, 8192 downsampled
+                    points, 2^15 x 64-slot map), ``chip_smoke.py`` phase
+                    ``fleet_batch4``
 
-``tools/oracle_ab.py`` runs them through the pipeline and the oracle; the
-port's benchmark (``ROADMAP.md`` A.18) is to take its cells from here, and
-``chip_smoke.py`` phase ``fleet_batch4`` runs ``avia_batch4``, phase
-``scenarios`` mid360 and velodyne_outdoor.
+``tools/bench.py`` runs every scenario and fleet as bench.py does (the
+port's benchmark, ``ROADMAP.md`` A.18, is to take its cells from there;
+``chip_smoke.py`` phase ``bench`` runs it), and ``tools/oracle_ab.py``
+through the pipeline and the oracle.
 
 Last, the sensor presets the main-path phases did not run (``preset_run``;
 ``chip_smoke.py`` phase ``presets``): each preset unchanged, its pads and
@@ -78,13 +82,16 @@ POINTCLOUD2_BAGS = {
     "ouster64": ("ouster", "ouster64", ["--extrinsic-est-en", "0"]),
     "marsim": ("marsim", "marsim", ["--runtime-pos-log"]),
 }
-BATCH_NAMES = ("avia_batch4",)
+BATCH_NAMES = ("avia_preset_batch4",)
 DURATION_S = 10.0  # bench.py's runs
 # the depth chip_smoke.py cuts its runs to (tests/torch_reference_ate.py
-# runs the JAX package on the same data): the scenarios and the presets'
-# runs 2 s (mid360: 200 scans at 100 Hz), the PointCloud2 bags 1.5 s
+# runs the JAX package on the same data): the presets' runs 2 s, the
+# PointCloud2 bags 1.5 s
 CUT_DURATION_S = 2.0
 BAG_DURATION_S = 1.5
+# phase bench: the runner (tools/bench.py) on every scenario and avia_batch4
+# (mid360: 300 packets at 100 Hz, 200 of them in its synced pass)
+BENCH_DURATION_S = 3.0
 
 
 def outdoor_world() -> sim.World:
@@ -99,58 +106,65 @@ def outdoor_world() -> sim.World:
     )
 
 
-def scenario(name: str, duration: float = DURATION_S
-             ) -> Tuple[Config, sim.SimData]:
-    """(config, simulated run) of scenario ``name``; ``duration`` seconds of
-    data (``bench.py``'s 10 by default; a shorter run is the same geometry
-    with other noise draws, not a prefix)."""
+def config(name: str) -> Config:
+    """bench.py's config of scenario ``name`` (``bench._scenario``)."""
     if name == "avia":
         # Avia-like load: ~12.8k raw points a scan before decimation
-        cfg = Config(
+        return Config(
             lidar_type=LidarType.AVIA, filter_size_surf=0.3,
             filter_size_map=0.3, n_points_max=8192, n_ds_max=4096,
             n_imu_max=32, map_h_log2=13, det_range=40.0,
             cube_side_length=300.0)
-        return cfg, sim.generate(
-            sim.SimConfig(duration=duration, n_rings=16, n_azimuth=400))
     if name == "ouster64":
         # 64-ring spinning lidar, ~44k rays a scan (an OS1-64 at 10 Hz after
         # the reference's 1-in-3 decimation of 131k)
-        cfg = Config(
+        return Config(
             lidar_type=LidarType.OUST64, filter_size_surf=0.5,
             filter_size_map=0.5, n_points_max=45056, n_ds_max=8192,
             n_imu_max=32, map_h_log2=13, det_range=100.0,
             cube_side_length=300.0, map_cell_multiplier=5,
             knn_wide_fallback=True)
-        return cfg, sim.generate(
-            sim.SimConfig(duration=duration, n_rings=64, n_azimuth=688,
-                          elev_min=-22.5, elev_max=22.5))
     if name == "mid360":
         # the high-rate regime: 100 Hz scans of ~640 points
-        cfg = Config(
+        return Config(
             lidar_type=LidarType.AVIA, filter_size_surf=0.5,
             filter_size_map=0.5, n_points_max=1024, n_ds_max=512,
             n_imu_max=8, map_h_log2=12, det_range=100.0,
             cube_side_length=300.0, map_cell_multiplier=5,
             knn_wide_fallback=True,
             knn_wide_max_queries=128)  # partial-wide at 512-query scans
-        return cfg, sim.generate(
-            sim.SimConfig(duration=duration, scan_period=0.01, n_rings=8,
-                          n_azimuth=80, imu_rate=400.0))
     if name == "velodyne_outdoor":
-        cfg = Config(
+        return Config(
             lidar_type=LidarType.VELO16, filter_size_surf=0.5,
             filter_size_map=0.5, n_points_max=8192, n_ds_max=4096,
             n_imu_max=32, map_h_log2=12, det_range=100.0,
             cube_side_length=600.0, map_cell_multiplier=5,
             knn_wide_fallback=True)
+    raise ValueError(f"unknown scenario {name!r}: one of {', '.join(NAMES)}")
+
+
+def scenario(name: str, duration: float = DURATION_S
+             ) -> Tuple[Config, sim.SimData]:
+    """(config, simulated run) of scenario ``name``; ``duration`` seconds of
+    data (``bench.py``'s 10 by default; a shorter run is the same geometry
+    with other noise draws, not a prefix)."""
+    cfg = config(name)
+    if name == "avia":
+        sim_cfg = sim.SimConfig(duration=duration, n_rings=16, n_azimuth=400)
+    elif name == "ouster64":
+        sim_cfg = sim.SimConfig(duration=duration, n_rings=64, n_azimuth=688,
+                                elev_min=-22.5, elev_max=22.5)
+    elif name == "mid360":
+        sim_cfg = sim.SimConfig(duration=duration, scan_period=0.01,
+                                n_rings=8, n_azimuth=80, imu_rate=400.0)
+    else:  # velodyne_outdoor
         return cfg, sim.generate(
             sim.SimConfig(duration=duration, n_rings=16, n_azimuth=320,
                           elev_min=-22.0, elev_max=8.0, max_range=100.0,
                           range_noise=0.01),
             traj=sim.Trajectory(radius=12.0, omega=0.4),
             world=outdoor_world())
-    raise ValueError(f"unknown scenario {name!r}: one of {', '.join(NAMES)}")
+    return cfg, sim.generate(sim_cfg)
 
 
 def preset_run(name: str, duration: float = CUT_DURATION_S
@@ -175,14 +189,19 @@ def bag_argv(name: str, bag, out) -> List[str]:
             "--imu-topic", "/imu/data", *flags]
 
 
+def batch_runs(n: int, duration: float = DURATION_S) -> List[sim.SimData]:
+    """bench.py's ``main_batch(n)`` runs (bench.py:169-173): one per
+    stream, sim seeds 0 to n - 1, 16 rings x 400 azimuths."""
+    return [sim.generate(sim.SimConfig(duration=duration, n_rings=16,
+                                       n_azimuth=400, seed=s))
+            for s in range(n)]
+
+
 def batch_scenario(name: str, duration: float = DURATION_S
                    ) -> Tuple[Config, List[sim.SimData]]:
     """(config, one simulated run per stream) of fleet scenario ``name``,
     for ``BatchPipeline(config, len(runs))``."""
-    if name == "avia_batch4":
-        return PRESETS["avia"], [
-            sim.generate(sim.SimConfig(duration=duration, n_rings=16,
-                                       n_azimuth=400, seed=s))
-            for s in range(4)]
+    if name == "avia_preset_batch4":
+        return PRESETS["avia"], batch_runs(4, duration)
     raise ValueError(
         f"unknown fleet scenario {name!r}: one of {', '.join(BATCH_NAMES)}")

@@ -8,6 +8,7 @@ import ast
 import dataclasses
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -230,13 +231,13 @@ def test_scenarios_are_benchs(name):
 
 
 def test_batch_scenario_is_benchs_main_batch():
-    """``avia_batch4``: the AVIA preset (every Config field equal to the
+    """``avia_preset_batch4``: the AVIA preset (every Config field equal to the
     JAX package's) and bench.py's ``main_batch`` sim runs, seeds 0-3,
     bit-equal (at a 1 s duration)."""
     from fast_lio_tpu import sim as jsim
     from fast_lio_tpu.config import PRESETS as JPRESETS
 
-    cfg, runs = scenarios.batch_scenario("avia_batch4", duration=1.0)
+    cfg, runs = scenarios.batch_scenario("avia_preset_batch4", duration=1.0)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JPRESETS["avia"])
     assert len(runs) == 4
     for s, got in enumerate(runs):
@@ -246,8 +247,10 @@ def test_batch_scenario_is_benchs_main_batch():
             np.testing.assert_array_equal(x, y)
         np.testing.assert_array_equal(got.imu_acc, want.imu_acc)
         np.testing.assert_array_equal(got.gt_pos, want.gt_pos)
-    with pytest.raises(ValueError, match="unknown fleet scenario"):
-        scenarios.batch_scenario("avia")
+    # avia_batchN is the runner's fleet at bench.py's avia config
+    for name in ("avia", "avia_batch4"):
+        with pytest.raises(ValueError, match="unknown fleet scenario"):
+            scenarios.batch_scenario(name)
 
 
 @pytest.fixture(scope="module")
@@ -351,21 +354,63 @@ def test_card_tools_run_on_cuda_by_default(capsys):
             tool.main(argv)
 
 
+# what the port may not import: JAX, the JAX package, and the repository
+# root's scripts (``bench.py`` imports JAX; root ``tools/`` is the JAX
+# package's), which are importable wherever the root is on ``sys.path``
+# (``chip_smoke.py`` puts it there)
+FORBIDDEN_TOPS = ("jax", "jaxlib", "fast_lio_tpu", "bench", "tools")
+# calls that load a module from a file's path
+LOADERS_BY_PATH = ("spec_from_file_location", "run_path", "SourceFileLoader",
+                   "load_source")
+ROOT_SCRIPT_PATH = re.compile(r"(\./)?(bench\.py|tools(/[\w.]*)?)")
+
+
+def _called_name(node: ast.Call) -> str:
+    f = node.func
+    return f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+
+
+def _docstrings(tree) -> set:
+    return {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports jax or
-    fast_lio_tpu: they run on a card's host that has no JAX."""
+    """No module of the port, and not chip_smoke.py, imports jax,
+    fast_lio_tpu or the root's ``bench`` and ``tools``, by name or by
+    path: they run on a card's host that has no JAX."""
     files = [*sorted((ROOT / "fast_lio_tpu_torch").rglob("*.py")),
              ROOT / "chip_smoke.py"]
     assert len(files) > 40
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text())):
+        where = path.relative_to(ROOT)
+        tree = ast.parse(path.read_text())
+        docs = _docstrings(tree)
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module]
+            elif isinstance(node, ast.Call):
+                called = _called_name(node)
+                assert called not in LOADERS_BY_PATH, (
+                    f"{where} loads a module by path ({called})")
+                first = node.args[0] if node.args else None
+                names = ([first.value] if called in (
+                    "import_module", "__import__")
+                    and isinstance(first, ast.Constant) else [])
+            elif (isinstance(node, ast.Constant)
+                  and isinstance(node.value, str) and id(node) not in docs):
+                # a path to the root's scripts (a citation ends ":line")
+                assert not ROOT_SCRIPT_PATH.fullmatch(node.value), (
+                    f"{where} names the root's {node.value!r}")
+                continue
             else:
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "fast_lio_tpu"), (
-                    f"{path.relative_to(ROOT)} imports {name}")
+                assert top not in FORBIDDEN_TOPS, (
+                    f"{where} imports {name}")

@@ -7,22 +7,26 @@ and written into chip_smoke.py as constants: the avia and ouster64 runs
 that run only), the bag replay of phase 7 (the avia run written as a
 ROS1 bag by the port's ``sim.write_avia_bag``, replayed by the JAX
 package's runner with the same flags) and phase ``fleet_batch4`` (the
-``avia_batch4`` fleet, ``fast_lio_tpu_torch/tools/scenarios.py``, through
-the JAX package's ``BatchPipeline`` for ``BATCH_ROUNDS`` rounds; one ATE per
-lane), and the runs of phases ``presets`` (``preset_<name>``: horizon,
-mid360, velodyne and marsim, ``scenarios.preset_run``), ``scenarios``
-(``scenario_<name>``: mid360 and velodyne_outdoor cut to 2 s) and
+``avia_preset_batch4`` fleet, ``fast_lio_tpu_torch/tools/scenarios.py``,
+through the JAX package's ``BatchPipeline`` for ``BATCH_ROUNDS`` rounds; one
+ATE per lane), and the runs of phases ``presets`` (``preset_<name>``: horizon,
+mid360, velodyne and marsim, ``scenarios.preset_run``) and
 ``pointcloud2_bags`` (``bag_<name>``: the PointCloud2 bags of
 ``scenarios.POINTCLOUD2_BAGS`` through the JAX package's runner); these
-print the per-scan iterations beside the ATE.  Not a test (pytest does not
-collect this file); run it from the repository root:
+print the per-scan iterations beside the ATE.  Runs ``bench_<scenario>``
+are phase ``bench``'s: the port's runner (``tools/bench.py``) on bench.py's
+scenarios cut to ``scenarios.BENCH_DURATION_S``, here the JAX ``Pipeline``
+on the same packets (bench.py:270-288), and for ``bench_avia_batch4`` the
+JAX ``BatchPipeline`` fed as ``main_batch`` feeds it (bench.py:153-211),
+one ATE per lane; each single run prints its health (map drops) too.
+Not a test (pytest does not collect this file); run it from the repository
+root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_ate.py [run ...]
 
 (for example ``... preset_marsim bag_velodyne_no_time``).  With
-``--orders N`` first it runs each named packet run (``preset_*``,
-``scenario_*``, and ``preset_horizon_room``: horizon in the sim's room)
-with its points in N orders and prints the ATEs: how far summation order
+``--orders N`` first it runs each named packet run (``preset_*``, and
+``preset_horizon_room``: horizon in the sim's room) with its points in N orders and prints the ATEs: how far summation order
 alone moves the JAX package's own answer.
 
 It runs the JAX pipeline at the presets' full size (a few GB of host memory,
@@ -113,12 +117,6 @@ def horizon_room_data(_):
     return cfg, port_sim.generate(sim_cfg)
 
 
-def scenario_data(name):
-    """chip_smoke.py phase ``scenarios``: bench.py's scenario ``name`` cut
-    to ``scenarios.CUT_DURATION_S``."""
-    return scenarios.scenario(name, scenarios.CUT_DURATION_S)
-
-
 def in_order(data, seed):
     """``data`` with each scan's points shuffled by ``seed`` (0: as made),
     the last point kept last (its time gives the packet's end): the sums
@@ -158,12 +156,12 @@ def run_pointcloud2_bag(name):
                 scans=len(traj), **health)
 
 
-# chip_smoke.py's fleet_batch4: rounds of the avia_batch4 fleet
+# chip_smoke.py's fleet_batch4: rounds of the avia_preset_batch4 fleet
 BATCH_ROUNDS = 30
 
 
 def run_fleet_batch4(rounds=BATCH_ROUNDS):
-    """The JAX BatchPipeline on avia_batch4 (bench.py's main_batch(4) sim
+    """The JAX BatchPipeline on avia_preset_batch4 (bench.py's main_batch(4) sim
     runs at the AVIA preset), each round's scans pushed, then spun, until
     ``rounds`` rounds ran; the ATE of each lane."""
     from fast_lio_tpu.batch import BatchPipeline
@@ -193,6 +191,67 @@ def run_fleet_batch4(rounds=BATCH_ROUNDS):
                        for t, d in zip(trajs, datas)])
 
 
+def run_bench(name):
+    """chip_smoke.py phase ``bench``: bench.py's scenario ``name`` cut to
+    ``scenarios.BENCH_DURATION_S``, its packets synced first as bench.py
+    syncs them (each scan after the IMU samples up to its stamp plus the
+    scan period), then run through the JAX ``Pipeline``."""
+    cfg, data = scenarios.scenario(name, scenarios.BENCH_DURATION_S)
+    pipe = Pipeline(jax_config(cfg))
+    period = float(data.scan_stamps[1] - data.scan_stamps[0])
+    imu_i, packets = 0, []
+    for k in range(len(data.scans)):
+        end = data.scan_stamps[k] + period
+        while imu_i < len(data.imu_t) and data.imu_t[imu_i] <= end + 1e-9:
+            pipe.push_imu(data.imu_t[imu_i], data.imu_acc[imu_i],
+                          data.imu_gyr[imu_i])
+            imu_i += 1
+        pipe.push_lidar(data.scan_stamps[k], data.scans[k],
+                        data.scan_pt_times[k])
+        while (pkt := pipe.sync.pop_packet()) is not None:
+            packets.append(pkt)
+    for pkt in packets:
+        pipe.process_packet(pkt)
+    traj = pipe.get_trajectory()
+    return dict(ate_raw_m=simlib.ate_rmse(traj, data),
+                ate_aligned_m=simlib.ate_rmse_aligned(traj, data),
+                packets=len(packets), scans=len(traj),
+                health=pipe.health_check())
+
+
+def run_bench_batch(n):
+    """chip_smoke.py phase ``bench``'s ``avia_batch<n>``: the JAX
+    ``BatchPipeline`` at bench.py's avia config on ``scenarios.batch_runs``
+    cut to ``scenarios.BENCH_DURATION_S``, every round fed and spun as
+    ``main_batch`` does; the ATE of each lane."""
+    from fast_lio_tpu.batch import BatchPipeline
+
+    datas = scenarios.batch_runs(n, scenarios.BENCH_DURATION_S)
+    bp = BatchPipeline(jax_config(scenarios.config("avia")), n)
+    imu_i = [0] * n
+    for k in range(max(len(d.scans) for d in datas)):
+        for i, d in enumerate(datas):
+            if k >= len(d.scans):
+                bp.mark_done(i)
+                continue
+            stamp = d.scan_stamps[k]
+            while (imu_i[i] < len(d.imu_t)
+                   and d.imu_t[imu_i[i]] <= stamp + 0.1 + 1e-9):
+                bp.push_imu(i, d.imu_t[imu_i[i]], d.imu_acc[imu_i[i]],
+                            d.imu_gyr[imu_i[i]])
+                imu_i[i] += 1
+            bp.push_lidar(i, stamp, d.scans[k], d.scan_pt_times[k])
+        while bp.spin_once():
+            pass
+    trajs = [bp.get_trajectory(i) for i in range(n)]
+    return dict(scans=[len(t) for t in trajs],
+                ate_m=[(simlib.ate_rmse(t, d), simlib.ate_rmse_aligned(t, d))
+                       for t, d in zip(trajs, datas)])
+
+
+BENCH_RUNS = [f"bench_{n}" for n in (*scenarios.NAMES, "avia_batch4")]
+
+
 # chip_smoke.py's CLI_BAG_FLAGS
 CLI_BAG_FLAGS = ["--preset", "avia", "--point-filter-num", "1",
                  "--blind", "0.3"]
@@ -212,16 +271,12 @@ def run_cli_bag(sim_cfg):
                 scans=len(traj))
 
 
-# the new runs by name: chip_smoke.py's phases presets, scenarios and
-# pointcloud2_bags
-# the new runs by name: chip_smoke.py's phases presets, scenarios and
-# pointcloud2_bags (and horizon in the room, for --orders)
+# the packet runs by name: chip_smoke.py's phase presets (and horizon in
+# the room, for --orders)
 PACKET_RUNS = {
     **{f"preset_{n}": (preset_data, n)
        for n in ("horizon", "mid360", "velodyne", "marsim")},
     "preset_horizon_room": (horizon_room_data, None),
-    **{f"scenario_{n}": (scenario_data, n)
-       for n in ("mid360", "velodyne_outdoor")},
 }
 BAG_RUNS = [f"bag_{n}" for n in scenarios.POINTCLOUD2_BAGS]
 
@@ -244,7 +299,7 @@ if __name__ == "__main__":
         orders, args = int(args[1]), args[2:]
     names = args or [*RUNS, "cli_bag", "fleet_batch4",
                      *(n for n in PACKET_RUNS if n != "preset_horizon_room"),
-                     *BAG_RUNS]
+                     *BAG_RUNS, *BENCH_RUNS]
     for name in names:
         if orders:
             out = run_orders(name, orders)
@@ -254,6 +309,10 @@ if __name__ == "__main__":
             out = run_data(jax_config(cfg), data)
         elif name in BAG_RUNS:
             out = run_pointcloud2_bag(name[len("bag_"):])
+        elif name == "bench_avia_batch4":
+            out = run_bench_batch(4)
+        elif name in BENCH_RUNS:
+            out = run_bench(name[len("bench_"):])
         elif name == "cli_bag":
             out = run_cli_bag(RUNS["avia"][1])
         elif name == "fleet_batch4":
