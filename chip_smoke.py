@@ -43,17 +43,41 @@ non-zero:
    search and to the single launch on its map; its bound is the streams'
    bounds added (``kernels/bounds.knn_bound_streams``).
    Times: the
-   microbenchmark's ``device_us`` (profiler), ``graph_us`` (a CUDA graph of
-   100 calls) and ``enqueue_us`` (host clock), with the ptxas registers.
+   microbenchmark's ``device_us`` (profiler; a window that saw no kernel
+   is tried again, and after three the graph's CUDA events stand in, as
+   ``device_timer`` says), ``graph_us`` (a CUDA graph of 100 calls) and
+   ``enqueue_us`` (host clock), with the ptxas registers.
    Row ``graph_if``: the gated step's CUDA-graph IF node
    (``csrc/graph_if.cu``, ``control_flow.gate``) against its plain version,
    the masked ``torch.where``, bit for bit with either predicate, and the
-   time of each per gate in a graph of 100.
+   time of each per gate in a graph of 100.  Rows ``segment_sum``,
+   ``segment_sum_f64``, ``segment_sum_batched``, ``segment_sum_batched_f64``:
+   the downsample's sorted segmented mean (``csrc/segment_sum.cu``) on the
+   inputs of a sim run's downsample (``tools/microbench_segment_sum.py``:
+   its deskewed points sorted as ``voxel_downsample`` sorts them) at the
+   avia pad (N = 32768, n_out 8192, C = 4; the row's figures) and the
+   ouster64 pad (N = 45056, under "ouster64"), in float32 and float64
+   (moved off the float32 grid), single and over S = 4 lanes (four scans);
+   held bit for bit (means and masks) to its plain version on a CPU copy,
+   two launches bit-equal, each lane of the batched launch bit-equal to
+   the single launch on it; ``device_us``, ``graph_us``, registers, the
+   bound (bytes at 3.35 TB/s, ``bounds.segment_mean_bound``) and
+   ``library_ms``, the two ``index_add_`` calls and the division it
+   replaces, timed as ``graph_us`` is; for the single cases, what
+   ``microbench_segment_sum.segment_reduce_probe`` finds of
+   ``torch.segment_reduce`` on the same inputs (bits, repeats, host syncs,
+   its time in a graph), logged and not checked.  The kernel is also held
+   at each later run's own shapes and data: phases 4-6, 8, 11, 18, 20 and 21
+   keep their run's last downsample inputs (``keeping_segment_inputs``)
+   and hold the kernel, single or batched, bit for bit to its plain
+   version on them (``segment_sum_at_path_shape``; its max |delta| in the
+   run's line).
 3. small — the port's pipeline on CUDA against its own CPU path (the plain
    versions) on a small sim: per-scan positions within 5 mm.
 4. avia — the main path at the AVIA preset's full size (32768-point pad,
    8192 downsampled points, 2^15 x 64-slot map): 30 simulated scans through
    ``Pipeline.push_imu/push_lidar/spin_once``.  Checks: the R = 8 kernel ran,
+   one ``segment_sum`` launch a step (in phases 5, 6, 9 and 11 too),
    no NaN, a positive definite covariance, no truncated scan, no more map
    drops than the JAX package's on the same run (none), ATE within 1 cm of
    its ATE.
@@ -64,8 +88,7 @@ non-zero:
 6. ouster64_grouped — phase 5's run with ``knn_backend="grouped"``: the
    grouped prep and search kernels ran at R = 8 and R = 27, once each per
    search, and the per-query kernel did not;
-   phase 5's checks; positions within 5 mm of phase 5's (``index_add_``
-   sums in another order on each run, so they are not bit-equal).
+   phase 5's checks; positions bit-equal to phase 5's.
 7. cli_bag — the entry point users run: phase 4's sim written as a ROS1 bag
    (Livox CustomMsg + Imu), replayed by ``fast_lio_tpu_torch.cli.main`` with
    the AVIA preset and ``--checkpoint --map-save --pcd-save --stage-timing
@@ -144,7 +167,8 @@ non-zero:
    window, positions within 5 mm, a gated graph replayed, and the captured
    run's kNN launches (counted as run: the gated graph's IF nodes count
    their launches on the device, read when the run ends) at most the eager
-   run's, which runs every pass and arm; IF nodes in the captured run only.
+   run's, which runs every pass and arm; IF nodes in the captured run only;
+   one ``segment_sum`` launch a step in both.
 
 14. fleet_batch4 — ``tools/scenarios.py``'s ``avia_preset_batch4``
    (bench.py's four-stream fleet at the AVIA preset's full width), cut to
@@ -163,12 +187,16 @@ non-zero:
    (``tools/profile_scan.profile_window``): device busy ms, activities,
    passes and kNN launches per round (counted as run, and the profiler's),
    and the idle share; stream 0's single pipeline the same, per scan.
-   Then both graphs again under ``torch.use_deterministic_algorithms``.
+   Then a second natural run of the gated graph (deterministic algorithms
+   off), and both graphs again under ``torch.use_deterministic_algorithms``.
    The passes are read from the device: every pass runs one batched R = 8
    search, counted inside its IF node only where the node runs; the
    counters are settled after every round outside the window and the
-   profile (``fleet_pair``).  Checks: there the gated graph bit for bit
-   the masked one, iterations too; the passes of every round (of the
+   profile (``fleet_pair``).  Checks: the two natural gated runs bit for
+   bit lane by lane, with the same passes; one batched ``segment_sum``
+   launch a round and no single one; under deterministic algorithms the
+   gated graph bit for bit the masked one, iterations too; the passes of
+   every round (of the
    window and the profile as one sum each) JAX's: the most any lane ran,
    every pass in a round with a lane that does not update, and some
    round exits early; no sync in the window, no host sync in the profiled rounds, each
@@ -203,12 +231,15 @@ non-zero:
    update passes, re-searches and wide searches a scan, beside the card's
    name and power limit; the same for the captured graph with its gates
    masked (``StepGraphs(gates=False)``, the ungated graph: the cost the
-   gates save, in one run).  Then the run eager and gated under
-   ``torch.use_deterministic_algorithms`` (the downsample's ``index_add_``
-   otherwise sums atomically, in another order each run).  Checks: there
-   the gated graph bit for bit the eager step, with the same iterations
-   scan by scan (in phase 13's runs the atomic sums may move a convergence
-   test across ``epsi``, so there only 5 mm is held), no host sync in the
+   gates save, in one run); a second natural captured run; then the run
+   eager and gated under ``torch.use_deterministic_algorithms``.  Checks:
+   with deterministic algorithms off, phase 13's eager and gated runs bit
+   for bit, with the same iterations scan by scan, the masked graph's run
+   bit for bit the eager one, and the second gated run bit for bit the
+   first (the downsample's sums are the ``segment_sum``
+   kernel's, one order on every run; ``index_add_``'s atomics moved a
+   convergence test across ``epsi`` on 2-3 scans a run before); under
+   deterministic algorithms the same pair bit for bit, no host sync in the
    profiled scans (and, phase 13, none in the window), and the kNN
    launches counted as run equal to the profiler's count of kNN kernels,
    in both modes.
@@ -504,7 +535,19 @@ REPLACES = {"knn": "tools/knn_pallas.py:193",
             "knn_f64": "tools/knn_pallas.py:193",
             "knn_batched": "tools/knn_pallas.py:193",
             "knn_batched_f64": "tools/knn_pallas.py:193"}
-TIMES = ("device_us", "prep_device_us", "graph_us", "enqueue_us")
+TIMES = ("device_us", "device_timer", "profiler_windows", "prep_device_us",
+         "graph_us", "enqueue_us")
+# the segmented mean (csrc/segment_sum.cu): its launch counters, keyed by
+# the scalar's bits; the kernels line's rows, each a counter and a key; the
+# phase 2 runs whose downsample inputs it is held and timed on (the first
+# gives the row's figures, the others stand in it by name)
+SEGMENT_SUM_KINDS = ("segment_sum", "segment_sum_batched")
+NOT_KNN = ("graph_if", *SEGMENT_SUM_KINDS)
+SEGMENT_SUM_ROWS = {"segment_sum": ("segment_sum", 32),
+                    "segment_sum_f64": ("segment_sum", 64),
+                    "segment_sum_batched": ("segment_sum_batched", 32),
+                    "segment_sum_batched_f64": ("segment_sum_batched", 64)}
+SEGMENT_SUM_RUNS = ("avia", "ouster64")
 
 
 def kernel_row(mb, kind, tag, t, err) -> dict:
@@ -584,6 +627,7 @@ def phase_kernels(pkg):
             rows.update(batched_kernel_rows(pkg, tag, dtype))
     rows["graph_if"] = graph_if_row(pkg)
     log({"phase": "kernels", "case": "graph_if", "row": rows["graph_if"]})
+    rows.update(segment_sum_rows(pkg))
     return rows
 
 
@@ -689,6 +733,65 @@ def graph_if_row(pkg) -> dict:
         shape={"carry": list(carry0.shape), "gates": GATE_REPS})
 
 
+def segment_sum_rows(pkg) -> dict:
+    """The segmented mean (``csrc/segment_sum.cu``) at the main path's
+    shapes (``microbench_segment_sum.make_cases``: a sim run's downsample
+    inputs at the avia and ouster64 pads, C = 4, in float32 and float64,
+    single and over S = 4 lanes).  Checks: the kernel bit for bit its plain
+    version on a CPU copy of the inputs (means and masks), two launches
+    bit-equal, each lane of the batched launch bit-equal to the single
+    launch on it.  Returns the kernels line's rows by name, each with the
+    avia case's figures and the others under their run's name."""
+    seg, mbs = pkg["seg"], pkg["mbs"]
+    before = pkg["counts"].snapshot()
+    rows = {}
+    for run in SEGMENT_SUM_RUNS:
+        for name, case in mbs.make_cases(run).items():
+            got, again = mbs.launch(case), mbs.launch(case)
+            cpu = mbs.Case(case.tag, *(t.cpu() for t in case[1:4]),
+                           case.n_out)
+            want = mbs.plain(cpu)
+            torch.cuda.synchronize()
+            err = 0.0
+            for g, a, w in zip(got, again, want):
+                check(torch.equal(g, a), f"{name}: two launches differ")
+                check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)}")
+                if g.dtype != torch.bool:
+                    err = max(err, float((g.cpu() - w).abs().max()))
+                check(torch.equal(g.cpu(), w),
+                      f"{name}: differs from its plain version (max {err})")
+            if case.batched:
+                for s in range(case.cols.shape[0]):
+                    one = seg.segment_mean_cuda(case.cols[s], case.live[s],
+                                                case.seg_id[s], case.n_out)
+                    check(all(torch.equal(g[s], o) for g, o in zip(got, one)),
+                          f"{name}: lane {s} differs from its single launch")
+            t = mbs.measure(case, TIMING_REPS)
+            probe = ({} if case.batched else
+                     {"segment_reduce": mbs.segment_reduce_probe(case)})
+            log({"phase": "kernels", "case": name, "max_abs_err": err,
+                 "times": t, **probe})
+            kind = name.removesuffix(f"_{run}")
+            check(t["device_us"] is not None and t["graph_us"] > 0,
+                  f"{name}: not timed on the device")
+            if kind not in rows:
+                rows[kind] = dict(
+                    name=kind, route="cuda",
+                    source="fast_lio_tpu_torch/csrc/segment_sum.cu",
+                    replaces=("no pallas_call: XLA's sorted "
+                              "jax.ops.segment_sum, "
+                              "fast_lio_tpu/ops/voxel_grid.py:108-117"),
+                    launches=None, max_abs_err=err, ms=1e-3 * t["graph_us"],
+                    plain_ms=1e-3 * t["plain_us"],
+                    bound_ms=1e-3 * t["bound_us"], bound_by=t["bound_by"],
+                    library_ms=1e-3 * t["library_us"], run=run,
+                    **{k: v for k, v in t.items() if k != "bound_by"})
+            else:
+                rows[kind][run] = dict(t, max_abs_err=err)
+    pkg["counts"].restore(before)  # launches to compare are not the path's
+    return rows
+
+
 def rank_tables(pkg, case, world=2) -> dict:
     """The per-query kernel on each rank's table of ``case``'s map sharded
     ``world`` ways (what phase 10 searches: 2^(h_log2 - 1) buckets), held
@@ -768,7 +871,9 @@ def launch_counters(pkg) -> dict:
             "knn_f64": knn.launches_f64,
             "knn_batched": knn.batched_launches,
             "knn_batched_f64": knn.batched_launches_f64,
-            "graph_if": pkg["graph_if"].launches}
+            "graph_if": pkg["graph_if"].launches,
+            "segment_sum": pkg["seg"].launches,
+            "segment_sum_batched": pkg["seg"].batched_launches}
 
 
 def reset_launches(pkg) -> None:
@@ -792,6 +897,17 @@ def check_health(name, hc, ref_name) -> None:
     ref_dropped = JAX_MAP_DROPPED[ref_name]
     check(hc["map_dropped"] <= ref_dropped * (1 + DROPPED_SLACK),
           f"{name}: {hc['map_dropped']} map drops, JAX {ref_dropped}")
+
+
+def check_segment_sum(name, launches, steps, cfg) -> None:
+    """One single launch of the downsample's segment_sum kernel a step, in
+    the step's type."""
+    want = {32: 0, 64: 0}
+    want[64 if cfg.compute_dtype == "float64" else 32] = steps
+    check(launches["segment_sum"] == want
+          and sum(launches["segment_sum_batched"].values()) == 0,
+          f"{name}: segment_sum launches {launches['segment_sum']}, "
+          f"batched {launches['segment_sum_batched']}, {steps} steps")
 
 
 def check_ate(name, out, ref_name) -> None:
@@ -873,7 +989,8 @@ def run_main_path(pkg, name, cfg, sim_cfg, ref_name=None, warm_scans=5):
     torch.cuda.reset_peak_memory_stats()
     pipe = Pipeline(cfg)  # CUDA by default
     reset_launches(pkg)
-    times = feed(pipe, data)
+    with keeping_segment_inputs(pkg) as kept:
+        times = feed(pipe, data)
     launches = read_launches(pkg)
     traj = pipe.get_trajectory()
     hc = pipe.health_check()
@@ -893,10 +1010,12 @@ def run_main_path(pkg, name, cfg, sim_cfg, ref_name=None, warm_scans=5):
         "n_effective_last": int(pipe.diags[-1].n_effective),
         "health": hc,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "segment_sum_at_path_shape": segment_sum_at_path_shape(pkg, kept),
     }
     log(out)
     check_health(name, hc, ref_name)
     check_ate(name, out, ref_name)
+    check_segment_sum(name, launches, len(pipe.diags), cfg)
     return out, launches, traj
 
 
@@ -1027,8 +1146,9 @@ def phase_fleet(pkg, tmp: Path, bag0: Path, traj0, sim_cfg1):
     fleet = tmp / "fleet"
     reset_launches(pkg)
     t0 = time.perf_counter()
-    summary = run_cli(pkg, CLI_BAG_FLAGS + ["--bag", str(bag0), "--bag",
-                                            str(bag1), "--out", str(fleet)])
+    with keeping_segment_inputs(pkg) as kept:
+        summary = run_cli(pkg, CLI_BAG_FLAGS + [
+            "--bag", str(bag0), "--bag", str(bag1), "--out", str(fleet)])
     wall = time.perf_counter() - t0
     launches = read_launches(pkg)
     singles = [traj0, read_tum(single1 / "trajectory_tum.txt")]
@@ -1039,11 +1159,15 @@ def phase_fleet(pkg, tmp: Path, bag0: Path, traj0, sim_cfg1):
          "aggregate_scans_per_s": summary["aggregate_scans_per_sec"],
          "max_pos_diff_m": diffs, "tol_m": POS_TOL_M,
          "launches": {k: {f"r{r}": n for r, n in v.items()}
-                      for k, v in launches.items()}})
+                      for k, v in launches.items()},
+         "segment_sum_at_path_shape": segment_sum_at_path_shape(pkg, kept)})
     check(len(singles[1]) < len(singles[0]), "fleet: stream 1 is not shorter")
     check(max(diffs) <= POS_TOL_M, f"fleet: streams left their replays {diffs}")
     check(launches["knn_batched"][8] > 0 and sum(launches["knn"].values()) == 0,
           f"fleet: not the batched kNN launch ({launches})")
+    check(launches["segment_sum_batched"][32] > 0
+          and sum(launches["segment_sum"].values()) == 0,
+          f"fleet: not the batched segment_sum launch ({launches})")
     return launches
 
 
@@ -1122,6 +1246,10 @@ def phase_sharded_1rank(pkg, cfg, sim_cfg, traj_ref, card) -> dict:
     check(ex["knn_search_launches_counted_per_scan"]
           == cap["profile"]["knn_search_launches_per_scan"],
           f"{name}: kNN launches counted {ex}, profiled {cap['profile']}")
+    for mode, r in (("captured", cap), ("eager", eager)):
+        check(r["segment_sum_launches"] == {32: len(r["stamps"]), 64: 0},
+              f"{name} {mode}: segment_sum launches "
+              f"{r['segment_sum_launches']}, {len(r['stamps'])} steps")
     coll = [r["profile"]["collective_kernels_per_scan"] for r in (cap, eager)]
     check(all(coll[0][k] <= coll[1][k] for k in coll[1]),
           f"{name}: collectives a scan {coll[0]} captured, {coll[1]} eager")
@@ -1317,6 +1445,11 @@ def phase_graph(pkg, runs, card: str) -> dict:
         # the captured step's gates skip what JAX's skips; the eager step
         # runs every pass and arm
         for kind, by_r in captured["launches"].items():
+            if kind in SEGMENT_SUM_KINDS:  # one a step in both modes
+                check(by_r == eager["launches"][kind],
+                      f"graph {name}: segment_sum launches {by_r} captured, "
+                      f"{eager['launches'][kind]} eager")
+                continue
             if kind == "graph_if":
                 check(eager["launches"][kind][0] == 0 < by_r[0],
                       f"graph {name}: IF nodes {by_r} captured, "
@@ -1327,7 +1460,7 @@ def phase_graph(pkg, runs, card: str) -> dict:
                   f"graph {name}: captured {kind} launches {by_r} above "
                   f"eager {eager['launches'][kind]}")
         check(sum(sum(v.values()) for k, v in captured["launches"].items()
-                  if k != "graph_if") > 0, f"graph {name}: no kNN launch")
+                  if k not in NOT_KNN) > 0, f"graph {name}: no kNN launch")
         check(captured["graphs"]["captured"] >= 1
               and all(g["replays"] > 0 and g["gated"] for g in
                       captured["graphs"]["per_graph"].values()),
@@ -1340,12 +1473,20 @@ def phase_graph(pkg, runs, card: str) -> dict:
     return by_run
 
 
+def same_traj(a, b) -> bool:
+    """Whether two trajectories are bit-equal: stamps, positions and
+    rotations."""
+    return len(a) == len(b) and all(
+        ta == tb and np.array_equal(pa, pb) and np.array_equal(qa, qb)
+        for (ta, pa, qa), (tb, pb, qb) in zip(a, b))
+
+
 def deterministic_runs(pkg, cfg, data) -> dict:
     """The run eager (masked) and captured with IF nodes (the default)
-    under ``torch.use_deterministic_algorithms`` (the downsample's
-    ``index_add_`` otherwise sums atomically, in another order each run).
-    Returns each run's per-scan iterations and the eager positions' largest
-    difference from the gated run's."""
+    under ``torch.use_deterministic_algorithms`` (phase 17 holds the same
+    pair with PyTorch's defaults too).  Returns each run's per-scan
+    iterations and the eager positions' largest difference from the gated
+    run's."""
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
@@ -1365,9 +1506,20 @@ def deterministic_runs(pkg, cfg, data) -> dict:
 
 def phase_gated(pkg, name, cfg, data, eager, captured, card) -> None:
     """Phase 17: the single step's gated graph (CUDA-graph IF nodes) against
-    the eager, masked step on the same scans: phase 13's runs, and the same
-    pair under deterministic algorithms."""
+    the eager, masked step on the same scans: phase 13's runs (natural:
+    deterministic algorithms off) and a second natural gated run, and the
+    same pair under deterministic algorithms."""
     masked = run_unsynced(pkg, cfg, data, graphs=True, gates=False)
+    second = pkg["Pipeline"](cfg)
+    feed(second, data)
+    second_its = [int(d.iterations) for d in second.diags]
+    natural = {
+        "eager_equals_gated": same_traj(eager["traj"], captured["traj"]),
+        "second_gated_equals_first": same_traj(second.get_trajectory(),
+                                               captured["traj"]),
+        "masked_graph_equals_eager": same_traj(masked["traj"],
+                                               eager["traj"]),
+        "iterations_second_gated": second_its}
     det = deterministic_runs(pkg, cfg, data)
     prof = {mode: r["profile"] for mode, r in (("eager", eager),
                                                ("captured", captured),
@@ -1384,6 +1536,7 @@ def phase_gated(pkg, name, cfg, data, eager, captured, card) -> None:
          "tol_m": POS_TOL_M,
          "iterations_eager": eager["iterations"],
          "iterations_captured": captured["iterations"],
+         "natural": natural,
          "deterministic": det,
          "window_scans_per_s": {"eager": eager["scans_per_s"],
                                 "captured": captured["scans_per_s"],
@@ -1392,6 +1545,22 @@ def phase_gated(pkg, name, cfg, data, eager, captured, card) -> None:
                                                      eager["traj"]),
          "profile_per_scan": prof,
          "if_nodes_run": captured["launches"]["graph_if"][0]})
+    # natural: the downsample's sums (segment_sum) take one order on every
+    # run, so the gated graph computes what the eager step computes, bit for
+    # bit, and again on a second run
+    check(natural["eager_equals_gated"]
+          and eager["iterations"] == captured["iterations"],
+          f"gated {name}: natural eager and gated runs differ (iterations "
+          f"{eager['iterations']}, {captured['iterations']})")
+    check(natural["second_gated_equals_first"]
+          and second_its == captured["iterations"],
+          f"gated {name}: two natural gated runs differ (iterations "
+          f"{captured['iterations']}, {second_its})")
+    check(natural["masked_graph_equals_eager"]
+          and masked["iterations"] == eager["iterations"],
+          f"gated {name}: the natural masked graph differs from the eager "
+          f"step (iterations {masked['iterations']}, "
+          f"{eager['iterations']})")
     # deterministic: the gated graph computes what the eager step and the
     # masked graph compute, bit for bit
     its, dpos = det["iterations"], det["max_pos_diff_from_gated_m"]
@@ -1483,14 +1652,14 @@ def fleet_passes_jax(cfg, its, gated: bool) -> np.ndarray:
 
 def fleet_pair(pkg, cfg, datas, deterministic: bool, lead_rounds=None,
                lead_steps=None, window_rounds: int = 0,
-               profile_steps: int = 0, to_end: bool = True) -> dict:
+               profile_steps: int = 0, to_end: bool = True,
+               modes=("gated", "masked")) -> dict:
     """The fleet of ``datas`` through its gated graph (``BatchPipeline``'s)
     and through its masked graph (``StepGraphs(gates=False)``: every pass
-    a round), one after the other, each under
-    ``torch.use_deterministic_algorithms`` where ``deterministic`` (the
-    downsample's ``index_add_`` otherwise sums atomically, in another
-    order each run).  Each run feeds the streams' scans (``round_feeder``)
-    one step at a time until ``lead_rounds`` rounds or ``lead_steps``
+    a round), one after the other (``modes``), each under
+    ``torch.use_deterministic_algorithms`` where ``deterministic``.  Each
+    run feeds the streams' scans (``round_feeder``) one step at a time
+    until ``lead_rounds`` rounds or ``lead_steps``
     steps (every scan where neither is given); then ``window_rounds``
     rounds under ``set_sync_debug_mode("error")``, drained and timed at
     the end; then ``profile_steps`` steps under the profiler; then, with
@@ -1503,7 +1672,7 @@ def fleet_pair(pkg, cfg, datas, deterministic: bool, lead_rounds=None,
     settled after every lead step (a host read), and around the window and
     the profile: ``segments`` holds (first round, end round, passes run)
     for each, held against JAX's passes (``fleet_passes_jax``).  Returns
-    {"gated": run, "masked": run}, each with its pipeline, trajectories,
+    {mode: run}, each with its pipeline, trajectories,
     iterations, segments, window seconds and rounds, launches and
     profile."""
     kind = "knn_batched" + ("_f64" if cfg.compute_dtype == "float64" else "")
@@ -1511,7 +1680,7 @@ def fleet_pair(pkg, cfg, datas, deterministic: bool, lead_rounds=None,
     if deterministic:
         torch.use_deterministic_algorithms(True)
     try:
-        for mode in ("gated", "masked"):
+        for mode in modes:
             bp = pkg["BatchPipeline"](cfg, len(datas))  # CUDA, gated
             if mode == "masked":
                 bp.graphs = pkg["StepGraphs"](bp.device, gates=False)
@@ -1603,9 +1772,8 @@ def passes_as_jax(run) -> bool:
     return all(n == int(want[r0:r1].sum()) for r0, r1, n in run["segments"])
 
 
-def same_fleet_runs(runs) -> bool:
-    """Whether the gated and masked runs are bit-equal, iterations too."""
-    g, m = runs["gated"], runs["masked"]
+def same_fleet_runs(g, m) -> bool:
+    """Whether two fleet runs are bit-equal, iterations too."""
     return (np.array_equal(g["iterations"], m["iterations"])
             and all(len(a) == len(b) and all(
                 np.array_equal(p[1], q[1]) and np.array_equal(p[2], q[2])
@@ -1613,11 +1781,23 @@ def same_fleet_runs(runs) -> bool:
                                                        m["trajs"])))
 
 
+def same_passes(run, other) -> bool:
+    """Whether ``other``'s passes, read from the device segment by segment,
+    add up to each of ``run``'s segments (their rounds end where a step of
+    the same feed ends in both)."""
+    ran = {0: 0}  # passes run before each round that ends a segment
+    for r0, r1, n in other["segments"]:
+        if r0 in ran:
+            ran[r1] = ran[r0] + n
+    return all(r0 in ran and r1 in ran and ran[r1] - ran[r0] == n
+               for r0, r1, n in run["segments"])
+
+
 def phase_fleet_batch4(pkg, card: str):
     """avia_batch4 through the batched step, its gated graph and its masked
     graph, against its streams time-sliced through single captured (gated)
-    pipelines; then the gated and masked graphs under deterministic
-    algorithms.  Returns the gated batch's launches."""
+    pipelines; a second natural gated run; then the gated and masked graphs
+    under deterministic algorithms.  Returns the gated batch's launches."""
     cfg, datas = pkg["scenarios"].batch_scenario("avia_preset_batch4")
     S, n_profiled = len(datas), BATCH_ROUNDS - BATCH_WARM_ROUNDS - (
         BATCH_WINDOW_ROUNDS)
@@ -1637,6 +1817,11 @@ def phase_fleet_batch4(pkg, card: str):
     fleets = fleet_pair(pkg, cfg, datas, False, lead_rounds=BATCH_WARM_ROUNDS,
                         window_rounds=BATCH_WINDOW_ROUNDS,
                         profile_steps=n_profiled, to_end=False)
+    # a second natural run of the gated graph over the same rounds, its
+    # passes settled round by round; bit for bit the first, with the same
+    # passes
+    again = fleet_pair(pkg, cfg, datas, False, lead_rounds=BATCH_ROUNDS,
+                       to_end=False, modes=("gated",))["gated"]
     det = fleet_pair(pkg, cfg, datas, True)
     run = fleets["gated"]
     bp, launches, window_launches = (run["bp"], run["launches"],
@@ -1682,7 +1867,13 @@ def phase_fleet_batch4(pkg, card: str):
                           passes_as_jax(r[m]) for d, r in ((False, fleets),
                                                            (True, det))
                           for m in r},
-        "deterministic_gated_equals_masked": same_fleet_runs(det),
+        "deterministic_gated_equals_masked": same_fleet_runs(
+            det["gated"], det["masked"]),
+        "natural_second_gated_equals_first": same_fleet_runs(run, again),
+        "natural_second_gated_same_passes": same_passes(run, again),
+        "segment_sum_launches": {
+            "batched": launches["segment_sum_batched"],
+            "single": launches["segment_sum"], "rounds": bp.rounds},
         "graphs": {str(k): v for k, v in graphs.items()},
         "feed_waits": bp.feed.waits,
         "max_pos_diff_m": diffs, "tol_m": POS_TOL_M,
@@ -1697,6 +1888,14 @@ def phase_fleet_batch4(pkg, card: str):
     check(out["deterministic_gated_equals_masked"],
           "fleet_batch4: the gated graph is not the masked one bit for bit "
           "under deterministic algorithms")
+    check(out["natural_second_gated_equals_first"]
+          and out["natural_second_gated_same_passes"],
+          "fleet_batch4: two natural gated runs differ (lanes or passes: "
+          f"{run['segments']} against {again['segments']})")
+    check(launches["segment_sum_batched"][32] == bp.rounds
+          and sum(launches["segment_sum"].values()) == 0,
+          f"fleet_batch4: not one batched segment_sum launch a round "
+          f"({out['segment_sum_launches']})")
     check(all(out["passes_as_jax"].values()),
           f"fleet_batch4: the passes run (the device's count) are not JAX's "
           f"{out['passes_as_jax']}: gated segments {run['segments']}, "
@@ -1757,7 +1956,8 @@ def phase_fleet_ouster64(pkg, cfg, sim_cfg, refs) -> dict:
         log({"phase": "fleet_ouster64", "dtype": dtype, "rounds": bp.rounds,
              "scans": [len(t) for t in trajs], "max_pos_diff_m": diffs,
              "tol_m": POS_TOL_M,
-             "deterministic_gated_equals_masked": same_fleet_runs(runs),
+             "deterministic_gated_equals_masked": same_fleet_runs(
+                 runs["gated"], runs["masked"]),
              # read from the device (None: a round in the profiled window,
              # whose passes are read as one sum)
              "passes_by_round": passes_by_round(runs["gated"]),
@@ -1784,7 +1984,7 @@ def phase_fleet_ouster64(pkg, cfg, sim_cfg, refs) -> dict:
               f"fleet_ouster64 {dtype}: a round with the no-op lane ran "
               f"fewer passes than {n_pass}: {noop_segments}")
         kind = "knn_batched" + ("_f64" if dtype == "float64" else "")
-        check(same_fleet_runs(runs),
+        check(same_fleet_runs(runs["gated"], runs["masked"]),
               f"fleet_ouster64 {dtype}: the gated graph is not the masked "
               "one bit for bit under deterministic algorithms")
         check(len(trajs[1]) < len(trajs[0]) == bp.rounds,
@@ -1839,6 +2039,79 @@ def kernel_at_path_shape(pkg, pipe) -> dict:
     return {"queries": q.shape[0], "max_abs_err": err}
 
 
+@contextlib.contextmanager
+def keeping_segment_inputs(pkg):
+    """Within: the inputs of the segment_sum kernel's wrappers
+    (``segment_mean_cuda`` or ``_batched``), kept by reference: under
+    ``"last"`` the last call's, under ``"eager"`` the last call's made
+    outside a capture.  A captured call's inputs are its graph's own
+    tensors, which each replay of the graph writes, so that once the run
+    is over they hold its last replay's.  Yields the dict (kind -> (batched,
+    (cols, live, seg_id, n_out)))."""
+    seg = pkg["seg"]
+    names = ("segment_mean_cuda", "segment_mean_cuda_batched")
+    kept, saved = {}, {name: getattr(seg, name) for name in names}
+
+    def keeper(name):
+        def keep(cols, live, seg_id, n_out):
+            call = (name.endswith("_batched"), (cols, live, seg_id, n_out))
+            kept["last"] = call
+            if not torch.cuda.is_current_stream_capturing():
+                kept["eager"] = call
+            return saved[name](cols, live, seg_id, n_out)
+        return keep
+
+    for name in names:
+        setattr(seg, name, keeper(name))
+    try:
+        yield kept
+    finally:
+        for name, fn in saved.items():
+            setattr(seg, name, fn)
+
+
+def sorted_segments(seg_id: torch.Tensor, n_out: int) -> bool:
+    """Whether seg_id (a CPU tensor, (N,) or (S, N)) is what the downsample
+    gives: monotone non-decreasing along N, within [0, n_out]."""
+    return bool((seg_id[..., 1:] >= seg_id[..., :-1]).all()
+                and seg_id.min() >= 0 and seg_id.max() <= n_out)
+
+
+def segment_sum_at_path_shape(pkg, kept) -> dict:
+    """The segment_sum kernel held to its plain version at the shape and on
+    the data that the run's main path gave it: the inputs of the run's
+    last launch (``keeping_segment_inputs``), or of its last eager launch
+    where those are not a downsample's (a graph captured and never
+    replayed holds no scan), through the same wrapper, single or batched,
+    against the plain version on a CPU copy, lane by lane, bit for bit
+    (max |delta| 0, masks equal).  These launches are not the main path's:
+    the counters are put back."""
+    seg, counts = pkg["seg"], pkg["counts"]
+    torch.cuda.synchronize()
+    which = next((k for k in ("last", "eager") if k in kept and
+                  sorted_segments(kept[k][1][2].cpu(), kept[k][1][3])), None)
+    check(which is not None, "no downsample inputs kept from the run")
+    batched, (cols, live, seg_id, n_out) = kept[which]
+    before = counts.snapshot()
+    fn = seg.segment_mean_cuda_batched if batched else seg.segment_mean_cuda
+    got = fn(cols, live, seg_id, n_out)
+    torch.cuda.synchronize()
+    counts.restore(before)
+    lanes = range(cols.shape[0]) if batched else (None,)
+    err, equal = [], True
+    for s in lanes:
+        ins = [(t if s is None else t[s]).cpu() for t in (cols, live, seg_id)]
+        want = seg.segment_mean_plain(*ins, n_out)
+        out = [(t if s is None else t[s]).cpu() for t in got]
+        err.append(float((out[0] - want[0]).abs().max()))
+        equal = equal and all(torch.equal(o, w) for o, w in zip(out, want))
+    check(equal, f"segment_sum at the path's shape differs from its plain "
+          f"version (max {err})")
+    return {"inputs": which, "shape": list(cols.shape), "n_out": n_out,
+            "points_kept": int((seg_id < n_out).sum()),
+            "max_abs_err": err if batched else err[0]}
+
+
 def batched_kernel_at_path_shape(pkg, bp) -> dict:
     """``kernel_at_path_shape`` for a fleet: the batched launch (R = 8)
     over every lane's last downsampled world points in its final map, each
@@ -1874,22 +2147,23 @@ def run_captured(pkg, phase, name, cfg, data):
     pipe = pkg["Pipeline"](cfg)
     reset_launches(pkg)
     push = scan_pusher(pipe, data)
-    t0 = time.perf_counter()
-    for _ in range(GRAPH_WARM_SCANS):
-        next(push)
-        torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    n_window = len(data.scans) - GRAPH_WARM_SCANS
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    try:
-        for _ in range(n_window):
+    with keeping_segment_inputs(pkg) as kept:
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_WARM_SCANS):
             next(push)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    window_s = time.perf_counter() - t0
-    check(next(push, None) is None, f"{name}: scans left after the run")
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        n_window = len(data.scans) - GRAPH_WARM_SCANS
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            for _ in range(n_window):
+                next(push)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        check(next(push, None) is None, f"{name}: scans left after the run")
     launches = read_launches(pkg)
     traj = pipe.get_trajectory()
     hc = pipe.health_check()
@@ -1907,7 +2181,8 @@ def run_captured(pkg, phase, name, cfg, data):
            "launches": {k: {f"r{r}": n for r, n in v.items()}
                         for k, v in launches.items()},
            "graphs": {str(k): v for k, v in graphs.items()}, "health": hc,
-           "kernel_at_path_shape": kernel_at_path_shape(pkg, pipe)}
+           "kernel_at_path_shape": kernel_at_path_shape(pkg, pipe),
+           "segment_sum_at_path_shape": segment_sum_at_path_shape(pkg, kept)}
     log(out)
     check_health(name, hc, name)
     check_ate(name, out, name)
@@ -1928,8 +2203,9 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
     count) and captured (each pass an IF node), both under
     ``torch.use_deterministic_algorithms``; the captured run settles the
     counters after every scan.  A replay evaluates the prune's and the
-    update's IF nodes (``launches_per_replay``: in the gated graph every
-    other launch sits in an IF node), the update's body its
+    update's IF nodes (``launches_per_replay`` less the downsample's one
+    ``segment_sum`` launch: in the gated graph every other launch sits in
+    an IF node), the update's body its
     ``max_iteration + 1`` pass nodes, and each pass that runs the node of
     its re-search: so the IF nodes evaluated in a scan, less those, are
     the passes the device ran.  Checks: those passes equal the scan's
@@ -1963,13 +2239,14 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
                   for g in gated.graphs.stats().values()]
     its = {"eager": [int(d.iterations) for d in eager.diags],
            "gated": [int(d.iterations) for d in gated.diags]}
-    passes = [(k, n - per_replay[0] - n_nodes) for k, n in if_by_scan]
+    if_outside = per_replay[0] - 1  # less the segment_sum launch
+    passes = [(k, n - if_outside - n_nodes) for k, n in if_by_scan]
     jax_its = JAX_ITERATIONS["preset_marsim"]
     dpos = max_pos_diff(gated.get_trajectory(), eager.get_trajectory())
     d_captured = max_pos_diff(traj_captured, eager.get_trajectory())
     log({"phase": "presets", "run": "preset_marsim_passes",
          "deterministic": True, "pass_nodes": n_nodes,
-         "if_nodes_per_replay_outside": per_replay,
+         "if_nodes_per_replay_outside": if_outside,
          "passes_device_by_scan": dict(passes),
          "iterations": its, "iterations_jax": jax_its,
          "scans_with_jax_iterations": sum(
@@ -2060,7 +2337,8 @@ def phase_pointcloud2_bags(pkg, tmp: Path) -> dict:
             argv.append("--profile")
         reset_launches(pkg)
         t0 = time.perf_counter()
-        with sync_free_after(pkg, GRAPH_WARM_SCANS) as checked:
+        with sync_free_after(pkg, GRAPH_WARM_SCANS) as checked, \
+                keeping_segment_inputs(pkg) as kept:
             summary = run_cli(pkg, argv)
         wall = time.perf_counter() - t0
         launches = read_launches(pkg)
@@ -2078,7 +2356,9 @@ def phase_pointcloud2_bags(pkg, tmp: Path) -> dict:
                "jax_ate_m": JAX_ATE_M[f"bag_{name}"],
                "launches": {k: {f"r{r}": n for r, n in v.items()}
                             for k, v in launches.items()},
-               "health": summary["health"]}
+               "health": summary["health"],
+               "segment_sum_at_path_shape": segment_sum_at_path_shape(
+                   pkg, kept)}
         if "--profile" in argv:
             trace = json.loads((out / "trace" / "trace.json").read_text())
             row["trace_kernels"] = sum(
@@ -2111,13 +2391,14 @@ def load_pkg() -> dict:
     from fast_lio_tpu_torch import control_flow
     from fast_lio_tpu_torch.kernels import build, counts, graph_if
     from fast_lio_tpu_torch.kernels import knn
-    from fast_lio_tpu_torch.kernels import knn_grouped
+    from fast_lio_tpu_torch.kernels import knn_grouped, segment_sum
     from fast_lio_tpu_torch.map import hash_map as hm
     from fast_lio_tpu_torch.parallel import launch, sharding
     from fast_lio_tpu_torch.pipeline import Pipeline
     from fast_lio_tpu_torch.step_graph import StepGraphs
     from fast_lio_tpu_torch.tools import (bench, bench_scaling,
-                                          microbench_knn, multicard,
+                                          microbench_knn,
+                                          microbench_segment_sum, multicard,
                                           oracle_compare, profile_scan,
                                           scenarios)
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
@@ -2129,7 +2410,8 @@ def load_pkg() -> dict:
                 BatchPipeline=BatchPipeline, scenarios=scenarios,
                 profile_scan=profile_scan, multicard=multicard,
                 counts=counts, cf=control_flow, graph_if=graph_if,
-                StepGraphs=StepGraphs, build=build, bench=bench)
+                StepGraphs=StepGraphs, build=build, bench=bench,
+                seg=segment_sum, mbs=microbench_segment_sum)
 
 
 def in_background(fn, *args, **kwargs):
@@ -2203,7 +2485,8 @@ def bench_worker(group) -> list:
         printed = io.StringIO()
         with keeping_built(bench, ("Pipeline", "BatchPipeline",
                                    "make_packets")) as made, \
-                sync_free_after(pkg, bench.N_WARM) as checked:
+                sync_free_after(pkg, bench.N_WARM) as checked, \
+                keeping_segment_inputs(pkg) as kept:
             reset_launches(pkg)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(printed):
@@ -2213,7 +2496,9 @@ def bench_worker(group) -> list:
             seconds = time.perf_counter() - t0
         check(rc == 0, f"bench {name}: exit {rc}")
         row = {"run": name, "seconds": seconds, "printed": printed.getvalue(),
-               "launches": launches, "steps_without_sync": checked[0]}
+               "launches": launches, "steps_without_sync": checked[0],
+               "segment_sum_at_path_shape": segment_sum_at_path_shape(
+                   pkg, kept)}
         if made["BatchPipeline"]:
             (bp,) = made["BatchPipeline"]
             row["kernel_at_path_shape"] = batched_kernel_at_path_shape(pkg, bp)
@@ -2402,8 +2687,9 @@ def main() -> int:
           "ouster64_grouped: the per-query kernel ran")
     dpos = max_pos_diff(traj_grouped, traj_ouster)
     log({"phase": "ouster64_grouped", "max_pos_diff_vs_ouster64_m": dpos,
-         "tol_m": POS_TOL_M})
-    check(dpos <= POS_TOL_M, f"ouster64_grouped: positions differ {dpos} m")
+         "bit_equal": same_traj(traj_grouped, traj_ouster)})
+    check(same_traj(traj_grouped, traj_ouster),
+          f"ouster64_grouped: positions differ from ouster64's ({dpos} m)")
 
     lap("6")
     # 7-8. the command-line runner on bags (phase 4's sim, and a second,
@@ -2510,9 +2796,17 @@ def main() -> int:
                                 for r in (8, 27)}
         by_path[path]["graph_if"] = {0: sum(rk["if_nodes_run"]
                                             for rk in ranks)}
+        by_path[path]["segment_sum"] = {
+            b: sum(rk["segment_sum_launches"][b] for rk in ranks)
+            for b in (32, 64)}
     for name, row in kernel_rows.items():
-        kind, r = (name, 0) if name == "graph_if" else name.rsplit("_", 1)
-        r = int(r[1:]) if isinstance(r, str) else r
+        if name in SEGMENT_SUM_ROWS:
+            kind, r = SEGMENT_SUM_ROWS[name]
+        elif name == "graph_if":
+            kind, r = name, 0
+        else:
+            kind, r = name.rsplit("_", 1)
+            r = int(r[1:])
         row["launches_by_path"] = {path: launches[kind][r]
                                    for path, launches in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -202,12 +202,11 @@ def update_iterated(
     ``valid`` flags over them in one ``all_reduce_sum`` — the JAX package's
     two ``psum`` (``fast_lio_tpu/filter/ekf.py:294-298``), elementwise sums
     alike.  ``valid`` joins the sum so that every rank masks the same
-    passes: a rank's own ``valid`` comes from its own downsample, whose
-    atomic sums on CUDA may differ from another rank's in the last bit.
-    (It is the same flag wherever the ranks' selections agree.)  So every
-    pass's predicate is the same on every rank, and in a gated capture on
-    NCCL ranks every rank runs or skips each pass, with its collectives,
-    together.  Without a group nothing changes.
+    passes by construction, not because each rank's own downsample gives
+    the same flag.  So every pass's predicate is the same on every rank,
+    and in a gated capture on NCCL ranks every rank runs or skips each
+    pass, with its collectives, together.  Without a group nothing
+    changes.
     """
     dtype, device = P.dtype, P.device
     epsi, eye = _constants(_hashable(epsi), dtype, device)

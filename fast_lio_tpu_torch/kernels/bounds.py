@@ -1,6 +1,7 @@
-"""The least time an H100 could take for one kNN search: the bound set
-beside each kNN kernel's time by ``chip_smoke.py`` and
-``tools/microbench_knn.py``.
+"""The least time an H100 could take for one kNN search, and for one
+segmented mean of the voxel downsample: the bounds set beside each kernel's
+time by ``chip_smoke.py``, ``tools/microbench_knn.py`` and
+``tools/microbench_segment_sum.py``.
 
 Counted as a roofline counts it, for this search's data: the bytes the
 search must move (each distinct bucket row it reads, once; the queries once;
@@ -100,6 +101,36 @@ def prep_bound(n: int, n_groups: int) -> Bound:
     ops = n * PREP_OPS_PER_QUERY
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_FLOPS * 1e3
+    return Bound(max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations", 0, nbytes,
+                 ops)
+
+
+def segment_mean_bound(seg_id: torch.Tensor, c: int, n_out: int,
+                       dtype: torch.dtype) -> Bound:
+    """The bound of one ``segment_sum.segment_mean`` of points of c columns
+    into n_out segments, for these segment ids (N,), or (S, N) over S
+    lanes: what the function needs of its inputs, each read once (the
+    columns and live flags of the points in segments below n_out; of the
+    sorted ids, one per boundary: each non-empty segment's start and the
+    end of the last), and its outputs written once (the means, the mask),
+    or the arithmetic (per point it sums a product a column and a count,
+    per segment a division a column), the larger.  The dead points and the
+    live ones past the last kept segment sit in segment n_out, at the tail:
+    nothing of them is needed."""
+    ids = seg_id if seg_id.dim() == 2 else seg_id[None]
+    streams = ids.shape[0]
+    kept = ids < n_out
+    points = int(kept.sum())
+    heads = kept.clone()
+    heads[:, 1:] &= ids[:, 1:] != ids[:, :-1]
+    boundaries = int(heads.sum()) + streams
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (points * (c * itemsize + 1) + boundaries * 8
+              + streams * n_out * (c * itemsize + 1))
+    ops = points * (2 * c + 1) + streams * n_out * c
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FLOPS[dtype] * 1e3
     return Bound(max(t_bytes, t_ops),
                  "bytes" if t_bytes >= t_ops else "operations", 0, nbytes,
                  ops)

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fast_lio_tpu_torch"
 
-LIBS = ("knn", "knn_grouped", "graph_if")  # every source in csrc/
+LIBS = ("knn", "knn_grouped", "graph_if", "segment_sum")  # every source in csrc/
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

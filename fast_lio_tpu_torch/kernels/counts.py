@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from . import graph_if, knn, knn_grouped
+from . import graph_if, knn, knn_grouped, segment_sum
 
 Counts = List[Dict[int, int]]
 
@@ -34,7 +34,8 @@ def counters() -> Counts:
     """The live counter dicts, in a fixed order."""
     return [knn.launches, knn.launches_f64, knn.batched_launches,
             knn.batched_launches_f64, knn_grouped.launches,
-            knn_grouped.prep_launches, graph_if.launches]
+            knn_grouped.prep_launches, graph_if.launches,
+            segment_sum.launches, segment_sum.batched_launches]
 
 
 def snapshot() -> Counts:

@@ -14,14 +14,21 @@ All three key paths of the JAX package are kept, with the same output order:
 * the exact 3-key lexsort otherwise, as three stable sorts (z, y, x).
 
 ``jnp.argsort`` is stable, so every sort here is ``torch.sort(stable=True)``.
-``segment_sum`` becomes ``index_add_``; on CUDA that is atomic, so the
-centroids' f32 summation order (and last bits) vary from run to run.
+The sorted ``segment_sum``s and the division are one op,
+``kernels.segment_sum.segment_mean``: on CPU tensors its plain version
+(``index_add_``, which adds in index order there, as JAX's sorted
+``segment_sum`` does: bit-equal to JAX), on CUDA tensors its kernel, which
+sums each voxel in the same sorted order and so gives the same centroids on
+every run (``index_add_`` on CUDA adds with atomics, in another order each
+run).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..kernels.segment_sum import segment_mean
 
 
 def _stable_order(key: torch.Tensor) -> torch.Tensor:
@@ -44,7 +51,21 @@ def voxel_downsample(
     iff every unmasked point satisfies |coord| <= coord_bound (see the JAX
     package's docstring for the argument).
     """
-    N = pts.shape[0]
+    means, out_mask = segment_mean(
+        *voxel_segments(pts, mask, leaf, n_out, feats, coord_bound), n_out)
+    if feats is None:
+        return means, out_mask
+    return means[:, :3], out_mask, means[:, 3]
+
+
+def voxel_segments(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
+                   n_out: int, feats: torch.Tensor = None,
+                   coord_bound: float = None):
+    """The points sorted by voxel key, as ``voxel_downsample`` sorts them:
+    (cols (N, 3), or (N, 4) with ``feats``, live (N,), seg_id (N,) int64),
+    the inputs of ``segment_mean``.  ``seg_id`` is each point's voxel in
+    sorted order, monotone non-decreasing; dead points and the live ones
+    past the ``n_out``-th voxel carry ``n_out``."""
     device = pts.device
     cell = torch.floor(pts / leaf).to(torch.int32)
     BIG = 2**30
@@ -90,19 +111,6 @@ def voxel_downsample(
     seg_id = torch.where(live_s, torch.clamp_max(seg_id, n_out),
                          torch.full_like(seg_id, n_out)).to(torch.int64)
 
-    w = live_s.to(pts.dtype)
     cols = pts_s if feats is None else torch.cat(
         [pts_s, feats[order][:, None].to(pts.dtype)], dim=-1)
-    # the sums are made from the inputs (new_zeros), so that under vmap they
-    # are batched and take the batched index_add_
-    sums = cols.new_zeros((n_out + 1, cols.shape[1]))
-    sums.index_add_(0, seg_id, cols * w[:, None])
-    cnts = w.new_zeros(n_out + 1)
-    cnts.index_add_(0, seg_id, w)
-    sums, cnts = sums[:n_out], cnts[:n_out]
-
-    out_mask = cnts > 0
-    means = sums / torch.clamp_min(cnts, 1.0)[:, None]
-    if feats is None:
-        return means, out_mask
-    return means[:, :3], out_mask, means[:, 3]
+    return cols, live_s, seg_id

@@ -315,8 +315,8 @@ def dryrun_rank(group: ShardGroup) -> dict:
     itself).  f32 and reordered sums may flip a few gate decisions at voxel
     boundaries, so: map size and effective points within max(8, 1%), the
     JAX package's bound, plus how far two runs of the unsharded steps
-    differ here (nothing on the CPU; on CUDA the downsample's atomic sums
-    change from run to run); state within 5e-3 (the bit-tight f64 proof is
+    differ here (nothing: they sum in one order on every run); state within
+    5e-3 (the bit-tight f64 proof is
     tests/test_torch_sharding.py).  Returns the figures; raises on a failed
     check."""
     from ..pipeline import lio_step
@@ -362,8 +362,7 @@ def dryrun_row(ranks: list) -> dict:
     the JAX package's (map size and effective points, sharded against
     single, and the largest state difference over the ranks), rank 0's
     spread of two single runs, and whether the ranks agree on the sharded
-    figures (replicated; each rank runs its own single steps, whose
-    atomic sums differ from run to run on a card)."""
+    figures (replicated; each rank runs its own single steps)."""
     r = ranks[0]
     keys = ("map_size", "map_size_single", "n_eff", "n_eff_single")
     return {"phase": "dryrun", "ranks": r["world"],

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from .. import config, sim
-from ..kernels import counts, graph_if
+from ..kernels import counts, graph_if, segment_sum
 from ..kernels import knn as knn_kernel
 from ..parallel import check_cards, launch
 from ..parallel import sharding
@@ -161,8 +161,9 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
                graphs=None, sync_free: bool = False, profile_scans: int = 0):
     """``drive`` on generated ``data``, through ``Pipeline(cfg,
     group=group, graphs=graphs)``; returns (the pipeline, the figures),
-    with the graphs' stats per pad bucket (None when eager) and the kNN
-    launches per R (``launches`` float32, ``launches_f64``).
+    with the graphs' stats per pad bucket (None when eager), the kNN
+    launches per R (``launches`` float32, ``launches_f64``) and the
+    downsample's ``segment_sum`` launches by the scalar's bits.
 
     The first ``warm`` scans run one by one, the device synced after each.
     The rest do too, unless ``sync_free``: then they run in one window
@@ -178,7 +179,7 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
     n = len(data.scans) if n_scans is None else n_scans
     counts.settle()  # a gated graph's launches, counted on the device
     for c in (knn_kernel.launches, knn_kernel.launches_f64,
-              graph_if.launches):
+              graph_if.launches, segment_sum.launches):
         for r in c:
             c[r] = 0
     cuda = pipe.device.type == "cuda"
@@ -231,6 +232,7 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
         health=pipe.health_check(), launches=launches,
         launches_f64=launches_f64, scans_per_s=scans_per_s,
         if_nodes_run=graph_if.launches[0],
+        segment_sum_launches=dict(segment_sum.launches),
         iterations=[int(d.iterations) for d in pipe.diags],
         iterations_mean=float(np.mean([int(d.iterations) for d in pipe.diags])),
         n_effective_last=int(pipe.diags[-1].n_effective))

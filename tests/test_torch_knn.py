@@ -543,8 +543,8 @@ def test_cuda_kernel_refuses_other_dtypes():
 def test_cuda_float64_pipeline_runs_on_the_float64_kernel():
     """A few scans of Pipeline(compute_dtype="float64") on the card: the
     float64 kernel ran and the float32 one did not; positions within 5 mm
-    of the CPU run (the downsample's index_add_ sums in another order on
-    the card, which can move a voxel winner)."""
+    of the CPU run (the card's run is not held bit for bit to the CPU's:
+    where the two would part is not measured)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
     from fast_lio_tpu_torch import config as tcfg

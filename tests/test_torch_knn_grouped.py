@@ -245,12 +245,9 @@ def test_pipeline_grouped_backend_equals_default(wide_fallback, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_grouped_backend_equals_default_when_deterministic():
-    """On the card under ``torch.use_deterministic_algorithms(True)``
-    (``index_add_`` then sums in a fixed order) two default-backend runs and
-    a grouped-backend run give the same positions bit for bit, through the
-    narrow and wide searches.  With PyTorch's defaults the runs spread by a
-    few mm (``chip_smoke.py`` phase 6), which is the scatter order, not the
-    backend."""
+    """On the card under ``torch.use_deterministic_algorithms(True)`` two
+    default-backend runs and a grouped-backend run give the same positions
+    bit for bit, through the narrow and wide searches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernels have no CPU mode")
     cfg = tcfg.Config(

@@ -29,7 +29,9 @@ On the CPU (tier 1):
   a checkpoint written after it resumes in JAX.
 
 On a card (marked ``cuda``; they skip without one): the captured step
-against the eager one, steady state under ``set_sync_debug_mode("error")``, a
+against the eager one, two natural captured runs and the eager one bit for
+bit (deterministic algorithms off), steady state under
+``set_sync_debug_mode("error")``, a
 checkpoint resume and a state handover into a captured pipeline, two fleet
 lanes captured side by side; the sharded step captured on one NCCL rank
 (``torch_shard_workers.captured_rank``): its graphs, its steady state with
@@ -66,7 +68,7 @@ import torch_shard_workers as w
 from torch_shard_workers import SPARSE
 from torch_shard_workers import sparse_outdoor as _sparse_outdoor
 
-POS_TOL_M = 5e-3  # two runs on the card: index_add_ sums in another order
+POS_TOL_M = 5e-3  # the captured step against the eager one on the card
 SMALL = dict(lidar_type=tcfg.LidarType.AVIA, det_range=450.0,
              n_points_max=2048, n_ds_max=1024, map_h_log2=12)
 
@@ -678,9 +680,10 @@ def test_cuda_captured_step_equals_eager(run):
     # the single step's graph is gated: every kNN launch sits in an IF node
     # and counts as run, on the device; outside them a replay launches the
     # set kernels of the two outermost IF nodes (the prune's and the
-    # update's); rescore_research searches in plain torch ops (its candidate
-    # block), as the JAX package does in XLA: no kNN launch to count there
-    assert all(s["gated"] and s["launches_per_replay"] == 2
+    # update's) and the downsample's segment_sum kernel; rescore_research
+    # searches in plain torch ops (its candidate block), as the JAX package
+    # does in XLA: no kNN launch to count there
+    assert all(s["gated"] and s["launches_per_replay"] == 3
                for s in stats.values())
     tcounts.settle()
     knn_ran = sum(tknn.launches.values()) + sum(tkg.launches.values())
@@ -713,6 +716,37 @@ def test_cuda_steady_state_makes_no_sync():
         torch.cuda.set_sync_debug_mode("default")
     assert len(pipe.trajectory) >= n - 3
     assert np.isfinite(_positions(pipe)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_natural_runs_are_bit_equal():
+    """Two captured runs of the same scans and the eager run, with
+    deterministic algorithms off: bit-equal positions and covariances, the
+    same iterations scan by scan.  The downsample's segment sums are the
+    ``segment_mean`` kernel's, summed in one order on every run
+    (``index_add_`` on CUDA adds with atomics, in another order each run,
+    and the last bits moved a convergence test by a pass)."""
+    _card()
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg, data = _avia_run()
+    from fast_lio_tpu_torch.kernels import segment_sum as tseg
+
+    tcounts.settle()
+    before = tseg.launches[32]
+    runs = []
+    for graphs in (True, True, False):
+        pipe = tpipe.Pipeline(cfg, graphs=graphs)
+        _feed(pipe, data)
+        runs.append(pipe)
+    tcounts.settle()
+    assert tseg.launches[32] - before == sum(len(p.diags) for p in runs)
+    first = runs[0]
+    assert len(first.diags) >= 15
+    for pipe in runs[1:]:
+        assert np.array_equal(_positions(pipe), _positions(first))
+        assert torch.equal(pipe.P, first.P)
+        assert ([int(d.iterations) for d in pipe.diags]
+                == [int(d.iterations) for d in first.diags])
 
 
 @pytest.mark.cuda
@@ -903,8 +937,7 @@ def test_cuda_one_nccl_rank_float64_equals_unsharded_run():
     """ROADMAP.md C: the sharded step in float64 over NCCL, one rank, against
     the unsharded float64 run on the card, both captured (the default):
     within 1e-6 m per scan (the float64 tolerance of
-    tests/test_torch_pipeline.py; the downsample's atomic sums differ in the
-    last bits from run to run)."""
+    tests/test_torch_pipeline.py)."""
     _card()
     res = launch(one_rank_f64_against_unsharded, 1, backend="nccl")[0]
     assert res["transport"] == "nccl" and res["device"].startswith("cuda")

@@ -167,6 +167,36 @@ def _scan(sim_cfg):
     return data.scans[k], data.gt_rot[k], data.gt_pos[k]
 
 
+@pytest.mark.parametrize("blind_windows", [0, 2, 3])
+def test_kernel_time_tries_the_profiler_again_then_cuda_events(
+        blind_windows, monkeypatch):
+    """A profiler window that saw no kernel is tried again; after
+    ``PROFILER_WINDOWS`` blind windows the graph's CUDA-event time stands in
+    for ``device_us``, and ``device_timer`` says which clock gave it."""
+    windows = []
+
+    def profiled(fn, calls, is_kernel):
+        windows.append(calls)
+        if len(windows) <= blind_windows:
+            return None, None, 0.0
+        return 12.5, 3.0, 1.0
+
+    monkeypatch.setattr(microbench_knn, "profiled_us", profiled)
+    monkeypatch.setattr(microbench_knn, "graph_us", lambda fn: 20.0)
+    t = microbench_knn.kernel_us(lambda: None, 7)
+    tries = microbench_knn.PROFILER_WINDOWS
+    assert windows == [7] * min(blind_windows + 1, tries)
+    if blind_windows < tries:
+        assert t == {"device_us": 12.5, "device_timer": "profiler",
+                     "profiler_windows": blind_windows + 1,
+                     "prep_device_us": 3.0, "launches_per_call": 1.0,
+                     "graph_us": 20.0}
+    else:
+        assert t == {"device_us": 20.0, "device_timer": "cuda_events_graph",
+                     "profiler_windows": tries, "prep_device_us": None,
+                     "launches_per_call": 0.0, "graph_us": 20.0}
+
+
 def test_microbench_measures_nothing_without_a_card(capsys):
     assert microbench_knn.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err

@@ -120,7 +120,7 @@ def horizon_room_data(_):
 def in_order(data, seed):
     """``data`` with each scan's points shuffled by ``seed`` (0: as made),
     the last point kept last (its time gives the packet's end): the sums
-    over points then run in another order, as the card's atomic sums do."""
+    over points then run in another order."""
     if seed == 0:
         return data
     rng = np.random.default_rng(seed)
