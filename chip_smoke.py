@@ -60,18 +60,30 @@ non-zero:
    (moved off the float32 grid), single and over S = 4 lanes (four scans);
    held bit for bit (means and masks) to its plain version on a CPU copy,
    two launches bit-equal, each lane of the batched launch bit-equal to
-   the single launch on it; ``device_us``, ``graph_us``, registers, the
-   bound (bytes at 3.35 TB/s, ``bounds.segment_mean_bound``) and
+   the single launch on it, and the same on the adversarial cases of its
+   ownership of points and ids (``microbench_segment_sum.ADVERSARIAL_CASES``,
+   f32 and f64, single and over 4 lanes: one segment longer than a staged
+   tile, all dead, N = 0, every id kept with live points cut, segments
+   across every block boundary, 3 f32 columns at an odd N; held for their
+   bits only, under the row's "adversarial"); ``device_us``,
+   ``graph_us``, registers, the bound (``bounds.segment_mean_bound``: bytes
+   at 3.35 TB/s, or the longest segment's chain of dependent adds,
+   ``chain_us``, the larger) and
    ``library_ms``, the two ``index_add_`` calls and the division it
    replaces, timed as ``graph_us`` is; for the single cases, what
    ``microbench_segment_sum.segment_reduce_probe`` finds of
    ``torch.segment_reduce`` on the same inputs (bits, repeats, host syncs,
-   its time in a graph), logged and not checked.  The kernel is also held
-   at each later run's own shapes and data: phases 4-6, 8, 11, 18, 20 and 21
-   keep their run's last downsample inputs (``keeping_segment_inputs``)
-   and hold the kernel, single or batched, bit for bit to its plain
-   version on them (``segment_sum_at_path_shape``; its max |delta| in the
-   run's line).
+   its time in a graph), logged and not checked.  Row ``empty_node``
+   (``tools/probe.py``, ``csrc/probe.cu``; printed in this phase, not in
+   the kernels line, since no path launches it): an empty one-thread
+   kernel in a CUDA graph of 100, per call, the least any launch costs;
+   every kernel row carries it as ``node_floor_ms``, and ``graph_if`` its
+   multiple (``over_node_floor``).  The kernel is
+   also held at each later run's own shapes and data: phases 4-6, 8, 11,
+   18, 20 and 21 keep their run's last downsample inputs
+   (``keeping_segment_inputs``) and hold the kernel, single or batched,
+   bit for bit to its plain version on them (``segment_sum_at_path_shape``;
+   its max |delta| in the run's line).
 3. small — the port's pipeline on CUDA against its own CPU path (the plain
    versions) on a small sim: per-scan positions within 5 mm.
 4. avia — the main path at the AVIA preset's full size (32768-point pad,
@@ -134,7 +146,8 @@ non-zero:
    Checks: the ranks' trajectories bit-identical, phase 5's health and ATE
    checks (global map drops), the R = 8 and R = 27 kernels launched on each
    rank.  Prints the global map size and drops beside phase 5's, and the
-   transport.
+   transport.  It runs beside phases 11, 12 and 15, whose checks hold bits
+   and counts, not times.
 11. ouster64_f64 — phase 5's run with ``compute_dtype="float64"``: the
    float64 R = 8 and R = 27 kernels ran (and the float32 one did not), phase
    5's health checks, map drops within 10% of the JAX package's float64 run,
@@ -454,8 +467,14 @@ BENCH_BATCH_KEYS = {"scenario", "aggregate_over_streams",
                     *BENCH_ADDED_KEYS}
 
 
+LOG_LOCK = threading.Lock()  # phases that run side by side log whole lines
+
+
 def log(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj) + "\n"
+    with LOG_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def check(cond, msg: str) -> None:
@@ -625,10 +644,26 @@ def phase_kernels(pkg):
         rows[f"knn_{tag}"]["rank_tables"] = rank_tables(pkg, mb.make_case(tag))
         for dtype in (torch.float32, torch.float64):
             rows.update(batched_kernel_rows(pkg, tag, dtype))
+    floor = empty_node_row(pkg)
+    log({"phase": "kernels", "case": "empty_node", "row": floor})
     rows["graph_if"] = graph_if_row(pkg)
+    rows["graph_if"]["over_node_floor"] = (rows["graph_if"]["ms"]
+                                           / floor["ms"])
     log({"phase": "kernels", "case": "graph_if", "row": rows["graph_if"]})
     rows.update(segment_sum_rows(pkg))
+    for row in rows.values():
+        row["node_floor_ms"] = floor["ms"]
     return rows
+
+
+def empty_node_row(pkg) -> dict:
+    """The least a launch costs on this card (``tools/probe.py``, its
+    kernel in ``csrc/probe.cu``, on no path): an empty one-thread kernel
+    in a CUDA graph of 100 (``ms``, per call, as the kernel rows' ``ms``
+    is timed)."""
+    return {"name": "empty_node", "route": "cuda",
+            "source": "fast_lio_tpu_torch/csrc/probe.cu",
+            "ms": pkg["probe"].empty_node_ms()}
 
 
 def batched_kernel_rows(pkg, tag, dtype) -> dict:
@@ -737,35 +772,41 @@ def segment_sum_rows(pkg) -> dict:
     """The segmented mean (``csrc/segment_sum.cu``) at the main path's
     shapes (``microbench_segment_sum.make_cases``: a sim run's downsample
     inputs at the avia and ouster64 pads, C = 4, in float32 and float64,
-    single and over S = 4 lanes).  Checks: the kernel bit for bit its plain
-    version on a CPU copy of the inputs (means and masks), two launches
-    bit-equal, each lane of the batched launch bit-equal to the single
-    launch on it.  Returns the kernels line's rows by name, each with the
-    avia case's figures and the others under their run's name."""
+    single and over S = 4 lanes), and on the adversarial cases of its
+    ownership of points and ids (``make_cases(ADVERSARIAL)``, each in
+    float32 and float64, single and over 4 lanes).  Checks: the kernel bit
+    for bit its plain version on a CPU copy of the inputs (means and
+    masks), two launches bit-equal, each lane of the batched launch
+    bit-equal to the single launch on it.  Returns the kernels line's rows
+    by name, each with the avia case's figures, the ouster64 case's under
+    its name, and the adversarial cases' max |delta| and shapes under
+    "adversarial" (held for their bits, not timed)."""
     seg, mbs = pkg["seg"], pkg["mbs"]
     before = pkg["counts"].snapshot()
     rows = {}
-    for run in SEGMENT_SUM_RUNS:
+    for run in (*SEGMENT_SUM_RUNS, mbs.ADVERSARIAL):
         for name, case in mbs.make_cases(run).items():
             got, again = mbs.launch(case), mbs.launch(case)
-            cpu = mbs.Case(case.tag, *(t.cpu() for t in case[1:4]),
-                           case.n_out)
-            want = mbs.plain(cpu)
+            want = mbs.cpu_plain(case)
             torch.cuda.synchronize()
-            err = 0.0
-            for g, a, w in zip(got, again, want):
+            for g, a in zip(got, again):
                 check(torch.equal(g, a), f"{name}: two launches differ")
-                check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)}")
-                if g.dtype != torch.bool:
-                    err = max(err, float((g.cpu() - w).abs().max()))
-                check(torch.equal(g.cpu(), w),
-                      f"{name}: differs from its plain version (max {err})")
+            err = mbs.bits_equal(got, want, name)
             if case.batched:
                 for s in range(case.cols.shape[0]):
                     one = seg.segment_mean_cuda(case.cols[s], case.live[s],
                                                 case.seg_id[s], case.n_out)
                     check(all(torch.equal(g[s], o) for g, o in zip(got, one)),
                           f"{name}: lane {s} differs from its single launch")
+            if run == mbs.ADVERSARIAL:
+                kind = ("segment_sum_batched" if case.batched
+                        else "segment_sum") + (
+                    "_f64" if case.cols.dtype == torch.float64 else "")
+                adv = {"max_abs_err": err, "shape": mbs.shape(case)}
+                log({"phase": "kernels", "case": name, **adv})
+                rows[kind].setdefault("adversarial", {})[
+                    name.removeprefix(f"{kind}_")] = adv
+                continue
             t = mbs.measure(case, TIMING_REPS)
             probe = ({} if case.batched else
                      {"segment_reduce": mbs.segment_reduce_probe(case)})
@@ -2399,8 +2440,8 @@ def load_pkg() -> dict:
     from fast_lio_tpu_torch.tools import (bench, bench_scaling,
                                           microbench_knn,
                                           microbench_segment_sum, multicard,
-                                          oracle_compare, profile_scan,
-                                          scenarios)
+                                          oracle_compare, probe,
+                                          profile_scan, scenarios)
     from fast_lio_tpu_torch.utils import checkpoint as ckpt
 
     return dict(config=config, sim=sim, hm=hm, knn=knn, kg=knn_grouped,
@@ -2411,7 +2452,7 @@ def load_pkg() -> dict:
                 profile_scan=profile_scan, multicard=multicard,
                 counts=counts, cf=control_flow, graph_if=graph_if,
                 StepGraphs=StepGraphs, build=build, bench=bench,
-                seg=segment_sum, mbs=microbench_segment_sum)
+                seg=segment_sum, mbs=microbench_segment_sum, probe=probe)
 
 
 def in_background(fn, *args, **kwargs):
@@ -2621,7 +2662,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    libs = build.LIBS
+    libs = (*build.LIBS, "probe")  # probe: phase 2's empty_node
     build.build_all(libs)
     build_s = time.perf_counter() - t0
     log({"phase": "build", "seconds": build_s, "card": card,
@@ -2707,28 +2748,32 @@ def main() -> int:
                                     traj_avia, card)
 
     lap("9")
-    # 10. two ranks sharing the card over gloo: phase 5's run
-    _, ranks_ouster = phase_sharded(pkg, "sharded_ouster64_2ranks",
-                                    ouster_cfg, ouster_sim, 2, "gloo", None,
-                                    "ouster64")
-    for r in ranks_ouster:
-        check(r["graphs"] is None,
-              f"sharded_ouster64_2ranks: rank {r['rank']} captured over gloo")
-        check(r["launches"][8] > 0 and r["launches"][27] > 0,
-              f"sharded_ouster64_2ranks: rank {r['rank']} launched "
-              f"{r['launches']}")
-    hc = ranks_ouster[0]["health"]
-    log({"phase": "sharded_ouster64_2ranks",
-         "transport": ranks_ouster[0]["transport"],
-         "map_size": hc["map_size"], "map_dropped": hc["map_dropped"],
-         "ouster64_map_size": out_ouster["health"]["map_size"],
-         "ouster64_map_dropped": out_ouster["health"]["map_dropped"],
-         "max_pos_diff_vs_ouster64_m": max_pos_diff(
-             [(t, p, None) for t, p in zip(ranks_ouster[0]["stamps"],
-                                           ranks_ouster[0]["positions"])],
-             traj_ouster)})
+    # 10. two ranks sharing the card over gloo: phase 5's run, eager and
+    # host-bound (gloo's host copies); it runs beside phases 11, 12 and 15,
+    # which hold bits and counts, not times
+    def phase_2ranks():
+        _, ranks = phase_sharded(pkg, "sharded_ouster64_2ranks", ouster_cfg,
+                                 ouster_sim, 2, "gloo", None, "ouster64")
+        for r in ranks:
+            check(r["graphs"] is None,
+                  f"sharded_ouster64_2ranks: rank {r['rank']} captured over "
+                  "gloo")
+            check(r["launches"][8] > 0 and r["launches"][27] > 0,
+                  f"sharded_ouster64_2ranks: rank {r['rank']} launched "
+                  f"{r['launches']}")
+        hc = ranks[0]["health"]
+        log({"phase": "sharded_ouster64_2ranks",
+             "transport": ranks[0]["transport"],
+             "map_size": hc["map_size"], "map_dropped": hc["map_dropped"],
+             "ouster64_map_size": out_ouster["health"]["map_size"],
+             "ouster64_map_dropped": out_ouster["health"]["map_dropped"],
+             "max_pos_diff_vs_ouster64_m": max_pos_diff(
+                 [(t, p, None) for t, p in zip(ranks[0]["stamps"],
+                                               ranks[0]["positions"])],
+                 traj_ouster)})
+        return ranks
 
-    lap("10")
+    two_ranks = in_background(phase_2ranks)
     # 11. phase 5's run in float64
     f64_cfg = dataclasses.replace(ouster_cfg, compute_dtype="float64")
     with keeping_queries(knn) as searches:
@@ -2761,8 +2806,9 @@ def main() -> int:
 
     lap("12")
     l_fleet_ouster = fleet_ouster()[0]
+    ranks_ouster = two_ranks()
 
-    lap("15")
+    lap("15+10")
     # 14. the avia_batch4 fleet through the batched step
     l_batch4 = phase_fleet_batch4(pkg, card)
 

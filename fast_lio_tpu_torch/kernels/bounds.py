@@ -11,6 +11,8 @@ rows, one per free slot) over the card's rate for the search's type; the
 larger of the two bounds it.  In float64 the rows, queries, neighbours and
 distances take twice the bytes and the operations run at the FP64 rate.
 Both kNN kernels compute the same function, so they share the bound.
+The segmented mean's bound has a third term, the chain of dependent adds
+its order imposes (``segment_mean_bound``).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ class Bound(NamedTuple):
     distinct_rows: int  # bucket rows read, each once
     nbytes: int
     ops: int
+    chain_us: float = 0.0  # the longest chain of dependent operations
 
 
 def knn_bound(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
@@ -106,18 +109,47 @@ def prep_bound(n: int, n_groups: int) -> Bound:
                  ops)
 
 
+# one dependent add's latency in SM cycles, and the SM clock it runs at:
+# tools/probe.py (python3 -m fast_lio_tpu_torch.tools.probe) measured 4.57
+# (f32) and 8.32 (f64) cycles an add on an H100 80GB HBM3 at 700 W, its
+# loop's cost included, and the bound takes the whole cycles below; 1980
+# MHz is the H100 SXM's maximum boost clock (NVIDIA's data sheet), which
+# nvidia-smi read under load
+ADD_CYCLES = {torch.float32: 4, torch.float64: 8}
+H100_SM_CLOCK_HZ = 1.98e9
+
+
+def longest_segment(seg_id: torch.Tensor, n_out: int) -> int:
+    """The most points any kept segment (id below n_out) holds, over the
+    lanes of (N,) or (S, N) sorted ids."""
+    ids = seg_id if seg_id.dim() == 2 else seg_id[None]
+    longest = 0
+    for lane in ids:
+        _, counts = torch.unique_consecutive(lane[lane < n_out],
+                                             return_counts=True)
+        if counts.numel():
+            longest = max(longest, int(counts.max()))
+    return longest
+
+
 def segment_mean_bound(seg_id: torch.Tensor, c: int, n_out: int,
                        dtype: torch.dtype) -> Bound:
     """The bound of one ``segment_sum.segment_mean`` of points of c columns
     into n_out segments, for these segment ids (N,), or (S, N) over S
-    lanes: what the function needs of its inputs, each read once (the
-    columns and live flags of the points in segments below n_out; of the
-    sorted ids, one per boundary: each non-empty segment's start and the
-    end of the last), and its outputs written once (the means, the mask),
-    or the arithmetic (per point it sums a product a column and a count,
-    per segment a division a column), the larger.  The dead points and the
-    live ones past the last kept segment sit in segment n_out, at the tail:
-    nothing of them is needed."""
+    lanes: the largest of three times.  The bytes: what the function needs
+    of its inputs, each read once (the columns and live flags of the points
+    in segments below n_out; of the sorted ids, one per boundary: each
+    non-empty segment's start and the end of the last), and its outputs
+    written once (the means, the mask).  The operations: per point it sums
+    a product a column and a count, per segment a division a column.  The
+    chain (``chain_us``): a segment's sums are each a chain of dependent
+    adds in sorted order, one a point, so the longest kept segment takes
+    its length times one add's latency (``ADD_CYCLES`` at
+    ``H100_SM_CLOCK_HZ``), whatever runs beside it; the lanes run side by
+    side.  ``by`` is "bytes", or "operations" where the operations or
+    their chain take longer.  The dead points and the live ones past the
+    last kept segment sit in segment n_out, at the tail: nothing of them is
+    needed."""
     ids = seg_id if seg_id.dim() == 2 else seg_id[None]
     streams = ids.shape[0]
     kept = ids < n_out
@@ -131,6 +163,9 @@ def segment_mean_bound(seg_id: torch.Tensor, c: int, n_out: int,
     ops = points * (2 * c + 1) + streams * n_out * c
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = ops / FLOPS[dtype] * 1e3
+    chain_us = (longest_segment(ids, n_out) * ADD_CYCLES[dtype]
+                / H100_SM_CLOCK_HZ * 1e6)
+    t_ops = max(t_ops, 1e-3 * chain_us)
     return Bound(max(t_bytes, t_ops),
                  "bytes" if t_bytes >= t_ops else "operations", 0, nbytes,
-                 ops)
+                 ops, chain_us)

@@ -7,8 +7,13 @@ On the CPU: the op's plain version against JAX's sorted
 with 3 and 4 columns, dead points, empty segments and live points past the
 last kept segment (the overflow segment n_out, dropped); the op under
 ``torch.func.vmap`` against a loop over the lanes, bit for bit; the op's
-fake, the wrappers' checks and the bound; ``torch.segment_reduce`` on the
-same inputs against JAX, bit for bit.
+fake, the wrappers' checks and the bound (its chain term too);
+``torch.segment_reduce`` on the same inputs against JAX, bit for bit.  The
+adversarial cases of the kernel's ownership of points and ids
+(``microbench_segment_sum.ADVERSARIAL_CASES``: one segment longer than a
+staged tile, all dead, no point, every id kept with live points cut,
+segments across every block boundary, 3 float32 columns at an odd N) run
+in the JAX test and the card test.
 
 On a card (marked ``cuda``; they skip without one): the kernel against
 the plain version on a CPU copy of the same inputs, bit for bit, and two
@@ -26,6 +31,7 @@ from fast_lio_tpu_torch.batch import no_vmap_fallback
 from fast_lio_tpu_torch.kernels import bounds
 from fast_lio_tpu_torch.kernels import segment_sum as seg
 from fast_lio_tpu_torch.ops.voxel_grid import voxel_segments
+from fast_lio_tpu_torch.tools import microbench_segment_sum as mbs
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = [torch.float32, torch.float64]
@@ -78,21 +84,47 @@ def _launch_counts():
     return dict(seg.launches), dict(seg.batched_launches)
 
 
-@pytest.mark.parametrize("C", [3, 4])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_plain_version_matches_jax_sorted_segment_sum(dtype, C):
-    cols, live, seg_id = _inputs(11 + C, dtype, C)
-    want_means, want_mask = _jax_segment_mean(cols, live, seg_id, N_OUT)
+def _np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _adversarial(name, dtype, seed=mbs.ADVERSARIAL_SEED):
+    """numpy (cols, live, seg_id, n_out) of the microbenchmark's
+    adversarial generator ``name``."""
+    return mbs.ADVERSARIAL_CASES[name](seed, _np_dtype(dtype))
+
+
+# (dtype, C of the drawn gaps case, or an adversarial generator's name);
+# the drawn cases keep their ids
+JAX_CASES = [pytest.param(dtype, case, id=f"dtype{i}-{case}")
+             for i, dtype in enumerate(DTYPES)
+             for case in (3, 4, *mbs.ADVERSARIAL_CASES)]
+
+
+@pytest.mark.parametrize("dtype,case", JAX_CASES)
+def test_plain_version_matches_jax_sorted_segment_sum(dtype, case):
+    """Bit for bit JAX's sums and division: on drawn ids with gaps (C = 3
+    or 4), and on each adversarial case of the kernel's ownership
+    (``microbench_segment_sum.ADVERSARIAL_CASES``)."""
+    if case in (3, 4):
+        cols, live, seg_id = _inputs(11 + case, dtype, case)
+        n_out = N_OUT
+    else:
+        cols, live, seg_id, n_out = _adversarial(case, dtype)
+    C = cols.shape[1]
+    want_means, want_mask = _jax_segment_mean(cols, live, seg_id, n_out)
     before = _launch_counts()
-    means, mask = seg.segment_mean(*_torch(cols, live, seg_id), N_OUT)
+    means, mask = seg.segment_mean(*_torch(cols, live, seg_id), n_out)
     assert _launch_counts() == before  # no kernel launch on CPU tensors
-    assert means.dtype == dtype and tuple(means.shape) == (N_OUT, C)
+    assert means.dtype == dtype and tuple(means.shape) == (n_out, C)
     np.testing.assert_array_equal(mask.numpy(), want_mask)
     np.testing.assert_array_equal(means.numpy(), want_means)
-    # the inputs hold what the test is for: empty segments, whose means
-    # are zeros, and the overflow cut
-    assert not want_mask.all() and want_mask.any()
-    assert (means[~mask] == 0).all()
+    # empty segments' means are +0.0, as the chain from +0.0 gives
+    assert (means[~mask].view(torch.uint8) == 0).all()
+    if case in (3, 4):
+        # the inputs hold what the test is for: empty segments and the
+        # overflow cut
+        assert not want_mask.all() and want_mask.any()
 
 
 @pytest.mark.parametrize("C", [3, 4])
@@ -169,14 +201,16 @@ def test_bound_counts_each_byte_once():
     3 (overflow and dead): 5 points needed, 16 + 1 bytes each in float32
     with 4 columns, 8 bytes for each of 3 boundaries (segments 0 and 1 and
     the end), 16 + 1 out per segment; 9 operations a needed point and 4 a
-    segment; bytes bound it.  Twice that over two lanes, float64 columns
-    take twice the column bytes, and the dead points' bytes count for
-    nothing."""
+    segment.  At this size the chain of 3 dependent adds outlasts the
+    bytes, so it bounds it (``test_bound_chain_term``).  Twice the bytes
+    over two lanes, float64 columns take twice the column bytes, and the
+    dead points' bytes count for nothing."""
     ids = torch.tensor([0, 0, 1, 1, 1, 3, 3, 3, 3, 3])
     b = bounds.segment_mean_bound(ids, 4, 3, torch.float32)
     assert (b.nbytes, b.ops, b.by) == (5 * 17 + 3 * 8 + 3 * 17,
-                                       5 * 9 + 3 * 4, "bytes")
-    assert b.ms == pytest.approx(b.nbytes / bounds.H100_HBM_BYTES_PER_S * 1e3)
+                                       5 * 9 + 3 * 4, "operations")
+    assert b.ms == pytest.approx(max(
+        b.nbytes / bounds.H100_HBM_BYTES_PER_S * 1e3, 1e-3 * b.chain_us))
     b2 = bounds.segment_mean_bound(torch.stack([ids, ids]), 4, 3,
                                    torch.float32)
     assert (b2.nbytes, b2.ops) == (2 * b.nbytes, 2 * b.ops)
@@ -184,6 +218,59 @@ def test_bound_counts_each_byte_once():
     assert b64.nbytes == 5 * 25 + 3 * 8 + 3 * 25
     padded = torch.cat([ids, torch.full((90,), 3)])
     assert bounds.segment_mean_bound(padded, 4, 3, torch.float32) == b
+
+
+def test_bound_chain_term():
+    """The chain: the longest kept segment's points, one dependent add
+    each, at ``ADD_CYCLES`` over ``H100_SM_CLOCK_HZ``.  Ids 0 0 1 1 1 then
+    7 points at 3 (the overflow, not a chain): 3 adds; f64 adds take
+    longer; over lanes the longest lane's; one segment of 20,000 points
+    (40 us in float32 at 4 cycles an add) outlasts its 0.36 MB of bytes
+    (0.1 us), so the chain bounds it, as "operations"; no kept point, no
+    chain."""
+    ids = torch.tensor([0, 0, 1, 1, 1, 3, 3, 3, 3, 3, 3, 3])
+    clock = bounds.H100_SM_CLOCK_HZ
+    for dtype in DTYPES:
+        b = bounds.segment_mean_bound(ids, 4, 3, dtype)
+        assert b.chain_us == pytest.approx(
+            3 * bounds.ADD_CYCLES[dtype] / clock * 1e6)
+    assert bounds.ADD_CYCLES[torch.float64] >= bounds.ADD_CYCLES[
+        torch.float32]
+    lanes = torch.stack([ids, torch.tensor([0] * 6 + [1] * 6)])
+    assert bounds.segment_mean_bound(lanes, 4, 3, torch.float32).chain_us \
+        == pytest.approx(6 * bounds.ADD_CYCLES[torch.float32] / clock * 1e6)
+    one = torch.zeros(20000, dtype=torch.int64)
+    b = bounds.segment_mean_bound(one, 4, 64, torch.float32)
+    assert b.chain_us == pytest.approx(
+        20000 * bounds.ADD_CYCLES[torch.float32] / clock * 1e6)
+    assert b.by == "operations" and b.ms == pytest.approx(1e-3 * b.chain_us)
+    assert b.nbytes / bounds.H100_HBM_BYTES_PER_S * 1e6 < 0.01 * b.chain_us
+    dead = torch.full((10,), 3)
+    assert bounds.segment_mean_bound(dead, 4, 3, torch.float32).chain_us == 0
+    assert bounds.longest_segment(ids, 3) == 3
+
+
+def test_ptxas_picks_the_launched_shape():
+    """A build holds each (type, columns) twice, in the one-lane shape
+    (``Narrow``) and the several-lane one (``Wide``); ``ptxas`` picks the
+    case's, so the registers reported are those of the instance that
+    ran."""
+    def entry(t, c, shape):
+        return (f"_ZN12_GLOBAL__N_119segment_mean_kernelI{t}Li{c}ENS_{shape}"
+                "EEEvPKT_PKbPKxiiPS2_Pb")
+    usage = {entry("f", 4, "6Narrow"): {"registers": 1},
+             entry("f", 4, "4Wide"): {"registers": 2},
+             entry("d", 4, "6Narrow"): {"registers": 3},
+             entry("f", 3, "6Narrow"): {"registers": 4}}
+    one = mbs.Case("t", torch.zeros(5, 4), torch.zeros(5, dtype=torch.bool),
+                   torch.zeros(5, dtype=torch.int64), 3)
+    lanes = mbs.Case("t", *(x[None] for x in one[1:4]), 3)
+    assert mbs.ptxas(one, usage=usage) == {"registers": 1}
+    assert mbs.ptxas(lanes, usage=usage) == {"registers": 2}
+    assert mbs.ptxas(one._replace(cols=one.cols.double()),
+                     usage=usage) == {"registers": 3}
+    assert mbs.ptxas(one._replace(cols=one.cols[:, :3]),
+                     usage=usage) == {"registers": 4}
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +304,9 @@ CASES = {
     "gaps_c3": lambda dtype: (*_inputs(5, dtype, 3), N_OUT),
     "gaps_c4": lambda dtype: (*_inputs(6, dtype, 4), N_OUT),
     "voxels_c4": lambda dtype: _voxel_inputs(7, dtype),
+    # the kernel's ownership of points and ids at its edges
+    **{name: (lambda dtype, name=name: _adversarial(name, dtype))
+       for name in mbs.ADVERSARIAL_CASES},
 }
 
 
