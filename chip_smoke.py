@@ -50,7 +50,16 @@ non-zero:
    Row ``graph_if``: the gated step's CUDA-graph IF node
    (``csrc/graph_if.cu``, ``control_flow.gate``) against its plain version,
    the masked ``torch.where``, bit for bit with either predicate, and the
-   time of each per gate in a graph of 100.  Rows ``segment_sum``,
+   time of each per gate in a graph of 100.  Row ``graph_while``: the
+   filter loop's CUDA-graph WHILE node (``csrc/graph_if.cu``'s condition
+   kernel, ``control_flow.while_loop``) on a loop of at most
+   ``LOOP_PASSES`` = 4 passes of the same body on the same carry, with
+   ``done`` set after 1 pass, after 4 and never, held bit for bit to the
+   masked loop and to 4 unrolled IF gates on ``~done`` (the form it
+   replaced); per loop in a graph of ``LOOP_REPS``: each form's time, the
+   cost of a pass not run (unrolled minus WHILE with done after 1, over
+   3), of a pass run (after 4 minus after 1, over 3), and the device's
+   count of passes (4 where done never sets).  Rows ``segment_sum``,
    ``segment_sum_f64``, ``segment_sum_batched``, ``segment_sum_batched_f64``:
    the downsample's sorted segmented mean (``csrc/segment_sum.cu``) on the
    inputs of a sim run's downsample (``tools/microbench_segment_sum.py``:
@@ -77,8 +86,8 @@ non-zero:
    (``tools/probe.py``, ``csrc/probe.cu``; printed in this phase, not in
    the kernels line, since no path launches it): an empty one-thread
    kernel in a CUDA graph of 100, per call, the least any launch costs;
-   every kernel row carries it as ``node_floor_ms``, and ``graph_if`` its
-   multiple (``over_node_floor``).  The kernel is
+   every kernel row carries it as ``node_floor_ms``, and ``graph_if`` and
+   ``graph_while`` their multiple (``over_node_floor``).  The kernel is
    also held at each later run's own shapes and data: phases 4-6, 8, 11,
    18, 20 and 21 keep their run's last downsample inputs
    (``keeping_segment_inputs``) and hold the kernel, single or batched,
@@ -118,9 +127,10 @@ non-zero:
 9. sharded_avia_1rank — the map sharded (``Pipeline(cfg, group=...)``,
    ``parallel/sharding.py``) on one rank over NCCL, a worker process
    (``parallel.launch`` running ``tools/multicard.drive_modes_probed``).
-   First the probe (``multicard.if_node_rank``): an all-reduce and an
-   all-gather recorded inside one CUDA-graph IF node, replayed with the
-   predicate True and False, right on every replay.  Then the first
+   First the probes (``multicard.if_node_rank``, ``while_node_rank``): an
+   all-reduce and an all-gather recorded inside one CUDA-graph IF node,
+   replayed with the predicate True and False, and inside one WHILE node,
+   replayed for 1, 3 and 5 passes, right on every replay.  Then the first
    ``SHARDED_SCANS`` scans of phase 4's run at the AVIA preset,
    eager (``graphs=False``, every pass and arm masked), then the same
    scans captured (the default on NCCL ranks: one CUDA graph per pad
@@ -180,14 +190,15 @@ non-zero:
    window, positions within 5 mm, a gated graph replayed, and the captured
    run's kNN launches (counted as run: the gated graph's IF nodes count
    their launches on the device, read when the run ends) at most the eager
-   run's, which runs every pass and arm; IF nodes in the captured run only;
+   run's, which runs every pass and arm; IF and WHILE nodes in the
+   captured run only;
    one ``segment_sum`` launch a step in both.
 
 14. fleet_batch4 — ``tools/scenarios.py``'s ``avia_preset_batch4``
    (bench.py's four-stream fleet at the AVIA preset's full width), cut to
    ``BATCH_ROUNDS`` rounds, through ``BatchPipeline`` (one vmapped step a
    round, captured in one graph for the fleet, gated: the filter's passes
-   are IF nodes that run while any lane is active, JAX's batched
+   are one WHILE node that runs while any lane is active, JAX's batched
    ``while_loop``), through the same with its gates masked
    (``StepGraphs(gates=False)``: every pass a round), and each stream
    through its own captured ``Pipeline``.  After ``BATCH_WARM_ROUNDS``
@@ -203,7 +214,7 @@ non-zero:
    Then a second natural run of the gated graph (deterministic algorithms
    off), and both graphs again under ``torch.use_deterministic_algorithms``.
    The passes are read from the device: every pass runs one batched R = 8
-   search, counted inside its IF node only where the node runs; the
+   search, counted inside the WHILE node only where the node runs it; the
    counters are settled after every round outside the window and the
    profile (``fleet_pair``).  Checks: the two natural gated runs bit for
    bit lane by lane, with the same passes; one batched ``segment_sum``
@@ -215,7 +226,7 @@ non-zero:
    round exits early; no sync in the window, no host sync in the profiled rounds, each
    lane within 5 mm per scan of its single run, ATE per lane within the
    JAX package's (its ``BatchPipeline`` over the same rounds) + 1 cm, one
-   gated graph, the batched kNN kernel launched (in IF nodes) and no single
+   gated graph, the batched kNN kernel launched (in the WHILE node) and no single
    launch, no NaN, no drop, no truncation.
 
 15. fleet_ouster64 (in a worker process) — phase 5's run as a two-stream
@@ -227,18 +238,22 @@ non-zero:
    graphs bit for bit, iterations too; each lane within 5 mm per scan of
    phase 5's single run (float32) or phase 11's (float64); the passes
    read from the device JAX's, every filter pass run in each round with
-   the no-op lane (its loop never exits, as in JAX), and the gated graph's activities there at least the masked
+   the no-op lane (its loop never sets ``done``, as in JAX), and the gated graph's activities there at least the masked
    one's; no host sync; the batched launches of both R and no single
    launch.
 
 16. sharded_ouster64_cards — ``tools/multicard``'s ouster64 phase on as
    many NCCL ranks as there are cards, up to 4 (one on one card): the IF
-   node probe, then the gated graph against the eager step on every rank.
+   and WHILE node probes, then the gated graph against the eager step on
+   every rank.
 
 17. gated — inside phase 13, for avia and ouster64: the single pipeline's
-   captured step records JAX's ``lax.cond`` arms and ``lax.while_loop``
-   passes as CUDA-graph IF nodes (``control_flow.gate``), and runs what
-   JAX's step runs; the eager step runs every pass and arm masked.  Prints
+   captured step records JAX's ``lax.cond`` arms as CUDA-graph IF nodes
+   (``control_flow.gate``) and its ``lax.while_loop`` as one WHILE node
+   (``control_flow.while_loop``), and runs what JAX's step runs; the eager
+   step runs every pass and arm masked.  Prints each bucket's capture
+   seconds and the bytes the conditional bodies' pools grew by in it
+   (gated and masked graphs), the WHILE nodes entered and passes run,
    the PyTorch, CUDA runtime and CUDA driver versions, both modes' per-scan
    iterations, and from the profiled scans device busy ms, activities,
    update passes, re-searches and wide searches a scan, beside the card's
@@ -277,9 +292,11 @@ non-zero:
    kernel bit for bit its plain version at the run's shape (its last
    scan's queries in its final map).  Then marsim eager and captured
    under deterministic algorithms, the counters settled after every scan:
-   the filter passes the device ran (the IF nodes evaluated, less the
-   replay's two outermost and the update's five pass nodes) equal each
-   scan's iterations, which equal the eager run's (JAX's ``while_loop``);
+   one WHILE node entered a scan, the filter passes it ran (counted on the
+   device by its condition kernel) equal each scan's iterations, and so do
+   the IF nodes evaluated less the replay's two outermost (one re-search
+   node a pass), and the iterations equal the eager run's (JAX's
+   ``while_loop``);
    the two bit-equal, and the natural captured run within 5 mm of them.
 19. (none: bench.py's mid360 and velodyne_outdoor run in phase 21, through
    the runner, with phase 18's checks.)
@@ -320,11 +337,11 @@ non-zero:
    recorded, not held, and ``MID360_PROFILE_SCANS`` more of its packets
    run under the profiler (busy ms, activities, no host sync).
 
-Every captured step is gated (IF nodes): the single pipeline's, the
-batch's (its passes; a predicate that differs from lane to lane stays a
-select, as JAX's ``vmap`` of ``lax.cond`` does) and the sharded step's on
-NCCL ranks (every predicate replicated, so the ranks run or skip each IF
-node's collectives together).
+Every captured step is gated (IF nodes and the filter's WHILE node): the
+single pipeline's, the batch's (its passes; a predicate that differs from
+lane to lane stays a select, as JAX's ``vmap`` of ``lax.cond`` does) and
+the sharded step's on NCCL ranks (every predicate replicated, so the ranks
+run or skip each conditional node's collectives together).
 Phases 3-9, 11, 12, 14, 15, 18, 20 and 21 run the captured step (``Pipeline``'s
 default on CUDA, on one NCCL rank too); phases 9, 13 and 18 (marsim) hold
 it against the eager one; phase 10 (gloo) runs eagerly.
@@ -416,6 +433,12 @@ DROPPED_SLACK = 0.1
 SQ_RTOL, SQ_ATOL = 1e-5, 1e-6
 TIMING_REPS = 25  # profiler calls and enqueue samples per search
 GATE_REPS = 100  # gates in a row in graph_if's timing graphs
+# graph_while: the loop's most passes K (max_iter K - 1), the loops in a
+# row in its timing graphs, and the passes after which done is set (None:
+# never, the index ends the loop after K passes)
+LOOP_PASSES = 4
+LOOP_REPS = 25
+LOOP_CASES = {"done_after_1": 1, "done_after_4": 4, "never_done": None}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (the bound's rate)
 # phase 12: packets of the oracle-trace stream (the oracle's brute-force kNN
 # takes about 2.5 s a packet on a CPU as the map grows: about 30 s), and the
@@ -561,7 +584,7 @@ TIMES = ("device_us", "device_timer", "profiler_windows", "prep_device_us",
 # phase 2 runs whose downsample inputs it is held and timed on (the first
 # gives the row's figures, the others stand in it by name)
 SEGMENT_SUM_KINDS = ("segment_sum", "segment_sum_batched")
-NOT_KNN = ("graph_if", *SEGMENT_SUM_KINDS)
+NOT_KNN = ("graph_if", "graph_while", *SEGMENT_SUM_KINDS)
 SEGMENT_SUM_ROWS = {"segment_sum": ("segment_sum", 32),
                     "segment_sum_f64": ("segment_sum", 64),
                     "segment_sum_batched": ("segment_sum_batched", 32),
@@ -650,6 +673,11 @@ def phase_kernels(pkg):
     rows["graph_if"]["over_node_floor"] = (rows["graph_if"]["ms"]
                                            / floor["ms"])
     log({"phase": "kernels", "case": "graph_if", "row": rows["graph_if"]})
+    rows["graph_while"] = graph_while_row(pkg)
+    rows["graph_while"]["over_node_floor"] = (rows["graph_while"]["ms"]
+                                              / floor["ms"])
+    log({"phase": "kernels", "case": "graph_while",
+         "row": rows["graph_while"]})
     rows.update(segment_sum_rows(pkg))
     for row in rows.values():
         row["node_floor_ms"] = floor["ms"]
@@ -698,6 +726,19 @@ def batched_kernel_rows(pkg, tag, dtype) -> dict:
     return {row["name"]: row}
 
 
+def replay_ms(g, calls: int) -> float:
+    """ms a call of a CUDA graph that makes ``calls`` of them in a row:
+    ``TIMING_REPS`` replays between CUDA events, after one warm replay."""
+    g.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(TIMING_REPS):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TIMING_REPS / calls
+
+
 def graph_if_row(pkg) -> dict:
     """The IF node (``csrc/graph_if.cu``'s set kernel and node, the gated
     step's ``control_flow.gate``) held against its plain version, the
@@ -726,16 +767,6 @@ def graph_if_row(pkg) -> dict:
                 out = cf.gate(pred, body, out)
         return g, c, out
 
-    def per_gate_ms(g) -> float:
-        g.replay()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(TIMING_REPS):
-            g.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / TIMING_REPS / GATE_REPS
-
     before = counts.snapshot()
     gated, plain = graph_of(True), graph_of(False)
     counts.restore(before)  # launches to compare are not the main path's
@@ -752,7 +783,8 @@ def graph_if_row(pkg) -> dict:
         torch.cuda.synchronize()
         err = max(err, float((gated[2][0] - want).abs().max()),
                   float((plain[2][0] - want).abs().max()))
-        ms[flag] = (per_gate_ms(gated[0]), per_gate_ms(plain[0]))
+        ms[flag] = (replay_ms(gated[0], GATE_REPS),
+                    replay_ms(plain[0], GATE_REPS))
     check(err == 0.0, f"graph_if: the gate differs from torch.where by {err}")
     return dict(
         name="graph_if", route="cuda",
@@ -766,6 +798,108 @@ def graph_if_row(pkg) -> dict:
         plain_ms_body_run=ms[True][1], bound_ms=1e3 * 1 / HBM_BYTES_PER_S,
         bound_by="bytes", library_ms=None,
         shape={"carry": list(carry0.shape), "gates": GATE_REPS})
+
+
+def graph_while_row(pkg) -> dict:
+    """The WHILE node (``csrc/graph_if.cu``'s condition kernel and node,
+    the gated step's ``control_flow.while_loop``) against the masked loop
+    (its plain version: ``LOOP_PASSES`` passes, each picked with
+    ``torch.where``) and against the form it replaced, ``LOOP_PASSES``
+    unrolled IF gates on ``~done`` (each a ``~done`` kernel, a set kernel
+    and an IF node), on a loop of at most ``LOOP_PASSES`` passes of
+    ``graph_if_row``'s body on its (8192, 5, 3) carry, with ``done`` set
+    after 1 pass, after 4 and never (the index ends the loop: the device's
+    count of passes is ``LOOP_PASSES``).  Bit for bit in all three forms and
+    cases.  Times: per loop, from a CUDA graph of ``LOOP_REPS`` loops in a
+    row (CUDA events), each loop after a reset of the carry (``reset_ms``,
+    timed alone, taken off every figure).  ``ms``: the WHILE loop of
+    ``LOOP_PASSES`` passes (done never set); ``pass_not_run_ms``: what a
+    pass that does not run cost the unrolled form over the WHILE node
+    (unrolled minus WHILE with done after 1 pass, over the 3 passes not
+    run); ``pass_run_ms``: a pass run in the WHILE node (done after 4
+    minus after 1, over 3).  Bound: the condition's bytes, a bool and an
+    int32 read at each of its ``LOOP_PASSES + 1`` evaluations."""
+    cf, counts, graph_if = pkg["cf"], pkg["counts"], pkg["graph_if"]
+    dev = torch.device("cuda")
+    counts.device_counter(dev)
+    x0 = torch.rand((8192, 5, 3), device=dev)
+    i0 = torch.full((), -1, dtype=torch.int32, device=dev)
+    done0 = torch.zeros((), dtype=torch.bool, device=dev)
+    last = torch.zeros((), dtype=torch.int32, device=dev)  # done at i=last
+    max_iter = LOOP_PASSES - 1
+
+    def body(c):
+        i, done, x = c
+        i1 = i + 1
+        return i1, i1 >= last, x * 0.5 + 1.0
+
+    def one_loop(form, c):
+        for v, v0 in zip(c, (i0, done0, x0)):
+            v.copy_(v0)
+        if form == "unrolled_if":  # the filter's passes before the WHILE
+            for _ in range(LOOP_PASSES):
+                c = cf.gate(~c[1], body, c)
+            return c
+        return cf.while_loop(body, c, max_iter)
+
+    def graph_of(form):
+        c = (i0.clone(), done0.clone(), x0.clone())
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g), (contextlib.nullcontext() if form in (
+                "masked", "reset") else cf.gated_capture(dev)):
+            for _ in range(LOOP_REPS):
+                out = (one_loop(form, c) if form != "reset" else
+                       [v.copy_(v0) for v, v0 in zip(c, (i0, done0, x0))])
+        return g, out
+
+    forms = ("while", "unrolled_if", "masked")
+    counts.settle()
+    before = counts.snapshot()
+    graphs = {f: graph_of(f) for f in (*forms, "reset")}
+    reset_ms = replay_ms(graphs["reset"][0], LOOP_REPS)
+    err, ms, passes = 0.0, {}, {}
+    for case, n in LOOP_CASES.items():
+        last.fill_(n - 1 if n is not None else 10 ** 6)
+        ran = min(n or LOOP_PASSES, LOOP_PASSES)
+        want = x0
+        for _ in range(ran):
+            want = want * 0.5 + 1.0
+        ms[case] = {}
+        for form in forms:
+            g, out = graphs[form]
+            counts.settle()
+            seen = graph_if.while_launches[1]
+            g.replay()
+            counts.settle()
+            if form == "while":  # the device's count: LOOP_REPS loops
+                passes[case] = (graph_if.while_launches[1] - seen) / LOOP_REPS
+            torch.cuda.synchronize()
+            err = max(err, float((out[2] - want).abs().max()))
+            check(int(out[0]) == ran - 1 and bool(out[1]) == (n is not None),
+                  f"graph_while {form} {case}: i {int(out[0])}, done "
+                  f"{bool(out[1])} after {ran} passes")
+            ms[case][form] = replay_ms(g, LOOP_REPS) - reset_ms
+    counts.settle()
+    counts.restore(before)  # launches to compare are not the main path's
+    check(err == 0.0, f"graph_while: the forms differ from the loop by {err}")
+    check(passes == {c: min(n or LOOP_PASSES, LOOP_PASSES)
+                     for c, n in LOOP_CASES.items()},
+          f"graph_while: the device counted passes {passes}")
+    one, four = ms["done_after_1"], ms["done_after_4"]
+    return dict(
+        name="graph_while", route="cuda",
+        source="fast_lio_tpu_torch/csrc/graph_if.cu",
+        replaces=("no pallas_call: XLA's lax.while_loop, "
+                  "fast_lio_tpu/filter/ekf.py:276-277,350"),
+        launches=None, max_abs_err=err, ms=ms["never_done"]["while"],
+        plain_ms=ms["never_done"]["masked"],
+        bound_ms=1e3 * 5 * (LOOP_PASSES + 1) / HBM_BYTES_PER_S,
+        bound_by="bytes", library_ms=None, ms_by_case=ms, reset_ms=reset_ms,
+        pass_not_run_ms=(one["unrolled_if"] - one["while"]) / 3,
+        pass_run_ms=(four["while"] - one["while"]) / 3,
+        passes_by_case=passes,
+        shape={"carry": list(x0.shape), "max_passes": LOOP_PASSES,
+               "loops": LOOP_REPS})
 
 
 def segment_sum_rows(pkg) -> dict:
@@ -913,6 +1047,7 @@ def launch_counters(pkg) -> dict:
             "knn_batched": knn.batched_launches,
             "knn_batched_f64": knn.batched_launches_f64,
             "graph_if": pkg["graph_if"].launches,
+            "graph_while": pkg["graph_if"].while_launches,
             "segment_sum": pkg["seg"].launches,
             "segment_sum_batched": pkg["seg"].batched_launches}
 
@@ -1246,6 +1381,8 @@ def phase_sharded_1rank(pkg, cfg, sim_cfg, traj_ref, card) -> dict:
                         device="cuda:0", timeout_s=600.0)[0]
     wall = time.perf_counter() - t0
     pkg["multicard"].if_node_row([res["if_node"]], f"{name}_if_node_probe")
+    pkg["multicard"].while_node_row([res["while_node"]],
+                                    f"{name}_while_node_probe")
     cap, eager = res["captured"], res["eager"]
     trajs = {mode: [(t, p, None) for t, p in zip(r["stamps"], r["positions"])]
              for mode, r in (("captured", cap), ("eager", eager))}
@@ -1491,9 +1628,10 @@ def phase_graph(pkg, runs, card: str) -> dict:
                       f"graph {name}: segment_sum launches {by_r} captured, "
                       f"{eager['launches'][kind]} eager")
                 continue
-            if kind == "graph_if":
-                check(eager["launches"][kind][0] == 0 < by_r[0],
-                      f"graph {name}: IF nodes {by_r} captured, "
+            if kind in ("graph_if", "graph_while"):
+                check(sum(eager["launches"][kind].values()) == 0
+                      and all(n > 0 for n in by_r.values()),
+                      f"graph {name}: {kind} {by_r} captured, "
                       f"{eager['launches'][kind]} eager")
                 continue
             check(all(n <= eager["launches"][kind][q]
@@ -1573,6 +1711,13 @@ def phase_gated(pkg, name, cfg, data, eager, captured, card) -> None:
          "cuda_driver": cuda_driver,
          "if_nodes": "csrc/graph_if.cu (cudaGraphConditionalHandleCreate, "
                      "cudaGraphAddNode, cudaStreamBeginCaptureToGraph)",
+         "while_nodes": "csrc/graph_if.cu (cudaGraphCondTypeWhile, "
+                        "while_condition_kernel)",
+         "capture_by_bucket": {
+             mode: {str(k): {"capture_s": g["capture_s"],
+                             "body_pool_bytes": g["body_pool_bytes"]}
+                    for k, g in r["graphs"]["per_graph"].items()}
+             for mode, r in (("gated", captured), ("masked_graph", masked))},
          "max_pos_diff_m": max_pos_diff(captured["traj"], eager["traj"]),
          "tol_m": POS_TOL_M,
          "iterations_eager": eager["iterations"],
@@ -1585,7 +1730,9 @@ def phase_gated(pkg, name, cfg, data, eager, captured, card) -> None:
          "max_pos_diff_masked_graph_m": max_pos_diff(masked["traj"],
                                                      eager["traj"]),
          "profile_per_scan": prof,
-         "if_nodes_run": captured["launches"]["graph_if"][0]})
+         "if_nodes_run": captured["launches"]["graph_if"][0],
+         "while_nodes_entered_and_passes_run": [
+             captured["launches"]["graph_while"][k] for k in (0, 1)]})
     # natural: the downsample's sums (segment_sum) take one order on every
     # run, so the gated graph computes what the eager step computes, bit for
     # bit, and again on a second run
@@ -1708,7 +1855,7 @@ def fleet_pair(pkg, cfg, datas, deterministic: bool, lead_rounds=None,
 
     The passes a round are read from the device: every pass runs one
     batched R = 8 search (under vmap the re-search is a select), inside
-    the pass's IF node in the gated graph, where the search's launch is
+    the WHILE node in the gated graph, where the search's launch is
     counted on the device only when the node runs.  The counters are
     settled after every lead step (a host read), and around the window and
     the profile: ``segments`` holds (first round, end round, passes run)
@@ -1954,8 +2101,8 @@ def phase_fleet_batch4(pkg, card: str):
           f"fleet_batch4: not one replayed gated graph ({graphs})")
     check(window_launches["knn_batched"][8] > 0
           and sum(launches["knn"].values()) == 0
-          and window_launches["graph_if"][0] > 0,
-          f"fleet_batch4: not the batched kNN launch in IF nodes "
+          and window_launches["graph_while"][1] > 0,
+          f"fleet_batch4: not the batched kNN launch in the WHILE node "
           f"({launches})")
     for mode, f in fleets.items():
         check(f["profile"]["host_syncs_per_scan"] == 0,
@@ -2241,19 +2388,20 @@ def run_captured(pkg, phase, name, cfg, data):
 def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
     """MARSIM's five passes (``max_iteration=4``), on the device.  The run
     eager (each pass masked, its ``iterations`` JAX's ``while_loop``
-    count) and captured (each pass an IF node), both under
+    count) and captured (the passes one WHILE node), both under
     ``torch.use_deterministic_algorithms``; the captured run settles the
-    counters after every scan.  A replay evaluates the prune's and the
-    update's IF nodes (``launches_per_replay`` less the downsample's one
-    ``segment_sum`` launch: in the gated graph every other launch sits in
-    an IF node), the update's body its
-    ``max_iteration + 1`` pass nodes, and each pass that runs the node of
-    its re-search: so the IF nodes evaluated in a scan, less those, are
-    the passes the device ran.  Checks: those passes equal the scan's
-    iterations, scan by scan, and the iterations the eager run's (JAX's
-    rule), the two runs bit-equal, and the captured run of the phase
-    (``traj_captured``) within 5 mm of the eager one.  Returns the two runs'
-    launches."""
+    counters after every scan.  A replay enters the update's WHILE node
+    once, and its condition kernel counts on the device each pass it ran;
+    it evaluates the prune's and the update's IF nodes
+    (``launches_per_replay`` less the downsample's one ``segment_sum``
+    launch: in the gated graph every other launch sits in a conditional
+    node, the WHILE node's in the update's), and each pass that runs the
+    node of its re-search.  Checks: one WHILE node entered a scan, the
+    passes it ran equal the scan's iterations, scan by scan, and so do the
+    IF nodes evaluated less those outside, the iterations the eager run's
+    (JAX's rule), the two runs bit-equal, and the captured run of the phase
+    (``traj_captured``) within 5 mm of the eager one.  Returns the two
+    runs' launches."""
     n_nodes = cfg.max_iteration + 1
     torch.use_deterministic_algorithms(True)
     try:
@@ -2262,16 +2410,22 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
         feed(eager, data)
         gated = pkg["Pipeline"](cfg)
         push = scan_pusher(gated, data)
-        seen, if_by_scan = read_launches(pkg)["graph_if"][0], []
+
+        def seen_now():
+            got = read_launches(pkg)
+            return (got["graph_if"][0], got["graph_while"][0],
+                    got["graph_while"][1])
+
+        seen, by_scan = seen_now(), []
         while True:
             replays, n_diags = sum(gated.graphs.replays.values()), len(
                 gated.diags)
             if next(push, None) is None:
                 break
-            now = read_launches(pkg)["graph_if"][0]
+            now = seen_now()
             if (len(gated.diags) > n_diags
                     and sum(gated.graphs.replays.values()) > replays):
-                if_by_scan.append((n_diags, now - seen))
+                by_scan.append((n_diags, *(a - b for a, b in zip(now, seen))))
             seen = now
         launches = read_launches(pkg)  # the two runs'
     finally:
@@ -2281,14 +2435,16 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
     its = {"eager": [int(d.iterations) for d in eager.diags],
            "gated": [int(d.iterations) for d in gated.diags]}
     if_outside = per_replay[0] - 1  # less the segment_sum launch
-    passes = [(k, n - if_outside - n_nodes) for k, n in if_by_scan]
+    passes = [(k, n) for k, _, _, n in by_scan]
     jax_its = JAX_ITERATIONS["preset_marsim"]
     dpos = max_pos_diff(gated.get_trajectory(), eager.get_trajectory())
     d_captured = max_pos_diff(traj_captured, eager.get_trajectory())
     log({"phase": "presets", "run": "preset_marsim_passes",
-         "deterministic": True, "pass_nodes": n_nodes,
+         "deterministic": True, "most_passes": n_nodes,
          "if_nodes_per_replay_outside": if_outside,
          "passes_device_by_scan": dict(passes),
+         "if_nodes_by_scan": {k: n for k, n, _, _ in by_scan},
+         "while_nodes_entered_by_scan": {k: n for k, _, n, _ in by_scan},
          "iterations": its, "iterations_jax": jax_its,
          "scans_with_jax_iterations": sum(
              a == b for a, b in zip(its["gated"], jax_its)),
@@ -2300,6 +2456,9 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
     check(all(n == its["gated"][k] and 1 <= n <= n_nodes for k, n in passes),
           f"marsim: the passes run on the device {passes} are not the "
           f"scans' iterations {its['gated']}")
+    check(all(w == 1 and ifs == if_outside + n for _, ifs, w, n in by_scan),
+          f"marsim: WHILE nodes entered and IF nodes evaluated a scan "
+          f"{by_scan}, {if_outside} IF nodes outside the passes")
     check(its["eager"] == its["gated"] and dpos == 0.0,
           f"marsim: deterministic gated and eager runs differ ({its}, "
           f"{dpos} m)")
@@ -2480,8 +2639,12 @@ def in_background(fn, *args, **kwargs):
 
 def fleet_ouster64_rank(group, cfg, sim_cfg, refs) -> dict:
     """Phase 15 in a worker process (``parallel.launch``, one gloo rank on
-    the card; ``group`` unused): ``phase_fleet_ouster64``'s launches."""
-    return phase_fleet_ouster64(load_pkg(), cfg, sim_cfg, refs)
+    the card; ``group`` unused): ``phase_fleet_ouster64``'s launches.  One
+    profiler session first, before any capture
+    (``profile_scan.start_tracing``)."""
+    pkg = load_pkg()
+    pkg["profile_scan"].start_tracing()
+    return phase_fleet_ouster64(pkg, cfg, sim_cfg, refs)
 
 
 @contextlib.contextmanager
@@ -2518,8 +2681,10 @@ def bench_worker(group) -> list:
     follows each run: the kernel at the path's shape, the measured
     pipeline's health and graphs, and on mid360 ``MID360_PROFILE_SCANS``
     packets after the synced pass's on its pipeline, profiled.  Returns
-    one dict per run."""
+    one dict per run.  One profiler session first, before any capture
+    (``profile_scan.start_tracing``)."""
     pkg = load_pkg()
+    pkg["profile_scan"].start_tracing()
     sc, bench = pkg["scenarios"], pkg["bench"]
     rows = []
     for name in BENCH_RUNS:
@@ -2632,7 +2797,12 @@ def phase_bench(pkg, card) -> dict:
                  "activities_per_scan": prof["device_activities_per_scan"]})
             check(prof["host_syncs_per_scan"] == 0,
                   f"bench {name}: host syncs in the profiled packets")
-        check(launches["graph_if"][0] > 0, f"bench {name}: no IF node ran")
+        # the fleet's gates are selects (batched predicates): its one
+        # conditional node is the filter's WHILE node
+        check((launches["graph_if"][0] > 0 or fleet)
+              and launches["graph_while"][1] > 0,
+              f"bench {name}: no IF node or no pass of the WHILE node ran "
+              f"({launches['graph_if']}, {launches['graph_while']})")
         by_path[f"bench_{name}"] = launches
     return by_path
 
@@ -2676,6 +2846,11 @@ def main() -> int:
     grouped_cfg = dataclasses.replace(ouster_cfg, knn_backend="grouped")
 
     lap("build")
+    # one profiler session before the first capture: in a graph captured
+    # before the process's first session the profiler saw a WHILE node's
+    # body once a replay where it ran several times (phase 17 counts its
+    # passes' kernels; profile_scan.start_tracing)
+    pkg["profile_scan"].start_tracing()
     # 13. the captured step against the eager one, and 17. (inside 13) avia
     # and ouster64: the gated graph against the masked eager step.  They run
     # first, their captured runs' profiles the process's first: in a process
@@ -2842,23 +3017,32 @@ def main() -> int:
                                 for r in (8, 27)}
         by_path[path]["graph_if"] = {0: sum(rk["if_nodes_run"]
                                             for rk in ranks)}
+        by_path[path]["graph_while"] = {
+            k: sum(rk["while_launches"][k] for rk in ranks) for k in (0, 1)}
         by_path[path]["segment_sum"] = {
             b: sum(rk["segment_sum_launches"][b] for rk in ranks)
             for b in (32, 64)}
     for name, row in kernel_rows.items():
         if name in SEGMENT_SUM_ROWS:
-            kind, r = SEGMENT_SUM_ROWS[name]
+            kind, keys = SEGMENT_SUM_ROWS[name][0], (SEGMENT_SUM_ROWS[name][1],)
         elif name == "graph_if":
-            kind, r = name, 0
+            kind, keys = name, (0,)
+        elif name == "graph_while":  # nodes entered, and passes run
+            kind, keys = name, (0, 1)
         else:
             kind, r = name.rsplit("_", 1)
-            r = int(r[1:])
-        row["launches_by_path"] = {path: launches[kind][r]
-                                   for path, launches in by_path.items()}
+            keys = (int(r[1:]),)
+        row["launches_by_path"] = {
+            path: sum(launches[kind][k] for k in keys)
+            for path, launches in by_path.items()}
+        if name == "graph_while":
+            row["entered_and_passes"] = [
+                sum(launches[kind][k] for launches in by_path.values())
+                for k in keys]
         row["launches"] = sum(row["launches_by_path"].values())
         if kind == "knn":
             row["launches_by_rank"] = {
-                path: [rk["launches"][r] for rk in ranks]
+                path: [rk["launches"][keys[0]] for rk in ranks]
                 for path, ranks in by_rank.items()}
         check(row["launches"] > 0, f"{name}: no launch on any main path")
     log({"phase": "done", "seconds": time.perf_counter() - t_start,

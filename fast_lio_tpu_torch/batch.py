@@ -29,13 +29,14 @@ fallback disabled, so an op without a batching rule raises instead of
 looping over the lanes.  On CUDA the batched step is captured in one CUDA
 graph per pad bucket for the whole fleet (``step_graph.StepGraphs``) and
 replayed once per round, with no host sync in steady state.  The graph is
-gated as JAX's vmapped step is: the filter's passes are CUDA-graph IF nodes
-that run while any lane is active (JAX's batched ``while_loop``:
-``control_flow.loop_pass``), each lane keeping a pass's result only while
-it is active itself, and every ``lax.cond`` whose predicate differs from
-lane to lane (the re-search, the wide search, the prune, the update) stays
-a select.  An ended stream's no-op lane never exits the loop, so a round
-with one runs every pass, as in JAX.
+gated as JAX's vmapped step is: the filter's passes are one CUDA-graph
+WHILE node that runs while any lane is active (JAX's batched
+``while_loop``: ``control_flow.while_loop``), each lane keeping a pass's
+result only while it is active itself, and every ``lax.cond`` whose
+predicate differs from lane to lane (the re-search, the wide search, the
+prune, the update) stays a select.  An ended stream's no-op lane never
+sets ``done``, so a round with one runs every pass, to ``max_iter``, as
+in JAX.
 
 Semantics, as in the JAX package: one packet per stream per round, and a
 round fires only when every stream is ready or declared ended via

@@ -8,11 +8,10 @@
   under ``torch.func.vmap``.  The IMU chains (``imu.py``) use it, so the
   port multiplies in JAX's order.
 
-* ``gate(pred, body, carry)`` — ``lax.cond(pred, body, identity, carry)``
-  (and, pass by pass, a bounded ``lax.while_loop``).  ``pred`` is a () bool
-  tensor on the device and ``body`` is functional: a carry (a tuple of
-  tensors, or of named tuples of them) to a new carry of the same
-  structure.  Two forms:
+* ``gate(pred, body, carry)`` — ``lax.cond(pred, body, identity, carry)``.
+  ``pred`` is a () bool tensor on the device and ``body`` is functional: a
+  carry (a tuple of tensors, or of named tuples of them) to a new carry of
+  the same structure.  Two forms:
 
   - *masked*, everywhere by default (eager, the CPU, and wherever no
     step is being captured with gates): the body runs and its results are
@@ -41,19 +40,29 @@
   a batched input: ``new_zeros``, ``new_full``), since vmap writes no
   batched value into an unbatched tensor.
 
-* ``loop_pass(active, body, carry)`` — one pass of a bounded
-  ``lax.while_loop``: ``gate(active, body, carry)``, and for a batched
-  ``active`` JAX's batching rule for ``while``: the pass runs while any
-  lane is active (``any_lane``, an unbatched flag, so an IF node in a
-  gated capture) and each lane keeps its own result only where it is
-  active itself.
+* ``while_loop(body, carry, max_iter)`` — ``lax.while_loop`` with JAX's
+  condition on the carry's first two leaves, its loop index ``i`` (int32,
+  from -1 or above, which the body raises by one a pass) and flag
+  ``done``: ``~done & (i < max_iter)``, so at most ``max_iter + 1`` passes.
+  Masked (where ``gate`` is), the ``max_iter + 1`` passes are unrolled,
+  each picked with ``torch.where`` of the condition.  Gated, the loop is
+  one CUDA-graph WHILE node (``kernels/graph_if.py``): its body, one copy
+  of the pass, ``copy_``s the pass's results into the carry's own tensors,
+  and one condition kernel reads ``done`` and ``i`` on the device before
+  the node and after each pass, so a replay runs the passes JAX's loop
+  runs and no more.  Under ``torch.func.vmap`` (one ``done`` and ``i`` a
+  lane) the node follows JAX's batching rule for ``while``: the condition
+  kernel reads every lane's flags (the physical (B,) tensors beneath the
+  batched ones, ``_lanes``), the loop runs while any lane is active, and
+  each lane keeps a pass's result only where it is active itself, by a
+  mask of the lanes' conditions that the same kernel writes.
 
   The kernel launch counters (``kernels/counts.py``) count at Python call
-  time, and a replay skips a gated body's launches where ``pred`` is False.
-  So a gated body takes its own launches off the counters while it is
-  recorded and records an add of them to a device counter inside the node:
-  they count as run, and the host reads them only when asked
-  (``counts.settle``).
+  time, and a replay runs a gated body's launches only where its node runs
+  it (once, never, or once a pass).  So a gated body takes its own
+  launches off the counters while it is recorded and records an add of
+  them to a device counter inside the node: they count as run, and the
+  host reads them only when asked (``counts.settle``).
 """
 from __future__ import annotations
 
@@ -181,32 +190,44 @@ def batched(t: torch.Tensor) -> bool:
     return torch._C._functorch.is_batchedtensor(t)
 
 
-@torch.library.custom_op("fast_lio_tpu_torch::any_lane", mutates_args=())
-def _any_lane_op(pred: torch.Tensor) -> torch.Tensor:
-    return pred.clone()  # one lane: its own flag
+def _lanes(t: torch.Tensor) -> torch.Tensor:
+    """Every lane's value of the () tensor ``t`` in one tensor whose memory
+    is ``t``'s: under ``torch.func.vmap`` the physical (B,) tensor beneath
+    the batched one, outside vmap ``t`` as one lane."""
+    if not batched(t):
+        return t.reshape(1)
+    lanes = torch._C._functorch.get_unwrapped(t)
+    if batched(lanes) or lanes.dim() != 1 or t.dim() != 0:
+        raise ValueError("a WHILE node reads one flag a lane: a () tensor "
+                         "under one level of vmap")
+    return lanes
 
 
-@_any_lane_op.register_fake
-def _any_lane_fake(pred):
-    return torch.empty_like(pred)
-
-
-def _any_lane_vmap(info, in_dims, pred):
-    """The reduction over the lanes: one unbatched flag, on the device."""
-    if in_dims[0] is None:
-        return pred.clone(), None
-    return pred.any(dim=in_dims[0]), None
-
-
-torch.library.register_vmap("fast_lio_tpu_torch::any_lane", _any_lane_vmap)
-
-
-def any_lane(pred: torch.Tensor) -> torch.Tensor:
-    """JAX's ``reduce_or`` of a batched ``while_loop`` predicate over the
-    lanes: under ``torch.func.vmap`` a () bool that holds where any lane's
-    ``pred`` holds, unbatched (the same for every lane) and on the device,
-    with no host read; outside vmap ``pred`` itself (one lane)."""
-    return torch.ops.fast_lio_tpu_torch.any_lane(pred)
+def _record_while(done: torch.Tensor, i: torch.Tensor, max_iter: int,
+                  fn: Callable[[], None],
+                  active: Optional[torch.Tensor] = None) -> None:
+    """Record ``fn``'s work as the body of a WHILE node on ``~done & (i <
+    max_iter)`` for any lane (``done`` and ``i`` from ``_lanes``), each
+    lane's written into ``active`` where given (before every pass), in the
+    CUDA graph that the current stream is capturing
+    (``kernels.graph_if``); raises where it cannot (nothing is recorded
+    unrolled instead)."""
+    if not (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("a gated step records WHILE nodes, and the "
+                           "current stream is not capturing a CUDA graph")
+    if (not done.is_cuda or done.dtype != torch.bool
+            or i.dtype != torch.int32 or i.device != done.device
+            or i.shape != done.shape or not done.is_contiguous()
+            or not i.is_contiguous()):
+        raise ValueError(
+            f"a WHILE node reads a contiguous bool flag and int32 index of "
+            f"one length on a CUDA device (got {done.dtype} "
+            f"{tuple(done.shape)} on {done.device}, {i.dtype} "
+            f"{tuple(i.shape)} on {i.device})")
+    from .kernels import counts, graph_if
+    graph_if.record_while(done, i, max_iter, fn, counts.device_slot(
+        graph_if.while_launches, 1, done.device), active)
 
 
 def gate(pred: torch.Tensor, body: Callable[[Tree], Tree], carry: Tree) -> Tree:
@@ -231,14 +252,36 @@ def gate(pred: torch.Tensor, body: Callable[[Tree], Tree], carry: Tree) -> Tree:
     return carry
 
 
-def loop_pass(active: torch.Tensor, body: Callable[[Tree], Tree],
-              carry: Tree) -> Tree:
-    """One pass of a bounded ``lax.while_loop`` whose predicate is
-    ``active``: ``gate(active, body, carry)``.  For a batched ``active``
-    in a gated capture, the pass is an IF node on ``any_lane(active)``
-    whose body keeps each lane's result where that lane is active (JAX's
-    batched ``while``); masked, it is the same select as for one lane."""
-    if not (batched(active) and gating()):
-        return gate(active, body, carry)
-    return gate(any_lane(active), lambda c: select(active, body(c), c),
-                carry)
+def while_loop(body: Callable[[Tree], Tree], carry: Tree,
+               max_iter: int) -> Tree:
+    """``lax.while_loop(lambda c: ~c[1] & (c[0] < max_iter), body, carry)``
+    on the device, ``carry`` a tuple whose first two leaves the condition
+    reads, ``i`` (int32, -1 or above, raised by one a pass) and ``done``
+    (bool): masked, ``max_iter + 1`` passes each picked with
+    ``torch.where``; inside ``gated_capture`` one WHILE node whose body
+    writes the carry in place (the module's docstring)."""
+    def active(c):
+        return ~c[1] & (c[0] < max_iter)
+
+    device = _gated_device.get()
+    if device is None:
+        for _ in range(max_iter + 1):
+            carry = select(active(carry), body(carry), carry)
+        return carry
+    i, done = carry[:2]
+    mask = None  # each lane's condition, written by the condition kernel
+    if batched(done) or batched(i):
+        mask = done.new_empty(())
+    step = body if mask is None else (lambda c: select(mask, body(c), c))
+    from .kernels import counts  # the counters import the kernels
+
+    def run():
+        before = counts.snapshot()
+        _assign(carry, step(carry))
+        ran = counts.since(before)
+        counts.restore(before)
+        counts.add_on_device(ran, device)  # inside the node: counted as run
+
+    _record_while(_lanes(done), _lanes(i), max_iter, run,
+                  None if mask is None else _lanes(mask))
+    return carry

@@ -8,17 +8,17 @@ Port of ``fast_lio_tpu/filter/ekf.py`` (the esekfom engine, esekfom.hpp):
   in the 23x23 information form, where the only reductions over the N
   measurement rows are H^T H (12x12) and H^T h (12,).
 
-The JAX ``while_loop`` becomes its most passes, ``max_iter + 1``, each
-``control_flow.loop_pass(~done, pass, carry)`` on a carry of device
-tensors: no host read.  In a captured step with gates (the single
-pipeline, the batch, the sharded step on NCCL ranks) each pass is a
-CUDA-graph IF node, so a replay runs the passes JAX's loop runs and skips
-the rest: under ``torch.func.vmap`` (the batch) while any lane is active,
-as JAX's batched ``while_loop`` runs, each lane keeping its own result only
-while it is active itself.  In the masked form (eager, the CPU) every pass
-runs and a pass after the exit leaves the carry as it was, through
-``torch.where``.  Inside a pass a measurement with no valid point leaves
-the iterate unchanged, as JAX's ``sel`` does.
+The JAX ``while_loop`` is ``control_flow.while_loop`` with JAX's
+condition, ``~done & (i < max_iter)``, on a carry of device tensors: no
+host read.  In a captured step with gates (the single pipeline, the batch,
+the sharded step on NCCL ranks) it is one CUDA-graph WHILE node holding
+one copy of the pass, so a replay runs the passes JAX's loop runs and no
+more: under ``torch.func.vmap`` (the batch) while any lane is active, as
+JAX's batched ``while_loop`` runs, each lane keeping its own result only
+while it is active itself.  In the masked form (eager, the CPU) all
+``max_iter + 1`` passes run and a pass after the exit leaves the carry as
+it was, through ``torch.where``.  Inside a pass a measurement with no
+valid point leaves the iterate unchanged, as JAX's ``sel`` does.
 
 Deviations carried over from the JAX package: the predict-step exp factors
 use the mathematically intended scale (the reference's ``scalar(1/2)`` is 0,
@@ -188,14 +188,16 @@ def update_iterated(
     ``t > 1`` or ``i == max_iter-1``, and a pass with ``valid`` False leaves
     the iterate unchanged (but still counts as an evaluation).  The loop
     makes at most ``max_iter + 1`` passes (``i`` from -1 while
-    ``i < max_iter``); here each is ``control_flow.loop_pass(~done, pass,
-    carry)``, the carry (``i``, ``t``, ``converge``, ``done``,
-    ``any_valid``, ``n_evals``, the iterate, ``P_post``, ``dx_final``, the
-    measurement carry) device tensors, made from ``P`` so that under
-    ``torch.func.vmap`` they are batched like it.  In a gated capture a
-    pass after ``done`` (after every lane's, in a batch) is an IF node that
-    does not run; in the masked form it runs and leaves every carried value
-    as it was.  Either way the results are the loop's, with no host read.
+    ``i < max_iter``), through ``control_flow.while_loop``; the carry
+    (``i``, ``done``, ``t``, ``converge``, ``any_valid``, ``n_evals``, the
+    iterate, ``P_post``, ``dx_final``, the measurement carry) is device
+    tensors, made from ``P`` so that under ``torch.func.vmap`` they are
+    batched like it.  In a gated capture the loop is one WHILE node whose
+    passes end with ``done`` (every lane's, in a batch) or at ``max_iter``:
+    a pass whose ``valid`` is False leaves ``done`` False, so only the
+    index bounds a scan with no valid pass.  In the masked form every pass
+    runs and a pass after the exit leaves every carried value as it was.
+    Either way the results are the loop's, with no host read.
 
     ``group`` (a ``parallel.ShardGroup``): the measurement rows are split
     across its ranks, and each pass sums H^T H, H^T h and the ranks'
@@ -204,8 +206,8 @@ def update_iterated(
     alike.  ``valid`` joins the sum so that every rank masks the same
     passes by construction, not because each rank's own downsample gives
     the same flag.  So every pass's predicate is the same on every rank,
-    and in a gated capture on NCCL ranks every rank runs or skips each
-    pass, with its collectives, together.  Without a group nothing
+    and in a gated capture on NCCL ranks every rank runs each pass of the
+    WHILE node, with its collectives, or ends the loop, together.  Without a group nothing
     changes.
     """
     dtype, device = P.dtype, P.device
@@ -219,7 +221,7 @@ def update_iterated(
     i32 = torch.int32
 
     def one_pass(c):
-        i, t, converge, done, any_valid, n_evals, x, P_post, dx_final, \
+        i, done, t, converge, any_valid, n_evals, x, P_post, dx_final, \
             h_carry = c
         out = h_fn(x, converge, h_carry)
 
@@ -257,9 +259,9 @@ def update_iterated(
         force = (t_new == 0) & (i == max_iter - 2)
         done_now = (t_new > 1) | (i == max_iter - 1)
         # a pass with no valid point keeps the iterate (JAX's `sel`)
-        return (i + 1, torch.where(valid, t_new, t),
+        return (i + 1, valid & done_now, torch.where(valid, t_new, t),
                 torch.where(valid, converged | force, converge),
-                valid & done_now, any_valid | valid, n_evals + 1,
+                any_valid | valid, n_evals + 1,
                 cf.select(valid, x_new, x),
                 torch.where(valid, R * P_inv, P_post),
                 torch.where(valid, dx_, dx_final), out.carry)
@@ -267,13 +269,11 @@ def update_iterated(
     # the carry's tensors: x, P_prop and carry0 are read under their own
     # names too, so a gated pass writes copies of them
     x0, P_post0, h_carry0 = cf.own((x, P_prop, carry0))
-    carry = (scalar(-1, i32), scalar(0, i32), scalar(True, torch.bool),
-             scalar(False, torch.bool), scalar(False, torch.bool),
+    carry = (scalar(-1, i32), scalar(False, torch.bool), scalar(0, i32),
+             scalar(True, torch.bool), scalar(False, torch.bool),
              scalar(0, i32), x0, P_post0,
              P_prop.new_zeros(n), h_carry0)
-    for _ in range(max_iter + 1):
-        done = carry[3]
-        carry = cf.loop_pass(~done, one_pass, carry)
+    carry = cf.while_loop(one_pass, carry, max_iter)
     _, _, _, _, any_valid, n_evals, x, P_post, dx_final, h_carry = carry
 
     # Final covariance: (I - K_x) P_w = R * P_inv in exact arithmetic, so

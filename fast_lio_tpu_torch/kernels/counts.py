@@ -12,7 +12,9 @@ is counted on the device instead: the gate takes its body's launches off
 the counters and records ``add_on_device`` of them inside the node.  Those
 counts stay on the device until ``settle`` reads them into the counters (a
 host read, made only when asked: ``StepGraphs.stats``, ``chip_smoke.py``,
-the tests), never per scan.
+the tests), never per scan.  A WHILE node's passes are counted by its
+condition kernel itself, which adds one to the device counter of
+``graph_if.while_launches[1]`` (``device_slot``) at the end of each pass.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ def counters() -> Counts:
     return [knn.launches, knn.launches_f64, knn.batched_launches,
             knn.batched_launches_f64, knn_grouped.launches,
             knn_grouped.prep_launches, graph_if.launches,
-            segment_sum.launches, segment_sum.batched_launches]
+            graph_if.while_launches, segment_sum.launches, segment_sum.batched_launches]
 
 
 def snapshot() -> Counts:
@@ -62,15 +64,48 @@ def total(delta: Counts) -> int:
     return sum(sum(d.values()) for d in delta)
 
 
+def _key(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def device_counter(device) -> torch.Tensor:
     """The device counters of ``device``, made at first use.  Make them
     before a capture: a tensor made inside one would be zeroed at every
     replay."""
-    device = torch.device(device)
+    device = _key(device)
     if device not in _on_device:
         _on_device[device] = torch.zeros(SLOTS, dtype=torch.int64,
                                          device=device)
     return _on_device[device]
+
+
+def _slot(i: int, key: int) -> int:
+    """The device counters' slot of key ``key`` of counter ``i``."""
+    slot = _slots.setdefault((i, key), len(_slots))
+    if slot >= SLOTS:
+        raise RuntimeError("out of device counter slots")
+    return slot
+
+
+def _on(device) -> torch.Tensor:
+    dev = _on_device.get(_key(device))
+    if dev is None:
+        raise RuntimeError(f"no device counters on {device}: call "
+                           "device_counter before the capture")
+    return dev
+
+
+def device_slot(counter: Dict[int, int], key: int, device) -> torch.Tensor:
+    """The one-element device counter that ``settle`` adds to
+    ``counter[key]`` (a view of ``device``'s counters), for a kernel that
+    counts its own launches as it runs."""
+    i = [id(c) for c in counters()].index(id(counter))
+    slot = _slot(i, key)
+    return _on(device)[slot:slot + 1]
 
 
 def add_on_device(delta: Counts, device) -> None:
@@ -78,16 +113,11 @@ def add_on_device(delta: Counts, device) -> None:
     add a counted key), which a graph records where it is called."""
     if not total(delta):  # the plain versions (the CPU) launch nothing
         return
-    dev = _on_device.get(torch.device(device))
-    if dev is None:
-        raise RuntimeError(f"no device counters on {device}: call "
-                           "device_counter before the capture")
+    dev = _on(device)
     for i, d in enumerate(delta):
         for r, n in d.items():
             if n:
-                slot = _slots.setdefault((i, r), len(_slots))
-                if slot >= SLOTS:
-                    raise RuntimeError("out of device counter slots")
+                slot = _slot(i, r)
                 dev[slot:slot + 1].add_(n)
 
 

@@ -14,21 +14,25 @@ scan of the bucket is one copy from a pinned host buffer into it and one
 replay.  A capture that fails raises; nothing falls back to the eager step.
 
 Every step is captured with gates (``gates=True``,
-``control_flow.gated_capture``): JAX's ``lax.cond`` arms and the
-``lax.while_loop``'s passes are recorded as CUDA-graph conditional (IF)
-nodes, so a replay skips what JAX skips.  In the batch
+``control_flow.gated_capture``): JAX's ``lax.cond`` arms are recorded as
+CUDA-graph conditional IF nodes and its ``lax.while_loop`` as one WHILE
+node, so a replay skips what JAX skips.  In the batch
 (``torch.func.vmap``) a predicate that differs from lane to lane stays a
 select, as JAX's ``lax.cond`` under ``vmap`` does, and the filter's passes
-run while any lane is active (``control_flow.loop_pass``); on NCCL ranks
-every predicate is replicated, so every rank runs or skips each IF node's
-collectives with its peers.
+run while any lane is active (``control_flow.while_loop``); on NCCL ranks
+every predicate is replicated, so every rank runs or skips each
+conditional node's collectives with its peers.
 
 The graph's outputs are static tensors that the next replay overwrites, so
 ``Pipeline`` copies what it keeps (on the device, with no sync).  The kernel
 launch counters count at Python call time, so each graph records how many
-launches of each kernel it holds outside any IF node and every replay adds
-them (``kernels.counts``), per rank on a sharded map; the launches inside
-IF nodes are counted on the device as they run (``counts.add_on_device``).
+launches of each kernel it holds outside any conditional node and every
+replay adds them (``kernels.counts``), per rank on a sharded map; the
+launches inside conditional nodes are counted on the device as they run
+(``counts.add_on_device``).  ``stats`` gives each bucket's capture
+seconds (host clock around the capture and the graph's instantiation,
+synced before and after) and the bytes the conditional nodes' body pools
+(``kernels.graph_if``) grew by in it.
 
 A sharded step (``parallel/sharding.py``, the counterpart of
 ``jax.jit(shard_map(...))``) is captured the same way on every NCCL rank,
@@ -50,12 +54,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import time
 from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
 from . import control_flow
-from .kernels import counts
+from .kernels import counts, graph_if
 
 Shape = Union[int, Tuple[int, ...]]  # a feed buffer's length, or (B, L)
 
@@ -127,6 +132,8 @@ class _Captured(NamedTuple):
     static_in: torch.Tensor
     static_out: dict
     launches: counts.Counts  # kernel launches a replay makes outside IFs
+    capture_s: float  # capture and instantiation, host clock, synced
+    body_pool_bytes: int  # what the body pools grew by in the capture
 
 
 class StepGraphs:
@@ -208,6 +215,7 @@ class StepGraphs:
         if self.group is not None:  # the warm-up's eager collectives
             self.group.launching("graph")
         before = counts.snapshot()
+        pool_bytes = graph_if.body_pool_bytes(self.device)
         graph = torch.cuda.CUDAGraph()
         # a graph that the collector frees while this one records (another
         # pipeline's, say, in a reference cycle) ends the capture with an
@@ -217,6 +225,8 @@ class StepGraphs:
         gc.disable()
         gated = (control_flow.gated_capture(self.device) if self.gates
                  else contextlib.nullcontext())
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph), gated:
                 static_out = step(static_in)
@@ -229,14 +239,21 @@ class StepGraphs:
                 gc.enable()
             launches = counts.since(before)
             counts.restore(before)
-        self._graphs[n] = _Captured(graph, static_in, static_out, launches)
+        torch.cuda.synchronize(self.device)
+        capture_s = time.perf_counter() - t0
+        self._graphs[n] = _Captured(
+            graph, static_in, static_out, launches, capture_s,
+            graph_if.body_pool_bytes(self.device) - pool_bytes)
         return out
 
     def stats(self) -> dict:
         """Per captured feed shape (a length, or (B, L)): replays so far,
-        whether IF nodes gate the step, and the kernel launches one replay
-        makes outside them (the launches inside them count as run, on the
-        device: ``counts.settle``)."""
+        whether conditional nodes gate the step, the kernel launches one
+        replay makes outside them (the launches inside them count as run,
+        on the device: ``counts.settle``), the capture's seconds and the
+        bytes the body pools grew by in it."""
         return {n: {"replays": self.replays[n], "gated": self.gates,
-                    "launches_per_replay": counts.total(c.launches)}
+                    "launches_per_replay": counts.total(c.launches),
+                    "capture_s": c.capture_s,
+                    "body_pool_bytes": c.body_pool_bytes}
                 for n, c in self._graphs.items()}

@@ -179,7 +179,8 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
     n = len(data.scans) if n_scans is None else n_scans
     counts.settle()  # a gated graph's launches, counted on the device
     for c in (knn_kernel.launches, knn_kernel.launches_f64,
-              graph_if.launches, segment_sum.launches):
+              graph_if.launches, graph_if.while_launches,
+              segment_sum.launches):
         for r in c:
             c[r] = 0
     cuda = pipe.device.type == "cuda"
@@ -232,6 +233,7 @@ def drive_data(group, cfg, data, n_scans=None, warm: int = N_WARM,
         health=pipe.health_check(), launches=launches,
         launches_f64=launches_f64, scans_per_s=scans_per_s,
         if_nodes_run=graph_if.launches[0],
+        while_launches=dict(graph_if.while_launches),
         segment_sum_launches=dict(segment_sum.launches),
         iterations=[int(d.iterations) for d in pipe.diags],
         iterations_mean=float(np.mean([int(d.iterations) for d in pipe.diags])),

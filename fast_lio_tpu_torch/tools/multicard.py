@@ -16,6 +16,10 @@ power limit:
 
 * ``dryrun``: ``sharding.dryrun_rank`` on the N ranks, two chained sharded
   steps against the unsharded step, with the JAX package's bounds.
+* ``sharded_ouster64_ranks_if_node_probe`` and ``..._while_node_probe``
+  (on cards): an all-reduce and an all-gather recorded inside one IF node
+  (``if_node_rank``) and inside one WHILE node's body, replayed for 1, 3
+  and 5 passes (``while_node_rank``), right on every rank.
 * ``sharded_ouster64_ranks``: ``PRESETS["ouster64"]`` with
   ``n_points_max=45056`` (``chip_smoke.py`` phases 5 and 10) on 20 sim
   scans of 44k points, through ``bench_scaling.drive_modes``: eager, then
@@ -28,13 +32,16 @@ power limit:
   global map drops within 10% of its 307, the R = 8 and R = 27 kernels
   launched on every rank (counted through the replays), one graph per pad
   bucket with replays = steps - graphs, no host sync, positive stage
-  times; the captured step is gated (its passes, re-searches, wide search
-  and prune CUDA-graph IF nodes, with their collectives inside), so its
+  times; the captured step is gated (its re-searches, wide search and
+  prune CUDA-graph IF nodes, its passes one WHILE node, with their
+  collectives inside), so its
   kNN launches and NCCL all-gather and all-reduce kernels (profiler) a
   step are at most the eager step's, which runs every pass and arm, the
   same on every rank, and on two or more cards some of each; the kNN
   launches counted as run equal the profiler's.  The row gives the passes
-  a step run in the profiled scans, captured and eager.
+  a step run in the profiled scans, captured and eager, and a hash of rank
+  0's positions (``positions_digest``), by which two runs are held bit for
+  bit to each other.
   Positions are not held against the unsharded run in float32: a reordered
   sum may flip a gate (tests/test_torch_sharding.py).
 * ``sharded_ouster64_ranks_f64``: the same scans in float64, captured,
@@ -55,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import sys
 import tempfile
@@ -131,6 +139,12 @@ def check(cond, msg: str) -> None:
 
 def log(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def digest(a: np.ndarray) -> str:
+    """A short hash of an array's bits (two runs equal bit for bit have the
+    same)."""
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
 def _positions(pipe) -> np.ndarray:
@@ -222,11 +236,101 @@ def if_node_row(probes: list, name: str) -> dict:
     return row
 
 
+WHILE_PROBE_PASSES = (1, 3, 5)
+WHILE_PROBE_MAX_ITER = 7  # the index would end the loop after 8 passes
+
+
+def while_node_rank(group) -> dict:
+    """On a card: an ``all_reduce_sum`` and an ``all_gather`` of the group
+    recorded inside the body of one WHILE node
+    (``kernels.graph_if.record_while``) of a captured graph, replayed with
+    ``done`` set after each count of passes of ``WHILE_PROBE_PASSES`` (the
+    same on every rank) and a new input each replay: the collectives run
+    several times a replay, as in the gated sharded step's filter loop.
+    Returns per replay whether the outputs are the passes' sums and the
+    device's count of passes is the count asked for, and the traceback
+    where recording or a replay raised."""
+    from ..kernels import graph_if
+
+    dev, world = group.device, group.world
+
+    def value(k, rank):
+        return torch.arange(4, dtype=torch.float32, device=dev) + 10 * k + rank
+
+    x = value(0, group.rank)
+    i = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    stop = torch.zeros((), dtype=torch.int32, device=dev)
+    passes = torch.zeros(1, dtype=torch.int64, device=dev)
+    summed = torch.zeros(4, device=dev)
+    gathered = torch.zeros((world, 4), device=dev)
+    group.all_reduce_sum(x)  # the communicator, made before the capture
+    group.all_gather(x)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+
+    def body():
+        summed.add_(group.all_reduce_sum(x * 2))
+        gathered.add_(group.all_gather(x + 1))
+        i.add_(1)
+        done.copy_(i + 1 >= stop)
+
+    try:
+        with torch.cuda.graph(graph):
+            graph_if.record_while(done.reshape(1), i.reshape(1),
+                                  WHILE_PROBE_MAX_ITER, body, passes)
+    except RuntimeError:
+        return dict(error=traceback.format_exc(), replays=[])
+    replays = []
+    for k, n in enumerate(WHILE_PROBE_PASSES, start=1):
+        x.copy_(value(k, group.rank))
+        i.fill_(-1)
+        done.fill_(False)
+        stop.fill_(n)
+        passes.zero_()
+        summed.zero_()
+        gathered.zero_()
+        try:
+            group.launching("graph")
+            graph.replay()
+            torch.cuda.synchronize(dev)
+        except RuntimeError:
+            return dict(error=traceback.format_exc(), replays=replays)
+        peers = torch.stack([value(k, r) for r in range(world)])
+        ok = (torch.equal(summed, n * 2 * peers.sum(0))
+              and torch.equal(gathered, n * (peers + 1))
+              and int(passes[0]) == n and int(i) == n - 1)
+        replays.append(dict(passes=n, passes_device=int(passes[0]),
+                            ok=bool(ok)))
+    del graph
+    torch.cuda.synchronize(dev)
+    return dict(error=None, replays=replays)
+
+
+def while_node_row(probes: list, name: str) -> dict:
+    """Log the probe's row from every rank's ``while_node_rank``, then
+    check it: recorded, and every replay right on every rank."""
+    row = {"phase": name, "ranks": len(probes),
+           "errors": [p["error"] for p in probes],
+           "replays_by_rank": [p["replays"] for p in probes],
+           "passes": list(WHILE_PROBE_PASSES)}
+    log(row)
+    for p in probes:
+        check(p["error"] is None, f"{name}: {p['error']}")
+        check([r["passes"] for r in p["replays"]] == list(WHILE_PROBE_PASSES)
+              and all(r["ok"] for r in p["replays"]),
+              f"{name}: replays {p['replays']}")
+    return row
+
+
 def drive_modes_probed(group, *args) -> dict:
-    """On a card, ``if_node_rank`` first (under "if_node"; None on the
-    CPU); then ``bench_scaling.drive_modes(group, *args)``."""
-    probe = if_node_rank(group) if group.device.type == "cuda" else None
-    return dict(bench_scaling.drive_modes(group, *args), if_node=probe)
+    """On a card, ``if_node_rank`` and ``while_node_rank`` first (under
+    "if_node" and "while_node"; None on the CPU); then
+    ``bench_scaling.drive_modes(group, *args)``."""
+    card = group.device.type == "cuda"
+    probes = dict(if_node=if_node_rank(group) if card else None,
+                  while_node=while_node_rank(group) if card else None)
+    return dict(bench_scaling.drive_modes(group, *args), **probes)
 
 
 def ouster64_rank(group, scale: Scale) -> dict:
@@ -388,12 +492,18 @@ def ouster64_row(ranks: list, scale: Scale, name: str, card: str) -> dict:
             np.array_equal(r[m]["positions"], ranks[0][m]["positions"])
             for r in ranks for m in ("captured", "eager")),
         "max_pos_diff_captured_vs_eager_m": d_eager, "tol_m": POS_TOL_M,
+        # rank 0's positions' bits, to hold two runs to each other
+        "positions_digest": {m: digest(cap0["positions"] if m == "captured"
+                                       else eager0["positions"])
+                             for m in ("captured", "eager")},
         "stage_times_s_by_rank": [r["stage_times"] for r in ranks],
         "pose_covariance_diag": np.diag(ranks[0]["pose_covariance"]).tolist(),
         "card": card,
     }
     if on_card:
         if_node_row([r["if_node"] for r in ranks], f"{name}_if_node_probe")
+        while_node_row([r["while_node"] for r in ranks],
+                       f"{name}_while_node_probe")
     log(row)
     for mode in ("captured", "eager"):
         figs = [r[mode] for r in ranks]
@@ -486,7 +596,8 @@ def f64_row(ranks: list, name: str) -> dict:
                and all(a == b for a, b in zip(r["iterations"],
                                               r0["unsharded_iterations"])
                        if b > 0) for r in ranks),
-           "iterations_mean": float(np.mean(r0["iterations"]))}
+           "iterations_mean": float(np.mean(r0["iterations"])),
+           "positions_digest": digest(r0["positions"])}
     log(row)
     check(row["iterations_equal_unsharded"],
           f"{name}: the passes a scan differ from the unsharded run's")

@@ -7,8 +7,8 @@ Run from the repository root on a machine with a CUDA device:
 
 For each preset it feeds the same simulated run as ``chip_smoke.py`` through
 ``Pipeline`` on the card twice, in turns: the captured step (the default:
-one CUDA graph per pad bucket, replayed, its gates IF nodes) and the eager
-one (``graphs=False``, every gate masked).  After ``--warm`` scans (the capture among them) it
+one CUDA graph per pad bucket, replayed, its gates conditional nodes) and
+the eager one (``graphs=False``, every gate masked).  After ``--warm`` scans (the capture among them) it
 measures, one after the other, windows of ``--scans`` scans each:
 
 * a plain window: host clock around the scans, nothing added, the device
@@ -24,8 +24,10 @@ measures, one after the other, windows of ``--scans`` scans each:
   step executed a scan: update passes, re-searches (narrow kNN searches)
   and wide searches, from the iterations and the kNN launches counted as
   run (``kernels.counts``, settled after the window: in the captured step
-  the passes, re-searches and the wide search are CUDA-graph IF nodes, so
-  they run only where JAX's step runs them; the eager step runs every one);
+  the re-searches and the wide search are CUDA-graph IF nodes and the
+  passes one WHILE node, so they run only where JAX's step runs them; the
+  eager step runs every one); and the conditional nodes' kernels, counted
+  as run against the profiler's count of them;
 * eager only, a stage-timing window, where each stage function of
   ``lio_step`` is wrapped with ``torch.cuda.synchronize()`` on both sides.
   The syncs stop the host from running ahead of the device, so the stages
@@ -54,7 +56,7 @@ import torch
 
 from .. import config, pipeline, sim
 from ..filter import ekf
-from ..kernels import counts
+from ..kernels import counts, graph_if
 from ..kernels import knn as knn_kernel
 from ..kernels import knn_grouped
 from ..map import hash_map as hm
@@ -107,6 +109,12 @@ def is_collective(name: str, op: str) -> bool:
     return "nccl" in name.lower() and op in name
 
 
+# the conditional nodes' kernels (csrc/graph_if.cu): the IF node's set kernel
+# and the WHILE node's condition kernel
+CONDITION_KERNELS = {"if": "set_condition_kernel",
+                     "while": "while_condition_kernel"}
+
+
 def is_knn_prep_kernel(name: str) -> bool:
     return KNN_PREP_KERNEL in name
 
@@ -155,6 +163,21 @@ def _outermost_op(ev) -> str:
     return str(op)
 
 
+def start_tracing() -> None:
+    """One empty ``torch.profiler`` session with CUDA activities.  Call it
+    before a process captures its first graph: in a graph captured before
+    the process's first session, the profiler saw a WHILE node's body once
+    a replay where it ran several times (on an H100 with PyTorch 2.11 and
+    CUDA 12.8); in a graph captured after one, every pass but a rare
+    condition kernel (one in 16 and one in 50 in two windows).  The
+    ``condition_kernels_per_scan`` of a window, against the condition
+    kernels counted as run (``executed_per_scan``), tell what it missed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+
+
 def profile_window(step, n_scans: int) -> dict:
     """Profile ``n_scans`` calls of ``step`` (each runs one scan)."""
     from torch.profiler import ProfilerActivity, profile
@@ -198,6 +221,12 @@ def profile_window(step, n_scans: int) -> dict:
             v for k, v in by_kernel.items() if is_knn_kernel(k)) / n_scans,
         "knn_search_launches_per_scan": sum(
             n for k, n in calls.items() if is_knn_search_kernel(k)) / n_scans,
+        # the conditional nodes' kernels as the profiler saw them; against
+        # the counts of them run (``executed_per_scan``) they tell whether
+        # the profiler saw every pass of a WHILE node's body
+        "condition_kernels_per_scan": {
+            kind: sum(n for k, n in calls.items() if name in k) / n_scans
+            for kind, name in CONDITION_KERNELS.items()},
         # NCCL's kernels: a sharded step's collectives as the card ran them
         "collective_kernels_per_scan": {
             op: sum(n for k, n in calls.items() if is_collective(k, op))
@@ -210,7 +239,7 @@ def profile_window(step, n_scans: int) -> dict:
 
 def executed_per_scan(cfg, gated: bool, iterations, ran) -> dict:
     """What the step executed a scan over a window: the update's passes
-    (the iterations where IF nodes gate them, ``gated``, else every pass
+    (the iterations where a WHILE node runs them, ``gated``, else every pass
     of an updating scan), the re-searches and wide searches (the kNN search
     launches counted as run at R = 8 and R = 27; ``ran`` is
     ``counts.since`` over the window, settled), and their sum, which the
@@ -222,11 +251,16 @@ def executed_per_scan(cfg, gated: bool, iterations, ran) -> dict:
         search = knn_kernel.launches_f64
     else:
         search = knn_kernel.launches
-    by_r = ran[[id(c) for c in counts.counters()].index(id(search))]
+    index = [id(c) for c in counts.counters()]
+    by_r = ran[index.index(id(search))]
     passes = (sum(iterations) if gated else
               sum(cfg.max_iteration + 1 for i in iterations if i > 0))
+    conditions = {"if": ran[index.index(id(graph_if.launches))],
+                  "while": ran[index.index(id(graph_if.while_launches))]}
     return {"iterations_per_scan": sum(iterations) / n,
             "passes_run_per_scan": passes / n,
+            "condition_kernels_counted_per_scan": {
+                kind: sum(c.values()) / n for kind, c in conditions.items()},
             "researches_per_scan": by_r.get(8, 0) / n,
             "wide_searches_per_scan": by_r.get(27, 0) / n,
             "knn_search_launches_counted_per_scan": sum(by_r.values()) / n}
@@ -335,6 +369,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_scan: no CUDA device; nothing measured", file=sys.stderr)
         return 1
+    start_tracing()
     for name in args.presets or RUNS:
         # captured first: a process that had profiled several windows
         # before named some kernels inside IF nodes wrongly (PERF.md)

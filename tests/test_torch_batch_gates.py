@@ -1,23 +1,26 @@
-"""The fleet's gates (``control_flow.any_lane``, ``gate``'s rule for a
-batched predicate, ``loop_pass``), on the CPU.
+"""The fleet's gates (``gate``'s rule for a batched predicate,
+``while_loop`` under ``torch.func.vmap``), on the CPU.
 
-* ``any_lane`` under ``torch.func.vmap`` is JAX's ``reduce_or`` over the
-  lanes: one unbatched () bool equal to ``pred.any()``; outside vmap, and
-  for an unbatched input, the flag itself.
+* ``control_flow._lanes`` under ``torch.func.vmap`` is the physical (B,)
+  tensor beneath a batched () flag, whose memory the lanes' in-place
+  writes reach (what a WHILE node's condition kernel reads); outside vmap
+  the flag itself as one lane.
 * Inside ``gated_capture`` a batched predicate takes the masked form (a
   select, as JAX's ``lax.cond`` under ``jax.vmap``) and records nothing; an
-  unbatched one records an IF node, also under vmap; ``loop_pass`` with a
-  batched ``active`` records its IF node on ``any_lane(active)``.
+  unbatched one records an IF node, also under vmap; ``while_loop`` with a
+  batched ``done`` records one WHILE node that runs while any lane is
+  active, each lane keeping its result only where it is active, and no
+  pass where no lane is.
 * The gated fleet with each IF node a host branch (``if bool(pred):
-  body``): a float64 ``BatchPipeline`` on the small wide run, three lanes
-  drawn with other range noise (so their iterations differ) and one that
-  ends early, equals the masked batch bit for bit; each lane's iterations
-  equal the JAX package's vmapped ``BatchPipeline``'s; the passes a round
-  are the most any lane ran, and ``max_iteration + 1`` in a round with a
-  lane that does not update (the first round, and the ended stream's
-  no-op lane, whose loop never exits, as in JAX); the positions are within
-  the batch step's float64 tolerance of JAX's (1e-8,
-  ``tests/test_torch_batch_step.py``).
+  body``) and its WHILE node a host loop: a float64 ``BatchPipeline`` on
+  the small wide run, three lanes drawn with other range noise (so their
+  iterations differ) and one that ends early, equals the masked batch bit
+  for bit; each lane's iterations equal the JAX package's vmapped
+  ``BatchPipeline``'s; the passes a round are the most any lane ran, and
+  ``max_iteration + 1`` in a round with a lane that does not update (the
+  first round, and the ended stream's no-op lane, whose loop never sets
+  ``done``, as in JAX); the positions are within the batch step's float64
+  tolerance of JAX's (1e-8, ``tests/test_torch_batch_step.py``).
 """
 import dataclasses
 
@@ -35,32 +38,47 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 F64_TOL = 1e-8  # tests/test_torch_batch_step.py's float64 bound
 
 
-def test_any_lane_is_an_unbatched_reduce_or_under_vmap():
-    rng = np.random.default_rng(0)
-    for pred in (torch.from_numpy(rng.random(5) < 0.3),
-                 torch.zeros(3, dtype=torch.bool)):
-        seen = []
+def test_lanes_are_the_memory_of_a_batched_flag():
+    flags = torch.tensor([True, False, True, False, False])
+    seen = []
 
-        def lane(p):
-            got = cf.any_lane(p)
-            seen.append((cf.batched(p), cf.batched(got), got.shape, got))
-            return p
+    def lane(f):
+        done = f.new_zeros((), dtype=torch.bool)
+        lanes = cf._lanes(done)
+        done.copy_(f)  # a lane's in-place write, as a gated pass makes
+        seen.append(lanes)
+        return done
 
-        torch.func.vmap(lane)(pred)
-        (p_batched, got_batched, shape, got), = seen
-        assert p_batched and not got_batched and shape == ()
-        assert torch.equal(got, pred.any())
-    one = torch.tensor(True)
-    assert torch.equal(cf.any_lane(one), one)
-    shared = torch.tensor(False)  # unbatched inside vmap: the flag itself
-    out = []
-    torch.func.vmap(lambda v: out.append(cf.any_lane(shared)) or v)(
-        torch.zeros(4))
-    assert not cf.batched(out[0]) and torch.equal(out[0], shared)
+    torch.func.vmap(lane)(flags)
+    (lanes,) = seen
+    assert not cf.batched(lanes) and lanes.shape == (5,)
+    assert torch.equal(lanes, flags)
+    one = torch.tensor(False)
+    assert cf._lanes(one).shape == (1,)
+    one.fill_(True)
+    assert bool(cf._lanes(one)[0])
+
+
+def _host_while(passes):
+    """A WHILE node as a host loop on the lanes' physical flags, writing
+    each lane's condition into ``active`` before each pass, as the
+    condition kernel does; the passes run appended to ``passes``."""
+    def host_while(done, i, max_iter, fn, active=None):
+        assert not any(cf.batched(t) for t in (done, i, active))
+        assert active is not None and active.shape == done.shape
+        n = 0
+        while True:
+            active.copy_(~done & (i < max_iter))
+            if not bool(active.any()):
+                break
+            fn()
+            n += 1
+        passes.append(n)
+    return host_while
 
 
 def test_a_batched_predicate_stays_masked_in_a_gated_capture(monkeypatch):
-    recorded = []
+    recorded, passes = [], []
 
     def host_if(pred, fn):
         recorded.append(bool(pred))
@@ -68,33 +86,42 @@ def test_a_batched_predicate_stays_masked_in_a_gated_capture(monkeypatch):
             fn()
 
     monkeypatch.setattr(cf, "_record_if", host_if)
+    monkeypatch.setattr(cf, "_record_while", _host_while(passes))
     flags = torch.tensor([True, False, True])
     vals = torch.arange(3.0)
 
     def body(c):
         return (c[0] * 2 + 1,)
 
+    def pass_(c):  # one pass of a loop of at most two
+        i, done, v = c
+        return i + 1, done, v * 2 + 1
+
     def lane(f, v):
         carry = cf.own((v.clone(),))
         masked = cf.gate(f, body, carry)[0]
         shared = cf.gate(torch.tensor(True), body, cf.own((v.clone(),)))[0]
-        passed = cf.loop_pass(f, body, cf.own((v.clone(),)))[0]
-        return masked, shared, passed
+        # a lane that is done at the start runs no pass
+        looped = cf.while_loop(pass_, (v.new_full((), -1, dtype=torch.int32),
+                                       ~f, v.clone()), 1)[2]
+        return masked, shared, looped
 
     with cf.gated_capture("cpu"):
-        masked, shared, passed = torch.func.vmap(lane)(flags, vals)
-    # the batched gate recorded nothing; the unbatched gate and the pass
-    # (on any_lane of the flags: True) recorded one IF node each
-    assert recorded == [True, True]
-    want = torch.where(flags, vals * 2 + 1, vals)
-    assert torch.equal(masked, want) and torch.equal(passed, want)
+        masked, shared, looped = torch.func.vmap(lane)(flags, vals)
+    # the batched gate recorded nothing, the unbatched gate one IF node;
+    # the loop one WHILE node that ran two passes (the active lanes' two)
+    assert recorded == [True] and passes == [2]
+    assert torch.equal(masked, torch.where(flags, vals * 2 + 1, vals))
     assert torch.equal(shared, vals * 2 + 1)
+    assert torch.equal(looped, torch.where(flags, (vals * 2 + 1) * 2 + 1,
+                                           vals))
 
     recorded.clear()
-    with cf.gated_capture("cpu"):  # no lane active: the pass is skipped
-        _, _, passed = torch.func.vmap(lane)(torch.zeros(3, dtype=torch.bool),
+    passes.clear()
+    with cf.gated_capture("cpu"):  # no lane active: no pass
+        _, _, looped = torch.func.vmap(lane)(torch.zeros(3, dtype=torch.bool),
                                              vals)
-    assert recorded == [True, False] and torch.equal(passed, vals)
+    assert recorded == [True] and passes == [0] and torch.equal(looped, vals)
 
 
 def _fleet_data():
@@ -124,23 +151,16 @@ def test_host_branch_fleet_gates_equal_the_masked_batch_and_jax(monkeypatch):
     masked = BatchPipeline(cfg, B, device="cpu")
     rounds = _feed_batch(masked, datas)
 
-    passes = []  # per round: the IF nodes taken (every one is a pass)
+    passes = []  # per round: the passes the WHILE loop ran
 
     def host_if(pred, fn):
         assert not cf.batched(pred)
-        passes[-1].append(bool(pred))
         if bool(pred):
             fn()
 
     gated = BatchPipeline(cfg, B, device="cpu")
-    step = gated._batched_step
-
-    def round_(buf):
-        passes.append([])
-        return step(buf)
-
-    gated._batched_step = round_
     monkeypatch.setattr(cf, "_record_if", host_if)
+    monkeypatch.setattr(cf, "_record_while", _host_while(passes))
     with cf.gated_capture("cpu"):
         assert _feed_batch(gated, datas) == rounds
     monkeypatch.undo()
@@ -164,10 +184,9 @@ def test_host_branch_fleet_gates_equal_the_masked_batch_and_jax(monkeypatch):
         assert its == [d.iterations for d in masked.get_diags(i)]
         iters[:len(its), i] = its
     n_pass = cfg.max_iteration + 1
-    assert all(len(p) == n_pass for p in passes)
-    # a pass runs only after the passes before it: the taken ones lead
-    assert all(p == sorted(p, reverse=True) for p in passes)
-    ran = [sum(p) for p in passes]
+    # one loop a round (the batched update is a select, never skipped)
+    assert len(passes) == rounds
+    ran = passes
     want = [int(r.max()) if r.min() > 0 else n_pass for r in iters]
     assert ran == want
     live = [r for r, row in enumerate(iters) if row.min() > 0]

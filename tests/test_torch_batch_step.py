@@ -345,21 +345,23 @@ def test_cuda_captured_batch_matches_captured_single_pipelines():
     singles = [_feed_single(tpipe.Pipeline(cfg), d) for d in datas]
     bp = BatchPipeline(cfg, 3)
     counts.settle()
-    before = (tknn.launches[8], tknn.batched_launches[8], graph_if.launches[0])
+    before = (tknn.launches[8], tknn.batched_launches[8],
+              graph_if.while_launches[0], graph_if.while_launches[1])
     rounds = _feed_batch(bp, datas)
     counts.settle()
     stats = bp.graphs.stats()
     assert len(stats) == 1 and all(s["replays"] > 0 and s["gated"]
                                    for s in stats.values())
     n_pass = cfg.max_iteration + 1
-    # outside the IF nodes a replay launches the passes' set kernels, one
-    # a pass, and the downsample's batched segment_sum kernel, each replay
+    # outside any conditional node a replay launches the WHILE node's
+    # condition kernel (once, before the node) and the downsample's
+    # batched segment_sum kernel
     (st,) = stats.values()
-    assert st["launches_per_replay"] == n_pass + 1
-    assert graph_if.launches[0] - before[2] == st["replays"] * n_pass
+    assert st["launches_per_replay"] == 2
+    assert graph_if.while_launches[0] - before[2] == st["replays"]
     # every pass runs one batched R = 8 search (under vmap the re-search
-    # is a select), inside its IF node, counted on the device only where
-    # the node runs: the passes run.  JAX's batched while_loop runs the
+    # is a select), inside the WHILE node, counted on the device only as
+    # the node runs it: the passes run.  JAX's batched while_loop runs the
     # most any lane ran, and every pass in a round with a lane that does
     # not update (the first round, whose eager step runs them all, and
     # the ended stream's no-op lane)
@@ -371,6 +373,10 @@ def test_cuda_captured_batch_matches_captured_single_pipelines():
     searches = tknn.batched_launches[8] - before[1]
     assert searches == want.sum()
     assert rounds <= searches < rounds * n_pass  # an early exit
+    # the condition kernel counted the replays' passes (the first round
+    # of the bucket ran eagerly, every pass masked)
+    passes = graph_if.while_launches[1] - before[3]
+    assert passes == searches - n_pass * len(stats)
     assert tknn.launches[8] == before[0]  # no single launch
     for i in range(3):
         got = _positions(bp.get_trajectory(i))
@@ -381,7 +387,7 @@ def test_cuda_captured_batch_matches_captured_single_pipelines():
 
 @pytest.mark.cuda
 def test_cuda_gated_fleet_equals_masked_fleet_bit_for_bit():
-    """Under ``torch.use_deterministic_algorithms`` the fleet's gated graph (its passes IF nodes, run while any lane is
+    """Under ``torch.use_deterministic_algorithms`` the fleet's gated graph (its passes one WHILE node, run while any lane is
     active) computes what its masked graph computes, bit for bit, with the
     same iterations lane by lane, stream 2 ending early (its no-op lane
     keeps every pass running, as JAX's)."""

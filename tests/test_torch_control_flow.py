@@ -12,16 +12,31 @@ On the CPU (tier 1):
   ``torch.func.vmap``, bit-equal to one scan a row.
 * ``gate``: the masked form is ``torch.where`` of the body and the carry;
   a gated capture that cannot record an IF node raises (on the CPU, and
-  wherever no graph is being captured).  With the IF node replaced by a
-  host branch (``if bool(pred): body``), a CPU pipeline run in float64 with
-  the wide fallback equals the masked run bit for bit, its per-scan
-  iterations equal the JAX pipeline's, and the gates skip work: scans that
-  make fewer than ``max_iteration + 1`` passes, skipped re-searches, wide
-  searches and prunes.
+  wherever no graph is being captured).
+* ``while_loop``: the masked form against ``jax.lax.while_loop`` on a
+  seeded carry, bit for bit, where ``done`` turns True at a data-dependent
+  pass and where it never does (``i < max_iter`` ends the loop after
+  ``max_iter + 1`` passes); under ``torch.func.vmap`` against
+  ``jax.vmap(lax.while_loop)`` with lanes that stop at different passes,
+  masked and with the WHILE node a host loop (``while any lane is active:
+  body``), which runs the most passes any lane runs; a gated capture that
+  cannot record a WHILE node raises; an update whose every pass is
+  invalid runs ``max_iter + 1`` passes, host loop and masked alike, and
+  stops.
+* The gated step with each IF node a host branch (``if bool(pred):
+  body``) and its WHILE node a host loop: a CPU pipeline run in float64
+  with the wide fallback equals the masked run bit for bit, its per-scan
+  iterations equal the JAX pipeline's and the passes the loop entered (none
+  after ``done``), and the gates skip work: scans that make fewer than
+  ``max_iteration + 1`` passes, skipped re-searches, wide searches and
+  prunes.
 
 On a card (marked ``cuda``; they skip without one): gated capture of a
 carry through nested IF nodes with the update's library calls (Cholesky,
-triangular solves, batched products), replayed with each predicate; the
+triangular solves, batched products), replayed with each predicate; a
+WHILE node bit for bit the masked loop, alone and nested in an IF body
+with an IF node in its own body, and ending after ``max_iter + 1`` passes
+where ``done`` never turns True (each replay within a time limit); the
 single pipeline's gated graph against the eager, masked step and against
 the same graph with its gates masked, bit for bit with equal per-scan
 iterations under ``torch.use_deterministic_algorithms``; its steady state
@@ -32,6 +47,7 @@ counters report as run equal to the profiler's count of kNN kernels.
 tests/test_torch_control_flow.py`` (the card's host has no JAX: this file
 imports it lazily).
 """
+import contextlib
 import dataclasses
 import itertools
 from types import SimpleNamespace
@@ -169,6 +185,163 @@ def test_a_gated_capture_that_cannot_record_raises():
     assert StepGraphs("cpu", group=nccl).gates
 
 
+def _loop_carry(x0, tol):
+    """The loop's carry: (i, done, x, passes, tol), i from -1."""
+    x0 = torch.from_numpy(np.asarray(x0))
+    return (x0.new_full((), -1, dtype=torch.int32),
+            x0.new_zeros((), dtype=torch.bool), x0,
+            x0.new_zeros((), dtype=torch.int32), x0.new_full((), tol))
+
+
+def _loop_body(c):
+    """x halves its distance to 0.5 a pass; done once the step is below
+    tol (never where tol is 0)."""
+    i, done, x, passes, tol = c
+    x_new = x * 0.5 + 0.25
+    return (i + 1, (x_new - x).abs().max() < tol, x_new, passes + 1, tol)
+
+
+def _jax_loop(x0, tol, max_iter):
+    jax, jnp = _jax()
+
+    def cond(c):
+        return ~c[1] & (c[0] < max_iter)
+
+    def body(c):
+        i, done, x, passes, tol = c
+        x_new = x * 0.5 + 0.25
+        return (i + 1, jnp.abs(x_new - x).max() < tol, x_new, passes + 1,
+                tol)
+
+    def loop(x, tol):
+        init = (jnp.asarray(-1, jnp.int32), jnp.asarray(False), x,
+                jnp.asarray(0, jnp.int32), tol)
+        return jax.lax.while_loop(cond, body, init)
+
+    x0, tol = jnp.asarray(x0), jnp.asarray(tol)
+    fn = jax.vmap(loop) if x0.ndim == 2 else loop
+    return [np.asarray(v) for v in jax.jit(fn)(x0, tol)]
+
+
+def _assert_loop_equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+LOOP_MAX_ITER = 6
+
+
+@pytest.mark.parametrize("tol", [0.05, 0.0], ids=["done_at_data", "never"])
+def test_masked_while_loop_is_jax_while_loop(tol):
+    rng = np.random.default_rng(11)
+    x0 = rng.normal(size=7)
+    got = cf.while_loop(_loop_body, _loop_carry(x0, tol), LOOP_MAX_ITER)
+    want = _jax_loop(x0, tol, LOOP_MAX_ITER)
+    _assert_loop_equal(got, want)
+    n = int(got[3])
+    if tol:  # done at a pass the data chose
+        assert bool(got[1]) and 1 < n < LOOP_MAX_ITER + 1
+    else:  # the index ends it
+        assert not bool(got[1]) and n == LOOP_MAX_ITER + 1
+        assert int(got[0]) == LOOP_MAX_ITER
+
+
+def _host_while(passes: list):
+    """A WHILE node as a host loop: the body while any lane is active (each
+    lane's condition written into ``active`` first, where given, as the
+    condition kernel writes it), the passes it ran appended to
+    ``passes``."""
+    def host_while(done, i, max_iter, fn, active=None):
+        n = 0
+        while True:
+            cond = ~done & (i < max_iter)
+            if active is not None:
+                active.copy_(cond)
+            if not bool(cond.any()):
+                break
+            fn()
+            n += 1
+        passes.append(n)
+    return host_while
+
+
+def _lanes_x0():
+    """Four lanes whose loops stop at different passes (the last never)."""
+    rng = np.random.default_rng(12)
+    x0 = rng.normal(size=(4, 5)) * np.array([0.2, 1.0, 6.0, 1.0])[:, None]
+    return x0, np.array([0.05, 0.05, 0.05, 0.0])
+
+
+@pytest.mark.parametrize("form", ["masked", "host_while"])
+def test_vmapped_while_loop_is_jax_vmapped_while_loop(form, monkeypatch):
+    x0, tol = _lanes_x0()
+    passes = []
+    monkeypatch.setattr(cf, "_record_while", _host_while(passes))
+
+    def loop(x, t):
+        carry = (x.new_full((), -1, dtype=torch.int32),
+                 x.new_zeros((), dtype=torch.bool), x.clone(),
+                 x.new_zeros((), dtype=torch.int32), t.clone())
+        return cf.while_loop(_loop_body, carry, LOOP_MAX_ITER)
+
+    gated = (cf.gated_capture("cpu") if form == "host_while"
+             else contextlib.nullcontext())
+    with gated:
+        got = torch.func.vmap(loop)(torch.from_numpy(x0),
+                                    torch.from_numpy(tol))
+    want = _jax_loop(x0, tol, LOOP_MAX_ITER)
+    _assert_loop_equal(got, want)
+    lane_passes = got[3].tolist()
+    assert len(set(lane_passes)) > 2 and max(lane_passes) == LOOP_MAX_ITER + 1
+    # the host loop ran while any lane was active: the most any lane ran
+    assert passes == ([max(lane_passes)] if form == "host_while" else [])
+
+
+def test_a_gated_while_loop_that_cannot_record_raises():
+    carry = _loop_carry(np.zeros(3), 0.0)
+    with cf.gated_capture("cpu"):
+        with pytest.raises(RuntimeError, match="not capturing"):
+            cf.while_loop(_loop_body, carry, 2)
+    assert int(carry[0]) == -1 and torch.equal(carry[2], torch.zeros(3,
+                                               dtype=torch.float64))
+    # a WHILE node reads one flag a lane: not a vector a lane
+    with pytest.raises(ValueError, match="one flag a lane"):
+        torch.func.vmap(cf._lanes)(torch.zeros((3, 2), dtype=torch.bool))
+
+
+def test_host_while_of_an_update_with_no_valid_pass_stops_at_max_iter(
+        monkeypatch):
+    """A scan whose every pass is invalid never sets ``done``: the WHILE
+    node runs ``max_iter + 1`` passes, as the masked form does, and stops
+    with the state unchanged."""
+    from fast_lio_tpu_torch import state as tst
+    from fast_lio_tpu_torch.filter import ekf as tekf
+    rng = np.random.default_rng(4)
+    N, max_iter = 32, 3
+    x0 = tst.identity_state(torch.float64)
+    A = rng.normal(size=(23, 23))
+    P0 = torch.from_numpy(A @ A.T / 23 + np.eye(23) * 1e-3)
+    H = torch.from_numpy(rng.normal(size=(N, 12)))
+
+    def h_fn(x, converge, carry):
+        return tekf.MeasOut(H, H[:, 0] * 0.1, torch.ones(N, dtype=torch.bool),
+                            torch.zeros((), dtype=torch.bool), carry + 1)
+
+    masked = tekf.update_iterated(x0, P0, h_fn, torch.zeros(()), 1e-3,
+                                  max_iter)
+    passes = []
+    monkeypatch.setattr(cf, "_record_while", _host_while(passes))
+    with cf.gated_capture("cpu"):
+        gated = tekf.update_iterated(x0, P0, h_fn, torch.zeros(()), 1e-3,
+                                     max_iter)
+    assert passes == [max_iter + 1]
+    for res in (masked, gated):
+        assert int(res.iterations) == max_iter + 1 and not bool(res.valid)
+        assert int(res.carry) == max_iter + 1  # h_fn ran once a pass
+        assert torch.equal(res.P, P0)
+        assert all(torch.equal(a, b) for a, b in zip(res.x, x0))
+
+
 def _feed(pipe, data):
     imu_i = 0
     for k in range(len(data.scans)):
@@ -224,7 +397,9 @@ def test_host_branch_gates_equal_the_masked_run_and_jax(monkeypatch):
             bodies.append(fn)
             fn()
 
+    passes = []
     monkeypatch.setattr(cf, "_record_if", host_if)
+    monkeypatch.setattr(cf, "_record_while", _host_while(passes))
     with cf.gated_capture("cpu"):
         gated = _run_record(cfg, data)
     assert taken[True] > 0 and taken[False] > 0
@@ -241,6 +416,9 @@ def test_host_branch_gates_equal_the_masked_run_and_jax(monkeypatch):
     assert [int(d.n_effective) for d in masked.diags] == [
         int(d.n_effective) for d in gated.diags]
     assert min(i for i in it_g if i > 0) < cfg.max_iteration + 1
+    # one WHILE loop an update, which entered as many passes as JAX's loop
+    # counts (every pass counts one): none after done
+    assert passes == [i for i in it_g if i > 0]
 
     jp = JPipeline(JConfig(lidar_type=JLidarType.AVIA,
                            compute_dtype="float64", **SMALL_WIDE))
@@ -252,9 +430,10 @@ def test_host_branch_gates_equal_the_masked_run_and_jax(monkeypatch):
 
 
 def test_host_branch_gates_skip_the_dead_work(monkeypatch):
-    """Which gates a host branch skips on the small wide run: passes after
-    the exit, re-searches after a pass that did not converge, wide searches
-    with no unsaturated query, prunes of a cube that did not move."""
+    """Which gates a host branch skips on the small wide run: re-searches
+    after a pass that did not converge, wide searches with no unsaturated
+    query, prunes of a cube that did not move; and the host loop, the
+    passes after the exit."""
     cfg, data = _small_wide("float32")
     skipped = []
     calls = []
@@ -272,17 +451,21 @@ def test_host_branch_gates_skip_the_dead_work(monkeypatch):
         skipped.append((getattr(body, "__name__", "?"), not calls[n]))
         return out
 
+    passes = []
     monkeypatch.setattr(cf, "_record_if", host_if)
+    monkeypatch.setattr(cf, "_record_while", _host_while(passes))
     monkeypatch.setattr(cf, "gate", named_gate)
     with cf.gated_capture("cpu"):
         _run_record(cfg, data)
+    # the filter's loop stopped short of its last pass on some scan
+    assert passes and 0 < min(passes) < cfg.max_iteration + 1
     by_body = {}
     for name, skip in skipped:
         by_body.setdefault(name, [0, 0])[skip] += 1
     # every kind of gate ran, and each but the wide search was skipped too:
     # some query at the map's edge is unsaturated on every search of this
     # run (the next test skips that gate)
-    for name in ("one_pass", "research", "widen", "prune", "run_update"):
+    for name in ("research", "widen", "prune", "run_update"):
         assert name in by_body, sorted(by_body)
         ran, skip = by_body[name]
         assert ran > 0 and (skip > 0) == (name != "widen"), (name, ran, skip)
@@ -387,6 +570,119 @@ def test_cuda_nested_if_nodes_with_the_update_calls():
             torch.testing.assert_close(got_t, want_t, rtol=1e-5, atol=1e-5)
 
 
+CARD_LOOP_MAX_ITER = 3  # at most 4 passes
+
+
+def _card_pass(c):
+    """One pass of the card's loop: i up by one, x * 0.5 + 1, done once
+    ``stop`` passes ran (never where stop exceeds the passes)."""
+    i, done, x, stop = c
+    i1 = i + 1
+    return i1, i1 + 1 >= stop, x * 0.5 + 1.0, stop
+
+
+def _card_carry(x0, stop):
+    return (torch.full((), -1, dtype=torch.int32, device=x0.device),
+            torch.zeros((), dtype=torch.bool, device=x0.device), x0.clone(),
+            torch.full((), stop, dtype=torch.int32, device=x0.device))
+
+
+def _passes_run():
+    from fast_lio_tpu_torch.kernels import graph_if
+    counts.settle()
+    return graph_if.while_launches[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["alone", "in_an_if_body"])
+def test_cuda_while_node_equals_the_masked_loop(where):
+    """One WHILE node (its body one pass, holding an IF node when nested in
+    an IF body) against the masked loop, bit for bit, with ``done`` set
+    after 1 and 3 passes and never; the device's count of passes."""
+    _card()
+    dev = torch.device("cuda")
+    x0 = torch.tensor(np.random.default_rng(8).normal(size=(8192, 5, 3)),
+                      dtype=torch.float32, device=dev)
+    flags = torch.ones(2, dtype=torch.bool, device=dev)
+
+    def loop(carry):
+        if where == "alone":
+            return cf.while_loop(_card_pass, carry, CARD_LOOP_MAX_ITER)
+
+        def nested_pass(c):
+            i, done, x, stop = _card_pass(c)
+            x = cf.gate(flags[1], lambda t: (t[0] - 0.25,), (x,))[0]
+            return i, done, x, stop
+
+        return cf.gate(flags[0], lambda c: cf.while_loop(
+            nested_pass, c, CARD_LOOP_MAX_ITER), carry)
+
+    counts.device_counter(dev)
+    static = _card_carry(x0, 1)
+    with torch.no_grad():
+        loop(_card_carry(x0, 4))  # warm
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph), cf.gated_capture(dev):
+            out = loop(static)
+    torch.cuda.current_stream().wait_stream(side)
+    fl_cases = [[True, True]] if where == "alone" else [
+        [True, True], [True, False], [False, True]]
+    for fl in fl_cases:
+        flags.copy_(torch.tensor(fl, device=dev))
+        for stop in (1, 3, 100):
+            for s, v in zip(static, _card_carry(x0, stop)):
+                s.copy_(v)
+            before = _passes_run()
+            graph.replay()
+            ran = _passes_run() - before
+            want = loop(_card_carry(x0, stop))  # masked: not capturing
+            torch.cuda.synchronize()
+            for got_t, want_t in zip(out, want):
+                assert torch.equal(got_t, want_t), (fl, stop)
+            n = min(stop, CARD_LOOP_MAX_ITER + 1) if fl[0] else 0
+            assert ran == n and int(out[0]) == n - 1, (fl, stop, ran)
+
+
+@pytest.mark.cuda
+def test_cuda_while_node_without_done_ends_at_max_iter():
+    """``done`` never set: each replay ends after ``max_iter + 1`` passes
+    (the index bounds the loop), within a time limit, so that a loop that
+    did not end fails here instead of stalling the run."""
+    _card()
+    import time
+    dev = torch.device("cuda")
+    x0 = torch.zeros((8192, 5, 3), device=dev)
+    counts.device_counter(dev)
+    static = _card_carry(x0, 10 ** 6)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph), cf.gated_capture(dev):
+            out = cf.while_loop(_card_pass, static, CARD_LOOP_MAX_ITER)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        for s, v in zip(static, _card_carry(x0, 10 ** 6)):
+            s.copy_(v)
+        before = _passes_run()
+        graph.replay()
+        ended = torch.cuda.Event()
+        ended.record()
+        deadline = time.monotonic() + 30.0
+        while not ended.query():
+            assert time.monotonic() < deadline, "the WHILE node did not end"
+            time.sleep(0.01)
+        assert _passes_run() - before == CARD_LOOP_MAX_ITER + 1
+        assert int(out[0]) == CARD_LOOP_MAX_ITER and not bool(out[1])
+        want = x0
+        for _ in range(CARD_LOOP_MAX_ITER + 1):
+            want = want * 0.5 + 1.0
+        assert torch.equal(out[2], want)
+
+
 def _small_cuda():
     cfg, data = _small_wide("float32")
     return cfg, data
@@ -430,9 +726,10 @@ def test_cuda_gated_graph_equals_eager_bit_for_bit(run):
         np.testing.assert_array_equal(pos["gated"], pos[other])
         assert iters["gated"] == iters[other]
     stats = runs["gated"][0].graphs.stats()
-    # outside any IF node a replay launches the set kernels of the two
-    # outermost IF nodes (the prune's and the update's) and the downsample's
-    # segment_sum kernel, and no kNN search
+    # outside any conditional node a replay launches the set kernels of the
+    # two outermost IF nodes (the prune's and the update's, which holds the
+    # filter's WHILE node) and the downsample's segment_sum kernel, and no
+    # kNN search
     assert stats and all(s["gated"] and s["replays"] > 0
                          and s["launches_per_replay"] == 3
                          for s in stats.values())
@@ -478,6 +775,7 @@ def test_cuda_counted_launches_equal_the_profilers():
     _card()
     from fast_lio_tpu_torch.tools import profile_scan
     cfg, data = _ouster()
+    profile_scan.start_tracing()  # before the capture (its docstring)
     pipe = tpipe.Pipeline(cfg)
     feed = _scans(pipe, data)
     for _ in range(6):

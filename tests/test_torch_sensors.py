@@ -201,7 +201,8 @@ def _card():
 @pytest.mark.cuda
 def test_cuda_marsim_captured_equals_eager():
     """The MARSIM preset at full width on the card: the captured step (its
-    five passes IF nodes) within 5 mm of the eager, masked one."""
+    at most five passes one WHILE node) within 5 mm of the eager, masked
+    one."""
     _card()
     cfg, _, data = scenarios.preset_run("marsim", 1.5)
     runs = {}

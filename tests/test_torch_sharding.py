@@ -23,7 +23,8 @@ port's unsharded step.  Each case runs again with the step's gates as in a
 captured NCCL rank, each IF node a host branch: bit-equal to the masked
 step, the same predicates on every rank (all-gathered), the state within
 1e-8 of JAX's.  On cards (``cuda``): NCCL collectives inside an IF node at
-one and four ranks (``multicard.if_node_rank``).
+one and four ranks (``multicard.if_node_rank``), and inside a WHILE node
+that runs them 1, 3 and 5 times a replay (``multicard.while_node_rank``).
 """
 import functools
 import time
@@ -213,8 +214,9 @@ def test_host_branch_sharded_gates_equal_the_masked_step_and_jax(
     """The sharded step's gates (each IF node a host branch) on the 8 gloo
     ranks: bit for bit the masked step, every rank seeing the same
     predicates in the same order (so on NCCL ranks every rank runs or skips
-    each IF node's collectives together), some of them False (passes after
-    the exit, a prune of a cube that did not move), and the state within
+    each conditional node's collectives together), some of them False (the
+    loop's condition after its last pass, a prune of a cube that did not
+    move), and the state within
     1e-8 of JAX's single-device step."""
     out_j = _jax_case(name)[3]
     ranks = eight_ranks.result()
@@ -374,4 +376,23 @@ def test_cuda_collectives_inside_an_if_node(world):
     for r in res:
         assert r["error"] is None, r["error"]
         assert [p["flag"] for p in r["replays"]] == list(mc.IF_PROBE_FLAGS)
+        assert all(p["ok"] for p in r["replays"]), r["replays"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+def test_cuda_collectives_inside_a_while_node(world):
+    """On NCCL ranks, one card each: an all-reduce and an all-gather
+    recorded inside the body of a CUDA-graph WHILE node
+    (``multicard.while_node_rank``) run once a pass, 1, 3 and 5 passes a
+    replay, on every rank, and the device counts those passes."""
+    from fast_lio_tpu_torch.tools import multicard as mc
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    res = launch(mc.while_node_rank, world, backend="nccl", timeout_s=300.0)
+    for r in res:
+        assert r["error"] is None, r["error"]
+        assert [p["passes"] for p in r["replays"]] == list(
+            mc.WHILE_PROBE_PASSES)
         assert all(p["ok"] for p in r["replays"]), r["replays"]

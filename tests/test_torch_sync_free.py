@@ -2,9 +2,10 @@
 
 The port's step is the counterpart of the JAX package's jitted step
 (``fast_lio_tpu/pipeline.py:744-746``: "NO host<->device syncs below"): every
-``lax.cond`` and ``lax.while_loop`` pass became a ``control_flow.gate`` on a
-device flag (arms that all run and a ``torch.where`` that picks, or in the
-single pipeline's captured step a CUDA-graph IF node), and every
+``lax.cond`` became a ``control_flow.gate`` on a device flag and the
+``lax.while_loop`` a ``control_flow.while_loop`` (arms and passes that all
+run and a ``torch.where`` that picks, or in a captured step CUDA-graph IF
+nodes and one WHILE node), and every
 ``mode="drop"`` scatter a write to a dump row, so on CUDA the step is
 captured in one CUDA graph per pad bucket and replayed.
 
@@ -677,10 +678,11 @@ def test_cuda_captured_step_equals_eager(run):
     stats = captured.graphs.stats()
     assert len(stats) == len(cfg.pad_buckets or (1,))
     assert all(s["replays"] > 0 for s in stats.values())
-    # the single step's graph is gated: every kNN launch sits in an IF node
-    # and counts as run, on the device; outside them a replay launches the
-    # set kernels of the two outermost IF nodes (the prune's and the
-    # update's) and the downsample's segment_sum kernel; rescore_research
+    # the single step's graph is gated: every kNN launch sits in a
+    # conditional node and counts as run, on the device; outside them a
+    # replay launches the set kernels of the two outermost IF nodes (the
+    # prune's and the update's, which holds the filter's WHILE node) and
+    # the downsample's segment_sum kernel; rescore_research
     # searches in plain torch ops (its candidate block), as the JAX package
     # does in XLA: no kNN launch to count there
     assert all(s["gated"] and s["launches_per_replay"] == 3

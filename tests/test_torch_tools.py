@@ -384,6 +384,36 @@ def test_card_tools_run_on_cuda_by_default(capsys):
             tool.main(argv)
 
 
+def test_capture_cost_needs_a_card(capsys):
+    from fast_lio_tpu_torch.tools import capture_cost
+    if torch.cuda.is_available():
+        pytest.skip("has a CUDA device")
+    assert capture_cost.main(["avia"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_capture_cost_reads_the_body_pools_and_puts_torch_graph_back():
+    """The body pools' bytes are every pool's segments, at every depth;
+    the capture timer wraps ``torch.cuda.graph`` only while entered."""
+    from types import SimpleNamespace
+
+    from fast_lio_tpu_torch.tools import capture_cost
+
+    def pool(*sizes):
+        return SimpleNamespace(
+            snapshot=lambda: [{"total_size": n} for n in sizes])
+
+    fake = SimpleNamespace(_bodies={(0, 0): (None, pool(3, 5)),
+                                    (0, 1): (None, pool(7)),
+                                    (0, 2): (None, pool())})
+    assert capture_cost.body_pool_bytes(fake) == 15
+    real = torch.cuda.graph
+    with capture_cost.CaptureTimer(fake) as timer:
+        assert torch.cuda.graph is not real
+        assert issubclass(torch.cuda.graph, real)
+    assert torch.cuda.graph is real and timer.captures == []
+
+
 # what the port may not import: JAX, the JAX package, and the repository
 # root's scripts (``bench.py`` imports JAX; root ``tools/`` is the JAX
 # package's), which are importable wherever the root is on ``sys.path``

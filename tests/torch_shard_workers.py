@@ -134,21 +134,33 @@ def _two_rounds(step, m, init, ins1, ins2, device, after_round1=None):
 @contextlib.contextmanager
 def host_branch_ifs(device, flags: list):
     """Within: a gated capture on ``device`` whose IF nodes are host
-    branches (``if bool(pred): body``), each predicate appended to
-    ``flags``: the gated step's semantics where no graph records."""
-    real = tcf._record_if
+    branches (``if bool(pred): body``) and whose WHILE nodes are host
+    loops (``while any lane is active: body``), each predicate and each
+    evaluation of a loop's condition appended to ``flags``: the gated
+    step's semantics where no graph records."""
+    real = tcf._record_if, tcf._record_while
 
     def host_if(pred, fn):
         flags.append(bool(pred))
         if flags[-1]:
             fn()
 
-    tcf._record_if = host_if
+    def host_while(done, i, max_iter, fn, active=None):
+        while True:
+            cond = ~done & (i < max_iter)
+            if active is not None:
+                active.copy_(cond)
+            flags.append(bool(cond.any()))
+            if not flags[-1]:
+                return
+            fn()
+
+    tcf._record_if, tcf._record_while = host_if, host_while
     try:
         with tcf.gated_capture(device):
             yield
     finally:
-        tcf._record_if = real
+        tcf._record_if, tcf._record_while = real
 
 
 def same_on_every_rank(group: ShardGroup, flags: list) -> bool:
