@@ -6,8 +6,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, in order (but phases 13 and 17 run right after the build, see
-phase 17, and phase 15 beside phase 12, before 14); any failed check exits
-non-zero:
+phase 17, and phases 15 and 22-24 beside phase 12, before 14); any failed
+check exits non-zero:
 
 1. build — compile every CUDA kernel of the port from ``csrc/`` (nvcc, one
    process per source, all started together) and print the build time.
@@ -87,7 +87,17 @@ non-zero:
    the kernels line, since no path launches it): an empty one-thread
    kernel in a CUDA graph of 100, per call, the least any launch costs;
    every kernel row carries it as ``node_floor_ms``, and ``graph_if`` and
-   ``graph_while`` their multiple (``over_node_floor``).  The kernel is
+   ``graph_while`` their multiple (``over_node_floor``).  Rows
+   ``knn_cand_r8``, ``knn_cand_f64_r8`` and ``knn_cand_batched_r8``: the
+   per-query kernel's candidates variant (``knn_tile_cand_kernel``, the
+   rescore re-search's search, ``knn_search_candidates_cuda`` and
+   ``_batched``) on the ``knn_r8`` map and queries, in both orders and in
+   float64, and over the ``knn_batched_r8`` row's S = 4 maps: the whole
+   candidate block (every slot's coordinates and flag), found, sq and the
+   neighbours where found bit for bit to the plain version
+   (``knn_search(..., return_candidates=True)``), each batched lane bit for
+   bit to the single launch; the bound adds the block's bytes
+   (``bounds.knn_candidates_bound``).  The kernel is
    also held at each later run's own shapes and data: phases 4-6, 8, 11,
    18, 20 and 21 keep their run's last downsample inputs
    (``keeping_segment_inputs``) and hold the kernel, single or batched,
@@ -335,7 +345,50 @@ non-zero:
    lanes' last queries and final maps, each lane against the plain
    search).  mid360's synced p50/p99 against bench.py's 10 ms budget is
    recorded, not held, and ``MID360_PROFILE_SCANS`` more of its packets
-   run under the profiler (busy ms, activities, no host sync).
+   run under the profiler (busy ms, activities, no host sync).  Last,
+   ``avia_rescore``: bench.py's avia with ``FAST_LIO_RESCORE=1`` (its A/B):
+   the line shows ``rescore`` true and ``knn_backend``
+   "cuda_per_query_candidates", the candidates kernel launched and the
+   per-query one not, the plain search called no time on CUDA, the
+   candidates kernel at the run's shape bit for bit, the other checks as
+   avia's; the two avia lines' scans/s are printed side by side
+   (``rescore_ab``), a record, not a claim.
+
+22. rescore (in a worker process, beside phase 12, as phases 23 and 24
+   are in another) — phase 4's run with
+   ``rescore_research`` (bench.py's ``FAST_LIO_RESCORE`` mode: a scan's one
+   full search writes its candidate block, which every re-search of the
+   filter loop re-ranks): eager and captured in float32, captured in
+   float64, and as a fleet of ``RESCORE_FLEET_LANES`` lanes of the same
+   run (one batched launch a round, through the op's vmap rule); in each
+   the scans after ``GRAPH_WARM_SCANS`` (fleet: ``BATCH_WARM_ROUNDS``)
+   warm ones run under ``set_sync_debug_mode("error")``, the single runs'
+   last ``GATED_PROFILE_SCANS`` under the profiler.  Checks: captured bit for bit
+   the eager run, iterations too; the candidates kernel (float32, float64,
+   batched) launched once a step (a round) and no other kNN kernel; the
+   plain search called no time on CUDA (``trapping_plain_search``); no
+   host sync; the profiler's kNN kernels a scan the counted one; one
+   ``segment_sum`` launch a step; the fleet's lanes within 5 mm per scan
+   of the captured run; ATE within the JAX package's on the same run
+   (float32 or float64) + 1 cm, no map drop; the candidates kernel at each
+   run's shape bit for bit its plain version (all five outputs).
+23. prune_hall — the prune's hall (``scenarios.prune_run``:
+   velodyne_outdoor's config and run at full width with a 10 m range and
+   a 32 m local-map cube, in float64), eager and captured: the cube slides
+   and the prune (an IF node in the captured step) frees the points it
+   leaves.  Checks: captured bit for bit the eager run, map sizes too; the
+   map's size and drops equal to the JAX package's float64 run, its
+   positions within 1e-4 m of that run's, scan by scan
+   (``JAX_PRUNE_POSITIONS``); the map shrank between two scans and ends
+   below the JAX run whose cube never slides; phase 4's health and ATE
+   checks.
+24. validation — tests/test_validation.py's 60 s stream with random-walking
+   IMU biases and its 20 s planar-degenerate corridor
+   (``scenarios.validation_run``, the test's ``_small_cfg``), captured.
+   Checks: that test's own bounds (scans, ATE, covariance, the observable
+   biases tracked; the corridor's wall-bound axes, its update alive, its
+   covariance knowing the unobservable axis), ATE within the JAX package's
+   on the same run + 1 cm, no NaN, the R = 8 kernel and IF nodes ran.
 
 Every captured step is gated (IF nodes and the filter's WHILE node): the
 single pipeline's, the batch's (its passes; a predicate that differs from
@@ -361,6 +414,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -401,15 +455,65 @@ JAX_ATE_M = {
     "bench_ouster64": (0.034091268496998076, 0.010120619081930958),
     "bench_mid360": (0.061264548533163626, 0.016874586409787323),
     "bench_velodyne_outdoor": (0.29730805412818595, 0.18193507414946258),
+    # phase rescore (phase 4's run with rescore_research), float32 and
+    # float64, and phase bench's FAST_LIO_RESCORE=1 avia run
+    "avia_rescore": (0.03473317943700552, 0.0135006895850173),
+    "avia_rescore_f64": (0.039954296298490614, 0.0138914413756986),
+    "bench_avia_rescore": (0.021806750301925925, 0.008772765104936698),
+    # phase prune_hall (float64, the prune removing points)
+    "prune_hall_f64": (0.21351729822623677, 0.14321035468170423),
+    # phase validation: tests/test_validation.py's runs
+    "validation_bias_walk": (0.16514049190648633, 0.029974441518812085),
+    "validation_corridor": (5.61429354851126, 2.813503484189428),
 }
 JAX_MAP_DROPPED = {"avia": 0, "ouster64": 307, "ouster64_f64": 279,
                    "bag_ouster64": 138, "bench_avia": 174,
-                   "bench_ouster64": 777,
+                   "bench_ouster64": 777, "bench_avia_rescore": 174,
+                   "validation_bias_walk": 2766,
                    **{name: 0 for name in (
                        "preset_horizon", "preset_mid360", "preset_velodyne",
                        "preset_marsim", "bench_mid360",
                        "bench_velodyne_outdoor", "bag_velodyne",
-                       "bag_velodyne_no_time", "bag_marsim")}}
+                       "bag_velodyne_no_time", "bag_marsim", "avia_rescore",
+                       "avia_rescore_f64", "prune_hall_f64",
+                       "validation_corridor")}}
+# phase prune_hall: the JAX package's float64 run of the prune's hall
+# (scenarios.prune_run, full width; JAX's x64 mode): its map's size and
+# drops, the map's size with a 1000 m cube that never slides, and each
+# estimate's position (tests/torch_reference_ate.py prune_hall_f64 and
+# prune_hall_f64_cube1000)
+JAX_PRUNE = {"map_size": 8098, "map_dropped": 0, "map_size_cube1000": 17570}
+JAX_PRUNE_POSITIONS = [
+    (0.0, 0.0, 4.7534588079272144e-06),
+    (-0.0016961926282665274, 0.0001384040246360971, -0.00027282802971292957),
+    (0.00030589883684030363, 0.00015094499463210416, -0.0002714425046489525),
+    (0.0008401703080608805, 0.0015111228628775562, -0.00027529119495395163),
+    (0.0016599935577979162, 0.002761624267929626, -0.0003037555124103053),
+    (0.009860991595957663, 0.0019113833237391939, -0.00033279125992854216),
+    (0.06592821164105699, 0.0004919679093738057, -0.000335999852390742),
+    (0.2075532095591793, 0.00270496509396606, -1.3293026073119436e-05),
+    (0.4581806892945562, 0.01521531706532872, 0.0009233463753604133),
+    (0.8465617063514469, 0.035435187911703456, 0.0030776409938823735),
+    (1.3859850588771236, 0.08554867828915727, 0.009769539797233797),
+    (2.057229547026643, 0.17717739184540973, 0.02158590768777648),
+    (2.8226981777663194, 0.3282089175427243, 0.03715218311304017),
+    (3.6300327590383152, 0.5488093605542976, 0.05537962032475328),
+    (4.423623072361862, 0.832688039789283, 0.0731164168583614),
+    (5.148493732189692, 1.1500001733306235, 0.09062640995634325),
+    (5.765331575790935, 1.4651997576100955, 0.10606440483508571),
+    (6.267111723279871, 1.7594482117822479, 0.1160964462458065),
+    (6.6708224284309185, 2.0113200975611902, 0.12422694998018946),
+    (7.054261062402251, 2.2779571672356145, 0.1316764458439809),
+    (7.373823420023338, 2.510890673064859, 0.13966861574234504),
+    (7.723798517907101, 2.801011079747443, 0.14741832680404818),
+    (8.055613094361155, 3.110081413614517, 0.15550967310814143),
+    (8.376524545673194, 3.4259397487864933, 0.16272799290415102),
+    (8.658820731056219, 3.709109815005294, 0.17011033292332717),
+    (8.949366624584256, 4.048650061253019, 0.17647729963835995),
+    (9.248003825036774, 4.423211797316156, 0.18346906861893192),
+    (9.525468649181276, 4.8065640691994735, 0.1898442282597743),
+    (9.791585646935031, 5.211061253658803, 0.19568587210874872),
+]
 # phase presets: the JAX package's iterations a scan on the marsim run (its
 # float32 step on a CPU; printed beside the card's, not held: rounding may
 # move a convergence test by a pass, PR 10)
@@ -426,6 +530,9 @@ ATE_SLACK_M = 0.01
 # phase 11: the float64 run's ATE against the JAX package's float64 ATE;
 # phase 5's float32 run is 1.9 mm from it, so this holds the card to f64
 F64_ATE_TOL_M = 1e-4
+# phase prune_hall: the float64 positions against the JAX package's, per
+# scan (phase 11's bound)
+F64_POS_TOL_M = 1e-4
 # which points overflow a full bucket depends on f32 rounding of the poses,
 # so the port's drop count may differ a little from the JAX package's
 DROPPED_SLACK = 0.1
@@ -474,7 +581,12 @@ MID360_PROFILE_SCANS = 4
 # phase bench: the runner's runs, and the keys of its JSON line (bench.py's,
 # bench.py:219-231 and 410-439, with tunnel_dispatch_ms renamed and two
 # keys added; tests/test_torch_bench.py holds them against bench.py's)
-BENCH_RUNS = ("avia", "ouster64", "mid360", "velodyne_outdoor", "avia_batch4")
+# (avia_rescore: bench.py's avia with FAST_LIO_RESCORE=1, its A/B)
+BENCH_RUNS = ("avia", "ouster64", "mid360", "velodyne_outdoor", "avia_batch4",
+              "avia_rescore")
+RESCORE_SUFFIX = "_rescore"
+# phase rescore: the fleet's lanes (each phase 4's run)
+RESCORE_FLEET_LANES = 2
 BENCH_TOP_KEYS = ["metric", "value", "unit", "vs_baseline", "extra"]
 BENCH_ADDED_KEYS = {"card", "graphs_captured_in_span"}
 BENCH_SINGLE_KEYS = {
@@ -570,13 +682,23 @@ KERNEL_ROWS = {
                     "knn_tile_kernel", "f"),
     "knn_batched_f64": ("fast_lio_tpu_torch/csrc/knn.cu", "knn",
                         "knn_tile_kernel", "d"),
+    # the candidates variant, the rescore re-search's search
+    "knn_cand": ("fast_lio_tpu_torch/csrc/knn.cu", "knn",
+                 "knn_tile_cand_kernel", "f"),
+    "knn_cand_f64": ("fast_lio_tpu_torch/csrc/knn.cu", "knn",
+                     "knn_tile_cand_kernel", "d"),
+    "knn_cand_batched": ("fast_lio_tpu_torch/csrc/knn.cu", "knn",
+                         "knn_tile_cand_kernel", "f"),
 }
 REPLACES = {"knn": "tools/knn_pallas.py:193",
             "grouped": "tools/knn_grouped.py:217",
             "grouped_prep": "tools/knn_grouped.py:217",
             "knn_f64": "tools/knn_pallas.py:193",
             "knn_batched": "tools/knn_pallas.py:193",
-            "knn_batched_f64": "tools/knn_pallas.py:193"}
+            "knn_batched_f64": "tools/knn_pallas.py:193",
+            "knn_cand": "tools/knn_pallas.py:193",
+            "knn_cand_f64": "tools/knn_pallas.py:193",
+            "knn_cand_batched": "tools/knn_pallas.py:193"}
 TIMES = ("device_us", "device_timer", "profiler_windows", "prep_device_us",
          "graph_us", "enqueue_us")
 # the segmented mean (csrc/segment_sum.cu): its launch counters, keyed by
@@ -646,6 +768,9 @@ def phase_kernels(pkg):
                                     with_plain=order == "main"))
             log({"phase": "kernels", "case": f"f64_{tag}", "order": order,
                  "times": times[f"knn_f64_{tag}"]})
+            if not wide:  # the candidates variant, on the same cases
+                for c in (case, case64):
+                    candidate_row(pkg, c, rows)
             for kind in ("knn", "grouped", "grouped_prep", "knn_f64"):
                 t = times[f"{kind}_{tag}"]
                 if order == "main":
@@ -682,6 +807,85 @@ def phase_kernels(pkg):
     for row in rows.values():
         row["node_floor_ms"] = floor["ms"]
     return rows
+
+
+def equal_candidates(got, ref, what) -> float:
+    """The candidates variant's five outputs against ``ref``'s: found, sq
+    and the neighbours where found bit-equal (``equal_where_found``), and
+    the whole candidate block, every slot's coordinates and flag, bit for
+    bit; max |dsq|."""
+    err = equal_where_found(got[:3], ref[:3], what)
+    check(got[3].dtype == ref[3].dtype and torch.equal(got[3], ref[3]),
+          f"{what}: candidate coordinates differ")
+    check(torch.equal(got[4], ref[4]), f"{what}: candidate flags differ")
+    return err
+
+
+def candidate_row(pkg, case, rows) -> None:
+    """Row ``knn_cand_r8`` or ``knn_cand_f64_r8`` of phase 2's R = 8 case
+    (the map and the avia preset's 8192 queries, in main-path order or
+    shuffled, float32 or float64): the kernel's candidates variant (the
+    rescore re-search's search) held to the plain version
+    (``equal_candidates``) and timed by
+    ``microbench_knn.measure_candidates``; the shuffled order's figures go
+    into the main row's "shuffled"."""
+    hm, knn, mb = pkg["hm"], pkg["knn"], pkg["mb"]
+    t0 = time.perf_counter()
+    m, cfg, q = case.m, case.cfg, case.queries
+    kind = "knn_cand" + ("_f64" if q.dtype == torch.float64 else "")
+    name = f"{kind}_{case.tag}"
+    got = knn.knn_search_candidates_cuda(m.packed, cfg, q)
+    ref = hm.knn_search(m, cfg, q, return_candidates=True)
+    torch.cuda.synchronize()
+    err = equal_candidates(got, ref, f"{name} {case.order}")
+    check(bool(ref[4].any()) and not bool(ref[4].all()),
+          f"{name} {case.order}: a block of one kind of slot")
+    del got, ref
+    main = case.order == "main"
+    t = mb.measure_candidates(case, TIMING_REPS, with_plain=main)[name]
+    log({"phase": "kernels", "case": name, "order": case.order, "times": t,
+         "seconds": time.perf_counter() - t0})
+    check(t["device_us"] is not None and t["graph_us"] > 0,
+          f"{name} {case.order}: not timed on the device")
+    if main:
+        rows[name] = kernel_row(mb, kind, case.tag, t, err)
+        rows[name]["bound_bytes"] = t["bound_bytes"]
+    else:
+        rows[name]["shuffled"] = dict({k: t[k] for k in TIMES},
+                                      bound_ms=1e-3 * t["bound_us"],
+                                      max_abs_err=err)
+
+
+def batched_candidate_row(pkg, case) -> dict:
+    """Row ``knn_cand_batched_r8``: the candidates variant in one launch
+    over the S = 4 maps and query sets of the ``knn_batched_r8`` row, each
+    lane held to its plain version (``equal_candidates``) and bit for bit
+    (all five outputs) to the single launch on it; timed by
+    ``microbench_knn.measure_candidates_batched``."""
+    hm, knn, mb = pkg["hm"], pkg["knn"], pkg["mb"]
+    got = knn.knn_search_candidates_cuda_batched(case.packed, case.cfg,
+                                                 case.queries)
+    torch.cuda.synchronize()
+    err = 0.0
+    for s, m in enumerate(case.maps):
+        mine = tuple(g[s] for g in got)
+        ref = hm.knn_search(m, case.cfg, case.queries[s],
+                            return_candidates=True)
+        err = max(err, equal_candidates(
+            mine, ref, f"knn_cand_batched_r8 stream {s} vs plain"))
+        single = knn.knn_search_candidates_cuda(m.packed, case.cfg,
+                                                case.queries[s])
+        check(all(torch.equal(a, b) for a, b in zip(mine, single)),
+              f"knn_cand_batched_r8 stream {s}: not the single launch's")
+    del got, mine, ref, single
+    torch.cuda.synchronize()
+    t = mb.measure_candidates_batched(case, TIMING_REPS)["knn_cand_batched_r8"]
+    log({"phase": "kernels", "case": "knn_cand_batched_r8", "times": t})
+    row = kernel_row(mb, "knn_cand_batched", "r8", t, err)
+    row["bound_bytes"] = t["bound_bytes"]
+    check(row["device_us"] is not None and row["graph_us"] > 0,
+          f"{row['name']}: not timed on the device")
+    return {row["name"]: row}
 
 
 def empty_node_row(pkg) -> dict:
@@ -723,7 +927,10 @@ def batched_kernel_rows(pkg, tag, dtype) -> dict:
     row = kernel_row(mb, kind, tag, t, err)
     check(row["device_us"] is not None and row["graph_us"] > 0,
           f"{row['name']}: not timed on the device")
-    return {row["name"]: row}
+    out = {row["name"]: row}
+    if not case.wide and dtype == torch.float32:  # the candidates variant
+        out.update(batched_candidate_row(pkg, case))
+    return out
 
 
 def replay_ms(g, calls: int) -> float:
@@ -1049,7 +1256,11 @@ def launch_counters(pkg) -> dict:
             "graph_if": pkg["graph_if"].launches,
             "graph_while": pkg["graph_if"].while_launches,
             "segment_sum": pkg["seg"].launches,
-            "segment_sum_batched": pkg["seg"].batched_launches}
+            "segment_sum_batched": pkg["seg"].batched_launches,
+            "knn_cand": knn.cand_launches,
+            "knn_cand_f64": knn.cand_launches_f64,
+            "knn_cand_batched": knn.cand_batched_launches,
+            "knn_cand_batched_f64": knn.cand_batched_launches_f64}
 
 
 def reset_launches(pkg) -> None:
@@ -1540,14 +1751,16 @@ def phase_oracle(pkg):
 # --------------------------------------------------------------------------
 
 
-def run_unsynced(pkg, cfg, data, graphs: bool, gates: bool = True) -> dict:
+def run_unsynced(pkg, cfg, data, graphs: bool, gates: bool = True,
+                 keep_pipe: bool = False) -> dict:
     """The run through ``Pipeline(cfg, graphs=graphs)``: GRAPH_WARM_SCANS
     scans one by one, then one window under ``set_sync_debug_mode("error")``,
     the device drained at its end, and the last GATED_PROFILE_SCANS scans
     under the profiler (``profile_scan.profile_window``, with what the step
     executed: ``profile_scan.executed_per_scan``).  ``gates=False``: the
     captured graph with its gates masked (``StepGraphs(gates=False)``, the
-    ungated graph), for comparison."""
+    ungated graph), for comparison.  ``keep_pipe``: the pipeline too,
+    under "pipe"."""
     pipe = pkg["Pipeline"](cfg, graphs=graphs)
     if graphs and not gates:
         pipe.graphs = pkg["StepGraphs"](pipe.device, gates=False)
@@ -1580,11 +1793,14 @@ def run_unsynced(pkg, cfg, data, graphs: bool, gates: bool = True) -> dict:
     launches = read_launches(pkg)
     check(next(push, None) is None, "graph: scans left after the profile")
     out = {"scans_per_s": n / wall, "window_scans": n,
-           "launches": launches, "feed_waits": pipe.feed.waits,
+           "launches": launches,
+           "feed_waits": pipe.feed.waits if pipe.feed is not None else None,
            "profile": {k: v for k, v in prof.items()
                        if k != "host_syncs_by_op_per_scan"},
            "iterations": [int(d.iterations) for d in pipe.diags],
            "traj": pipe.get_trajectory()}
+    if keep_pipe:
+        out["pipe"] = pipe
     if graphs:
         stats = pipe.graphs.stats()
         out["graphs"] = {"captured": len(stats),
@@ -2689,20 +2905,24 @@ def bench_worker(group) -> list:
     rows = []
     for name in BENCH_RUNS:
         printed = io.StringIO()
+        rescore = name.endswith(RESCORE_SUFFIX)
+        scenario = name.removesuffix(RESCORE_SUFFIX)
         with keeping_built(bench, ("Pipeline", "BatchPipeline",
                                    "make_packets")) as made, \
                 sync_free_after(pkg, bench.N_WARM) as checked, \
-                keeping_segment_inputs(pkg) as kept:
+                keeping_segment_inputs(pkg) as kept, \
+                trapping_plain_search(pkg) as plain, rescore_env(rescore):
             reset_launches(pkg)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(printed):
                 rc = bench.main(
-                    [name, "--duration", str(sc.BENCH_DURATION_S)])
+                    [scenario, "--duration", str(sc.BENCH_DURATION_S)])
             launches = read_launches(pkg)
             seconds = time.perf_counter() - t0
         check(rc == 0, f"bench {name}: exit {rc}")
         row = {"run": name, "seconds": seconds, "printed": printed.getvalue(),
                "launches": launches, "steps_without_sync": checked[0],
+               "plain_searches_on_cuda": len(plain),
                "segment_sum_at_path_shape": segment_sum_at_path_shape(
                    pkg, kept)}
         if made["BatchPipeline"]:
@@ -2711,7 +2931,9 @@ def bench_worker(group) -> list:
             rows.append(row)
             continue
         pipe, synced = made["Pipeline"][0], made["Pipeline"][-1]
-        row["kernel_at_path_shape"] = kernel_at_path_shape(pkg, pipe)
+        row["kernel_at_path_shape"] = (
+            candidates_at_path_shape(pkg, pipe) if rescore
+            else kernel_at_path_shape(pkg, pipe))
         row["health"] = pipe.health_check()
         row["graphs"] = {str(k): v for k, v in pipe.graphs.stats().items()}
         if name == "mid360":
@@ -2726,13 +2948,31 @@ def bench_worker(group) -> list:
     return rows
 
 
+@contextlib.contextmanager
+def rescore_env(on: bool):
+    """Within: ``FAST_LIO_RESCORE=1`` in the environment where ``on``, as
+    bench.py's A/B takes it."""
+    if not on:
+        yield
+        return
+    saved = os.environ.get("FAST_LIO_RESCORE")
+    os.environ["FAST_LIO_RESCORE"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["FAST_LIO_RESCORE"]
+        else:
+            os.environ["FAST_LIO_RESCORE"] = saved
+
+
 def phase_bench(pkg, card) -> dict:
     """Phase 21: ``bench_worker`` in a worker process, and its checks.
     Returns the launches by path."""
     bench = pkg["bench"]
     rows = pkg["launch"](bench_worker, 1, backend="gloo", device="cuda:0",
                          timeout_s=600.0)[0]
-    by_path = {}
+    by_path, lines_by_run = {}, {}
     for row in rows:
         name, launches = row["run"], row.pop("launches")
         lines = row.pop("printed").splitlines()
@@ -2769,8 +3009,25 @@ def phase_bench(pkg, card) -> dict:
                                         "ate_aligned_m": extra["ate_rmse_m"]},
                       f"bench_{name}")
             check_health(f"bench {name}", row["health"], f"bench_{name}")
-            check(launches["knn"][8] > 0, f"bench {name}: R=8 never ran")
-            wide = pkg["scenarios"].config(name).knn_wide_fallback
+            rescore = name.endswith(RESCORE_SUFFIX)
+            backend = ("cuda_per_query_candidates" if rescore
+                       else "cuda_per_query")
+            check(extra["rescore"] is rescore
+                  and extra["knn_backend"] == backend,
+                  f"bench {name}: rescore {extra['rescore']}, knn_backend "
+                  f"{extra['knn_backend']}")
+            # the rescore's search is the candidates variant alone
+            searched = "knn_cand" if rescore else "knn"
+            check(launches[searched][8] > 0
+                  and sum(launches["knn" if rescore else "knn_cand"]
+                          .values()) == 0,
+                  f"bench {name}: R=8 {searched} never ran, or the other "
+                  f"search did ({launches})")
+            check(not rescore or row["plain_searches_on_cuda"] == 0,
+                  f"bench {name}: the plain search ran on CUDA "
+                  f"{row['plain_searches_on_cuda']} times")
+            wide = pkg["scenarios"].config(
+                name.removesuffix(RESCORE_SUFFIX)).knn_wide_fallback
             check(launches["knn"][27] > 0 or not wide,
                   f"bench {name}: the wide fallback's R=27 never ran")
             check(set(row["kernel_at_path_shape"]["max_abs_err"])
@@ -2804,6 +3061,344 @@ def phase_bench(pkg, card) -> dict:
               f"bench {name}: no IF node or no pass of the WHILE node ran "
               f"({launches['graph_if']}, {launches['graph_while']})")
         by_path[f"bench_{name}"] = launches
+        lines_by_run[name] = line
+    # bench.py's A/B, side by side: a record, not a claim
+    log({"phase": "bench", "run": "rescore_ab", "card": card,
+         "scans_per_s": {name: lines_by_run[name]["value"]
+                         for name in ("avia", "avia_rescore")},
+         "knn_backend": {name: lines_by_run[name]["extra"]["knn_backend"]
+                         for name in ("avia", "avia_rescore")}})
+    return by_path
+
+
+# --------------------------------------------------------------------------
+# phases 22-24: the rescore re-search through the candidates kernel, the
+# local map's prune with removals, and tests/test_validation.py's runs
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def trapping_plain_search(pkg):
+    """Within: every call of the plain kNN search (``hash_map.search_rows``,
+    which ``knn_search`` runs, with its candidate block or not) on CUDA
+    tensors, kept (its query count)."""
+    hm = pkg["hm"]
+    plain, calls = hm.search_rows, []
+
+    def trap(m, cfg, queries, *args, **kwargs):
+        if queries.is_cuda:
+            calls.append(queries.shape[0])
+        return plain(m, cfg, queries, *args, **kwargs)
+
+    hm.search_rows = trap
+    try:
+        yield calls
+    finally:
+        hm.search_rows = plain
+
+
+def candidates_at_path_shape(pkg, pipe) -> dict:
+    """The candidates variant held to its plain version at the shape the
+    run's main path gave it (``kernel_at_path_shape`` for the rescore): the
+    last scan's downsampled world points in the final map, all five
+    outputs (``equal_candidates``).  These launches are not the main
+    path's: the counters are put back."""
+    hm, knn, counts = pkg["hm"], pkg["knn"], pkg["counts"]
+    q = pipe.last_pts_world
+    before = counts.snapshot()
+    got = knn.knn_search_candidates_cuda(pipe.map.packed, pipe.map_cfg, q)
+    ref = hm.knn_search(pipe.map, pipe.map_cfg, q, return_candidates=True)
+    torch.cuda.synchronize()
+    counts.restore(before)
+    err = equal_candidates(got, ref, "the candidates kernel at the path's "
+                           "shape")
+    return {"queries": q.shape[0], "max_abs_err": {"r8": err}}
+
+
+def batched_candidates_at_path_shape(pkg, bp) -> dict:
+    """``candidates_at_path_shape`` for a fleet: the batched launch over
+    every lane's last queries in its final map, each lane held to the plain
+    version on its own map."""
+    hm, knn, counts = pkg["hm"], pkg["knn"], pkg["counts"]
+    q = bp.last_pts_world.contiguous()
+    before = counts.snapshot()
+    got = knn.knn_search_candidates_cuda_batched(bp.map.packed, bp.map_cfg,
+                                                 q)
+    err = []
+    for s in range(bp.B):
+        lane = hm.Map(packed=bp.map.packed[s], dropped=bp.map.dropped[s],
+                      rows=bp.map.rows[s])
+        ref = hm.knn_search(lane, bp.map_cfg, q[s], return_candidates=True)
+        torch.cuda.synchronize()
+        err.append(equal_candidates(tuple(t[s] for t in got), ref,
+                                    f"the batched candidates kernel, lane {s}"))
+    counts.restore(before)
+    return {"streams": bp.B, "queries": q.shape[1], "max_abs_err": {"r8": err}}
+
+
+# the launch counters of the kNN searches; the rescore's runs launch one of
+# them, once a step (a round)
+KNN_KINDS = ("knn", "knn_f64", "knn_batched", "knn_batched_f64", "grouped",
+             "grouped_prep", "knn_cand", "knn_cand_f64", "knn_cand_batched",
+             "knn_cand_batched_f64")
+
+
+def only_search(name, launches, kind, steps) -> None:
+    """``kind``'s R = 8 kernel launched once each of ``steps``, and no other
+    kNN kernel (counted as run)."""
+    others = {k: v for k, v in launches.items()
+              if k in KNN_KINDS and k != kind and sum(v.values())}
+    check(launches[kind] == {8: steps} and not others,
+          f"{name}: {kind} launches {launches[kind]} for {steps} steps, "
+          f"other kNN launches {others}")
+
+
+def rescore_fleet(pkg, cfg, data) -> dict:
+    """``RESCORE_FLEET_LANES`` lanes of ``data`` through one
+    ``BatchPipeline`` (captured, its step under vmap, the candidate search
+    the op's vmap rule): ``BATCH_WARM_ROUNDS`` scans one by one (IMU init,
+    the maps seeded, the capture), the rest under
+    ``set_sync_debug_mode("error")``.  Returns the fleet, its launches and
+    the lanes' trajectories."""
+    bp = pkg["BatchPipeline"](cfg, RESCORE_FLEET_LANES)
+    reset_launches(pkg)
+    rounds = round_feeder(bp, [data] * RESCORE_FLEET_LANES)
+    for _ in range(BATCH_WARM_ROUNDS):
+        next(rounds)
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in rounds:
+            pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"bp": bp, "launches": read_launches(pkg),
+            "trajs": [bp.get_trajectory(i) for i in range(bp.B)]}
+
+
+def phase_rescore(pkg, sim_cfg) -> dict:
+    """Phase 22: phase 4's run with ``rescore_research`` (the scan's one full
+    search the candidates kernel, every re-search a re-rank of its block),
+    eager and captured in float32, captured in float64, and as a fleet of
+    ``RESCORE_FLEET_LANES`` lanes, the plain search trapped on CUDA
+    throughout.  Returns the launches by run."""
+    config, simlib = pkg["config"], pkg["sim"]
+    data = simlib.generate(sim_cfg)
+    cfg = dataclasses.replace(config.PRESETS["avia"], rescore_research=True)
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    with trapping_plain_search(pkg) as plain:
+        runs = {"rescore_eager": (cfg, run_unsynced(
+                    pkg, cfg, data, graphs=False, keep_pipe=True)),
+                "rescore": (cfg, run_unsynced(pkg, cfg, data, graphs=True,
+                                              keep_pipe=True)),
+                "rescore_f64": (cfg64, run_unsynced(
+                    pkg, cfg64, data, graphs=True, keep_pipe=True))}
+        fleet = rescore_fleet(pkg, cfg, data)
+    by_path = {}
+    for name, (c, run) in runs.items():
+        pipe = run.pop("pipe")
+        f64 = c.compute_dtype == "float64"
+        ref = "avia_rescore_f64" if f64 else "avia_rescore"
+        steps = len(pipe.diags)
+        launches, prof = run["launches"], run["profile"]
+        hc = pipe.health_check()
+        out = {"ate_raw_m": simlib.ate_rmse(run["traj"], data),
+               "ate_aligned_m": simlib.ate_rmse_aligned(run["traj"], data)}
+        log({"phase": "rescore", "run": name, "steps": steps, **out,
+             "jax_ate_m": JAX_ATE_M[ref], "scans_per_s": run["scans_per_s"],
+             "window_scans": run["window_scans"],
+             "iterations": run["iterations"], "health": hc,
+             "launches": {k: {f"r{r}": n for r, n in v.items()}
+                          for k, v in launches.items()},
+             "profile_per_scan": prof, "graphs": run.get("graphs"),
+             "candidates_at_path_shape": candidates_at_path_shape(pkg, pipe)})
+        check_health(name, hc, ref)
+        check_ate(name, out, ref)
+        only_search(name, launches, "knn_cand_f64" if f64 else "knn_cand",
+                    steps)
+        check_segment_sum(name, launches, steps, c)
+        check(prof["host_syncs_per_scan"] == 0,
+              f"{name}: {prof['host_syncs_per_scan']} host syncs a scan")
+        check(prof["knn_search_launches_counted_per_scan"]
+              == prof["knn_search_launches_per_scan"] == 1.0,
+              f"{name}: counted {prof['knn_search_launches_counted_per_scan']}"
+              f" kNN launches a scan, the profiler "
+              f"{prof['knn_search_launches_per_scan']}")
+        by_path[name] = launches
+    eager, captured = runs["rescore_eager"][1], runs["rescore"][1]
+    check(same_traj(eager["traj"], captured["traj"])
+          and eager["iterations"] == captured["iterations"],
+          "rescore: the captured run differs from the eager one (max "
+          f"{max_pos_diff(captured['traj'], eager['traj'])} m)")
+    bp, launches = fleet["bp"], fleet["launches"]
+    single = positions(captured["traj"])
+    diffs = [float(np.abs(positions(t) - single).max()) if len(t) == len(
+        single) else float("inf") for t in fleet["trajs"]]
+    ates = [(simlib.ate_rmse(t, data), simlib.ate_rmse_aligned(t, data))
+            for t in fleet["trajs"]]
+    log({"phase": "rescore", "run": "rescore_fleet", "lanes": bp.B,
+         "rounds": bp.rounds, "max_pos_diff_vs_single_m": diffs,
+         "tol_m": POS_TOL_M, "ate_m": ates,
+         "launches": {k: {f"r{r}": n for r, n in v.items()}
+                      for k, v in launches.items()},
+         "candidates_at_path_shape": batched_candidates_at_path_shape(pkg, bp),
+         "plain_searches_on_cuda": len(plain)})
+    only_search("rescore_fleet", launches, "knn_cand_batched", bp.rounds)
+    check(max(diffs) <= POS_TOL_M,
+          f"rescore_fleet: lanes {diffs} m from the single run")
+    for lane, (raw, aligned) in enumerate(ates):
+        check_ate(f"rescore_fleet lane {lane}",
+                  {"ate_raw_m": raw, "ate_aligned_m": aligned},
+                  "avia_rescore")
+    check(int(bp.map.dropped.sum()) == 0, "rescore_fleet: map drops")
+    check(not plain, f"rescore: the plain search ran on CUDA ({plain})")
+    by_path["rescore_fleet"] = launches
+    return by_path
+
+
+def rescore_worker(group, sim_cfg) -> dict:
+    """Phase 22 in a worker process (``parallel.launch``, one gloo rank on
+    the card; ``group`` unused), its profiles a fresh process's.  One
+    profiler session first, before any capture
+    (``profile_scan.start_tracing``).  Returns the launches by run."""
+    pkg = load_pkg()
+    pkg["profile_scan"].start_tracing()
+    return phase_rescore(pkg, sim_cfg)
+
+
+def prune_validation_worker(group) -> dict:
+    """Phases 23 and 24 in a worker process (as ``rescore_worker``; no
+    profile).  Returns the launches by run."""
+    pkg = load_pkg()
+    by_path = {"prune_hall": phase_prune_hall(pkg)}
+    by_path.update(phase_validation(pkg))
+    return by_path
+
+
+def run_through(pipe, data) -> None:
+    """Push a sim run through the packet API with no sync between scans,
+    then drain the card."""
+    for _ in scan_pusher(pipe, data):
+        pass
+    torch.cuda.synchronize()
+
+
+def phase_prune_hall(pkg) -> dict:
+    """Phase 23: the prune's hall (``scenarios.prune_run``: velodyne_outdoor
+    at full width with a 10 m range and a 32 m local-map cube, float64),
+    eager and captured: the cube slides, and the prune, an IF node in the
+    captured step, frees the points it leaves.  Returns the captured run's
+    launches."""
+    sc, simlib = pkg["scenarios"], pkg["sim"]
+    cfg, data = sc.prune_run(full=True)
+    runs = {}
+    for mode in ("eager", "captured"):
+        pipe = pkg["Pipeline"](cfg, graphs=mode == "captured")
+        reset_launches(pkg)
+        run_through(pipe, data)
+        runs[mode] = (pipe, read_launches(pkg))
+    (eager, _), (pipe, launches) = runs["eager"], runs["captured"]
+    traj = pipe.get_trajectory()
+    hc = pipe.health_check()
+    sizes = [int(d.map_size) for d in pipe.diags]
+    pos, ref = positions(traj), np.asarray(JAX_PRUNE_POSITIONS)
+    dpos = (float(np.abs(pos - ref).max()) if pos.shape == ref.shape
+            else float("inf"))
+    out = {"ate_raw_m": simlib.ate_rmse(traj, data),
+           "ate_aligned_m": simlib.ate_rmse_aligned(traj, data)}
+    log({"phase": "prune_hall", "scans": len(traj), **out,
+         "jax_ate_m": JAX_ATE_M["prune_hall_f64"], "map_sizes": sizes,
+         "jax": JAX_PRUNE, "health": hc,
+         "max_pos_diff_vs_jax_m": dpos, "tol_m": F64_POS_TOL_M,
+         "captured_equals_eager": same_traj(traj, eager.get_trajectory()),
+         "launches": {k: {f"r{r}": n for r, n in v.items()}
+                      for k, v in launches.items()},
+         "graphs": {str(k): v for k, v in pipe.graphs.stats().items()}})
+    check(same_traj(traj, eager.get_trajectory())
+          and sizes == [int(d.map_size) for d in eager.diags],
+          "prune_hall: the captured run differs from the eager one")
+    check((hc["map_size"], hc["map_dropped"])
+          == (JAX_PRUNE["map_size"], JAX_PRUNE["map_dropped"]),
+          f"prune_hall: map {hc['map_size']} points, {hc['map_dropped']} "
+          f"drops; JAX {JAX_PRUNE}")
+    check(dpos <= F64_POS_TOL_M,
+          f"prune_hall: positions {dpos} m from JAX's float64 run")
+    # the map shrank between scans (only the prune frees points), and ends
+    # below the run whose cube never slides
+    check(any(b < a for a, b in zip(sizes, sizes[1:]))
+          and hc["map_size"] < JAX_PRUNE["map_size_cube1000"],
+          f"prune_hall: the prune removed nothing ({sizes})")
+    check_health("prune_hall", hc, "prune_hall_f64")
+    check_ate("prune_hall", out, "prune_hall_f64")
+    check(launches["knn_f64"][8] > 0 and launches["graph_if"][0] > 0,
+          f"prune_hall: the float64 kernel or the IF nodes never ran "
+          f"({launches})")
+    return launches
+
+
+def phase_validation(pkg) -> dict:
+    """Phase 24: tests/test_validation.py's 60 s stream with random-walking
+    IMU biases and its 20 s planar-degenerate corridor
+    (``scenarios.validation_run``, its ``_small_cfg``), through the
+    captured port, held to that test's bounds and to the JAX package's ATE
+    + 1 cm.  Returns the launches by run."""
+    sc, simlib = pkg["scenarios"], pkg["sim"]
+    by_path = {}
+    for name in sc.VALIDATION_RUNS:
+        cfg, data = sc.validation_run(name)
+        pipe = pkg["Pipeline"](cfg)
+        reset_launches(pkg)
+        run_through(pipe, data)
+        launches = read_launches(pkg)
+        traj = pipe.get_trajectory()
+        hc = pipe.health_check()
+        out = {"ate_raw_m": simlib.ate_rmse(traj, data),
+               "ate_aligned_m": simlib.ate_rmse_aligned(traj, data)}
+        P = pipe.P.double().cpu().numpy()
+        bounds = {"no_nan": not hc["nan"]}
+        if name == "bias_walk":  # test (a)
+            bg = pipe.x.bg.double().cpu().numpy()
+            ba = pipe.x.ba.double().cpu().numpy()
+            k_end = int(np.argmin(np.abs(data.imu_t - traj[-1][0])))
+            gt_bg, gt_ba = data.gt_gyr_bias[k_end], data.gt_acc_bias[k_end]
+            bounds.update(
+                scans=len(traj) > 550, ate=out["ate_raw_m"] < 0.30,
+                p_eig=hc["p_max_eig"] < 1e-2 and hc["p_min_eig"] > 0,
+                gyro_z_bias=abs(bg[2] - gt_bg[2]) < 1.5e-3,
+                acc_x_bias=abs(ba[0] - gt_ba[0]) < 0.03,
+                walk_moved=bool(np.linalg.norm(
+                    gt_bg - sc.VALIDATION_BIAS_G) > 5e-4))
+            extra = {"bias_err": [float(bg[2] - gt_bg[2]),
+                                  float(ba[0] - gt_ba[0])]}
+        else:  # test (b)
+            est, gt = simlib._matched_positions(traj, data)
+            err = (est - (est[0] - gt[0])) - gt
+            bounds.update(
+                p_max=bool(np.isfinite(hc["p_max_eig"]))
+                and hc["p_max_eig"] < 1e-1,
+                n_eff=int(pipe.diags[-1].n_effective) > 100,
+                y=float(np.abs(err[:, 1]).max()) < 0.05,
+                z=float(np.abs(err[:, 2]).max()) < 0.10,
+                x_unobservable=P[0, 0] > 3.0 * P[1, 1]
+                and P[0, 0] > 3.0 * P[2, 2])
+            extra = {"max_err_yz_m": [float(np.abs(err[:, 1]).max()),
+                                      float(np.abs(err[:, 2]).max())],
+                     "P_diag_xyz": [float(P[i, i]) for i in range(3)]}
+        bounds = {k: bool(v) for k, v in bounds.items()}
+        ref = f"validation_{name}"
+        log({"phase": "validation", "run": name, "scans": len(traj), **out,
+             "jax_ate_m": JAX_ATE_M[ref], "bounds": bounds, **extra,
+             "health": hc, "launches": {k: {f"r{r}": n for r, n in v.items()}
+                                        for k, v in launches.items()}})
+        check(all(bounds.values()),
+              f"validation {name}: tests/test_validation.py's bounds "
+              f"{bounds}")
+        check_health(f"validation {name}", hc, ref)
+        check_ate(f"validation {name}", out, ref)
+        check(launches["knn"][8] > 0 and launches["graph_if"][0] > 0,
+              f"validation {name}: the R=8 kernel or the IF nodes never ran")
+        by_path[ref] = launches
     return by_path
 
 
@@ -2976,14 +3571,26 @@ def main() -> int:
         pkg["launch"], fleet_ouster64_rank, 1, args=(ouster_cfg, ouster_sim, {
             "float32": traj_ouster, "float64": traj_f64}),
         backend="gloo", device="cuda:0", timeout_s=600.0)
+    # 22. phase 4's run with the rescore re-search, and 23-24. the prune
+    # removing points and tests/test_validation.py's runs, in two worker
+    # processes of their own (phase 22 holds the profiler's count of kNN
+    # kernels to the counters'), beside phase 12's host-bound oracle too;
+    # their checks hold bits, counts and ATE, not times
+    rescore = in_background(
+        pkg["launch"], rescore_worker, 1, args=(avia_sim,), backend="gloo",
+        device="cuda:0", timeout_s=600.0)
+    prune_validation = in_background(
+        pkg["launch"], prune_validation_worker, 1, backend="gloo",
+        device="cuda:0", timeout_s=600.0)
     # 12. the float64 pipeline against the oracle
     l_oracle, l_oracle_f32 = phase_oracle(pkg)
 
     lap("12")
     l_fleet_ouster = fleet_ouster()[0]
     ranks_ouster = two_ranks()
+    l_late = {**rescore()[0], **prune_validation()[0]}
 
-    lap("15+10")
+    lap("15+10+22-24")
     # 14. the avia_batch4 fleet through the batched step
     l_batch4 = phase_fleet_batch4(pkg, card)
 
@@ -3001,7 +3608,7 @@ def main() -> int:
     # 21. the benchmark runner, in a worker process
     l_bench = phase_bench(pkg, card)
     lap("21_bench")
-    by_path = {**l_presets, **l_bags, **l_bench,
+    by_path = {**l_presets, **l_bags, **l_bench, **l_late,
                "fleet_batch4": l_batch4, "fleet_ouster64": l_fleet_ouster,
                "avia": l_avia, "ouster64": l_ouster,
                "ouster64_grouped": l_grouped, "cli_bag": l_cli,

@@ -64,6 +64,23 @@
 // n * 5 and n * 5 after.  Each block works as above on its own stream's
 // tile; with S = 1 the launch is the single search's, bit for bit.
 //
+// The candidates variant (knn_tile_cand_kernel, R = 8 only): the same
+// search, which also writes the candidate block that the plain version
+// returns with return_candidates (hash_map.search_rows), for the
+// rescore re-search (Config.rescore_research) to re-rank: cand_pts
+// (n, R * B, 3), every slot's raw x, y, z, and cand_ok (n, R * B) uint8,
+// whether the slot is live (w == 0) inside the region's AABB in a row that
+// is not a duplicate.  Row r of a query's block is the r-th of its R
+// buckets in sorted order; a bucket held by several region cells keeps its
+// first sorted position, and the positions after it are the sentinel
+// bucket H - 1's row with every slot dead.  Each lane of a group holds its
+// region cell's sorted position (a stable rank, by shuffles within the
+// group); the group writes each of its query's rows as its chunk is
+// staged, from the ring, and the sentinel rows from the map after the last
+// chunk.  The block is copied, not computed: bit for bit the plain
+// version's, dead slots included.  Its bytes, n * R * B * (3 sizeof(T) +
+// 1), dominate the launch: this variant is write-bound.
+//
 // Bitwise agreement with the plain version: see knn_common.cuh, which holds
 // the hash, the top-5 and the row scoring this kernel shares with
 // knn_grouped.cu.
@@ -166,13 +183,50 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-template <class T, int R>
-__global__ void __launch_bounds__(32 * WARPS)
-knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
-                const T* __restrict__ queries, int n, int B,
-                uint32_t bucket_mask, T cell, float span, int ring_rows,
-                T* __restrict__ nbrs, T* __restrict__ sq,
-                uint8_t* __restrict__ found) {
+// Sorted position of the bucket of lane sub among the R buckets of the
+// group of lanes from `base`: the buckets below it, and the equal ones on
+// lower lanes (a stable rank).  All 32 lanes call.
+template <int R>
+__device__ __forceinline__ int sorted_rank(uint32_t bucket, int sub,
+                                           int base) {
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const uint32_t bj = __shfl_sync(FULL, bucket, base + j);
+    rank += (bj < bucket || (bj == bucket && j < sub)) ? 1 : 0;
+  }
+  return rank;
+}
+
+// One row of a query's candidate block, by the L lanes of its group (lane
+// sub): the row's x, y, z interleaved as (B, 3) into pts, and each slot's
+// flag into ok: live (w == 0) inside the region's AABB, or none for a
+// duplicate's sentinel row (`dead`).
+template <class T, int L>
+__device__ __forceinline__ void write_cand_row(const T* row, int B,
+                                               const QueryT<T>& q, bool dead,
+                                               T* pts, uint8_t* ok, int sub) {
+  for (int i = sub; i < 3 * B; i += L) {
+    const int s = i / 3;
+    pts[i] = row[(i - 3 * s) * B + s];
+  }
+  for (int s = sub; s < B; s += L) {
+    const T x = row[s], y = row[B + s], z = row[2 * B + s];
+    const bool oob = x < q.lox || x >= q.hix || y < q.loy || y >= q.hiy ||
+                     z < q.loz || z >= q.hiz;
+    ok[s] = (!dead && !oob && row[3 * B + s] == T(0)) ? 1 : 0;
+  }
+}
+
+// The search of one tile of queries (a block); with CAND it also writes
+// the candidate block (see the header).
+template <class T, int R, bool CAND>
+__device__ __forceinline__ void tile_search(
+    const T* __restrict__ packed, long long map_stride,
+    const T* __restrict__ queries, int n, int B, uint32_t bucket_mask,
+    T cell, float span, int ring_rows, T* __restrict__ nbrs,
+    T* __restrict__ sq, uint8_t* __restrict__ found,
+    T* __restrict__ cand_pts, uint8_t* __restrict__ cand_ok) {
   constexpr int L = Tile<R>::L, TQ = Tile<R>::Q;
   // this block's stream: its map, queries and outputs
   const size_t stream = blockIdx.y;
@@ -181,6 +235,10 @@ knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
   nbrs += stream * K * 3 * (size_t)n;
   sq += stream * K * (size_t)n;
   found += stream * K * (size_t)n;
+  if (CAND) {
+    cand_pts += stream * (size_t)n * R * B * 3;
+    cand_ok += stream * (size_t)n * R * B;
+  }
   // 2 * ring_rows rows, then the live slots of the chunk being scored
   extern __shared__ __align__(128) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
@@ -262,6 +320,9 @@ knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
   const uint32_t b = has_cell ? table[h] : EMPTY;
   const bool first = first_of_bucket<R>(b, sub, base);
   const uint32_t my_row = (has_cell && first) ? row_of_slot[h] : NO_ROW;
+  // the region cell's row in the query's candidate block
+  const int my_rank = CAND ? sorted_rank<R>(b, sub, base) : 0;
+  const size_t block_row = (size_t)qi * R;
 
   // 2-3. stage the union chunk by chunk and score
   TopKT<T> top;
@@ -309,8 +370,25 @@ knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
       const T* row = stage + (size_t)j * row_elems;
       for (int i = sub; i < live_count[j]; i += L)
         score_slot(row, live_slot[j * B + i], union_bucket[u], B, q, top);
+      if (CAND) {
+        const size_t at = (block_row + __shfl_sync(group, my_rank, r)) * B;
+        write_cand_row<T, L>(row, B, q, false, cand_pts + 3 * at,
+                             cand_ok + at, sub);
+      }
     }
     __syncthreads();
+  }
+  if (CAND) {
+    // a duplicate's position: the sentinel bucket's row, every slot dead
+    uint32_t dups = __ballot_sync(FULL, has_cell && !first) & group;
+    const T* sentinel = packed + (size_t)bucket_mask * row_elems;
+    while (dups) {
+      const int r = __ffs(dups) - 1;
+      dups &= dups - 1;
+      const size_t at = (block_row + __shfl_sync(group, my_rank, r)) * B;
+      write_cand_row<T, L>(sentinel, B, q, true, cand_pts + 3 * at,
+                           cand_ok + at, sub);
+    }
   }
 
   if (active)
@@ -321,35 +399,70 @@ knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
 }
 
 template <class T, int R>
-int configure() {
+__global__ void __launch_bounds__(32 * WARPS)
+knn_tile_kernel(const T* __restrict__ packed, long long map_stride,
+                const T* __restrict__ queries, int n, int B,
+                uint32_t bucket_mask, T cell, float span, int ring_rows,
+                T* __restrict__ nbrs, T* __restrict__ sq,
+                uint8_t* __restrict__ found) {
+  tile_search<T, R, false>(packed, map_stride, queries, n, B, bucket_mask,
+                           cell, span, ring_rows, nbrs, sq, found, nullptr,
+                           nullptr);
+}
+
+// The search that also writes the candidate block, at R = 8 (the rescore
+// re-ranks the 2x2x2 block only).
+template <class T, int R>
+__global__ void __launch_bounds__(32 * WARPS)
+knn_tile_cand_kernel(const T* __restrict__ packed, long long map_stride,
+                     const T* __restrict__ queries, int n, int B,
+                     uint32_t bucket_mask, T cell, float span, int ring_rows,
+                     T* __restrict__ nbrs, T* __restrict__ sq,
+                     uint8_t* __restrict__ found, T* __restrict__ cand_pts,
+                     uint8_t* __restrict__ cand_ok) {
+  static_assert(R == 8, "the candidate block is the 2x2x2 region's");
+  tile_search<T, R, true>(packed, map_stride, queries, n, B, bucket_mask,
+                          cell, span, ring_rows, nbrs, sq, found, cand_pts,
+                          cand_ok);
+}
+
+template <class Kernel>
+int configure(Kernel kernel) {
   int bytes = 0;
-  int err = max_dynamic_smem(knn_tile_kernel<T, R>, &bytes);
+  int err = max_dynamic_smem(kernel, &bytes);
   if (err) return err;
-  return (int)cudaFuncSetAttribute(knn_tile_kernel<T, R>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   bytes);
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // The search at R = 8 or, with `wide`, R = 27, over `streams` maps and
 // query sets (grid.y); the block takes 2 * ring_rows * 4B * sizeof(T)
 // bytes of dynamic shared memory for the ring, and ring_rows * B * 2 for
 // the live lists.
+// With cand_pts and cand_ok (R = 8 only: `wide` must be 0) the
+// candidates variant, which also writes the block.
 template <class T>
 int launch(const T* packed, long long map_stride, int streams,
            const T* queries, int n, int bucket_slots,
            unsigned int bucket_mask, T cell, float span, int wide,
            int ring_rows, T* nbrs, T* sq, unsigned char* found,
-           void* stream) {
+           T* cand_pts, unsigned char* cand_ok, void* stream) {
   if (n <= 0 || streams <= 0) return 0;
+  const bool cand = cand_pts != nullptr;
   if (ring_rows < 1 || ring_rows > RING_ROWS_MAX || streams > 65535 ||
-      map_stride < 0)
+      map_stride < 0 || (cand && (wide || cand_ok == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 block(32 * WARPS);
   const size_t smem =
       (size_t)2 * ring_rows * 4 * sizeof(T) * bucket_slots  // the ring
       + (size_t)ring_rows * bucket_slots * 2;               // live lists
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide) {
+  if (cand) {
+    const dim3 grid((n + Tile<8>::Q - 1) / Tile<8>::Q, streams);
+    knn_tile_cand_kernel<T, 8><<<grid, block, smem, s>>>(
+        packed, map_stride, queries, n, bucket_slots, bucket_mask, cell,
+        span, ring_rows, nbrs, sq, found, cand_pts, cand_ok);
+  } else if (wide) {
     const dim3 grid((n + Tile<27>::Q - 1) / Tile<27>::Q, streams);
     knn_tile_kernel<T, 27><<<grid, block, smem, s>>>(
         packed, map_stride, queries, n, bucket_slots, bucket_mask, cell,
@@ -370,10 +483,12 @@ extern "C" {
 // Raises the kernels' dynamic shared-memory limit to what a block may take
 // on the current device; call once per device before the first launch.
 int knn_configure() {
-  int err = configure<float, 8>();
-  if (!err) err = configure<float, 27>();
-  if (!err) err = configure<double, 8>();
-  return err ? err : configure<double, 27>();
+  int err = configure(knn_tile_kernel<float, 8>);
+  if (!err) err = configure(knn_tile_kernel<float, 27>);
+  if (!err) err = configure(knn_tile_kernel<double, 8>);
+  if (!err) err = configure(knn_tile_kernel<double, 27>);
+  if (!err) err = configure(knn_tile_cand_kernel<float, 8>);
+  return err ? err : configure(knn_tile_cand_kernel<double, 8>);
 }
 
 // Launches the search on `stream` and returns cudaGetLastError() (0 = ok).
@@ -393,7 +508,7 @@ int knn_search_f32(const float* packed, long long map_stride, int streams,
                    unsigned char* found, void* stream) {
   return launch<float>(packed, map_stride, streams, queries, n, bucket_slots,
                        bucket_mask, cell, span, wide, ring_rows, nbrs, sq,
-                       found, stream);
+                       found, nullptr, nullptr, stream);
 }
 
 int knn_search_f64(const double* packed, long long map_stride, int streams,
@@ -403,7 +518,34 @@ int knn_search_f64(const double* packed, long long map_stride, int streams,
                    unsigned char* found, void* stream) {
   return launch<double>(packed, map_stride, streams, queries, n,
                         bucket_slots, bucket_mask, cell, span, wide,
-                        ring_rows, nbrs, sq, found, stream);
+                        ring_rows, nbrs, sq, found, nullptr, nullptr, stream);
+}
+
+// The candidates variant at R = 8: the search's outputs as above, and the
+// block, cand_pts (streams, n, 8B, 3) of the search's type and cand_ok
+// (streams, n, 8B) uint8, contiguous.
+int knn_search_candidates_f32(const float* packed, long long map_stride,
+                              int streams, const float* queries, int n,
+                              int bucket_slots, unsigned int bucket_mask,
+                              float cell, float span, int ring_rows,
+                              float* nbrs, float* sq, unsigned char* found,
+                              float* cand_pts, unsigned char* cand_ok,
+                              void* stream) {
+  return launch<float>(packed, map_stride, streams, queries, n, bucket_slots,
+                       bucket_mask, cell, span, 0, ring_rows, nbrs, sq,
+                       found, cand_pts, cand_ok, stream);
+}
+
+int knn_search_candidates_f64(const double* packed, long long map_stride,
+                              int streams, const double* queries, int n,
+                              int bucket_slots, unsigned int bucket_mask,
+                              double cell, float span, int ring_rows,
+                              double* nbrs, double* sq, unsigned char* found,
+                              double* cand_pts, unsigned char* cand_ok,
+                              void* stream) {
+  return launch<double>(packed, map_stride, streams, queries, n,
+                        bucket_slots, bucket_mask, cell, span, 0, ring_rows,
+                        nbrs, sq, found, cand_pts, cand_ok, stream);
 }
 
 const char* knn_error_string(int err) {

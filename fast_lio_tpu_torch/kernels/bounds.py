@@ -74,19 +74,52 @@ def knn_bound(m: hm.Map, cfg: hm.MapConfig, queries: torch.Tensor,
                  rows, nbytes, ops)
 
 
+def candidate_block_bytes(n: int, cfg: hm.MapConfig, itemsize: int) -> int:
+    """Bytes of the candidate block of n queries at R = 8 that the
+    candidates variant writes: each slot's x, y, z and its flag."""
+    return n * 8 * cfg.bucket_slots * (3 * itemsize + 1)
+
+
+def knn_candidates_bound(m: hm.Map, cfg: hm.MapConfig,
+                         queries: torch.Tensor) -> Bound:
+    """The bound of ``knn_search_candidates(m, cfg, queries)``: the
+    search's (``knn_bound`` at R = 8) with the candidate block's bytes
+    written once added (``candidate_block_bytes``); the block is copied,
+    no operation."""
+    b = knn_bound(m, cfg, queries)
+    nbytes = b.nbytes + candidate_block_bytes(
+        queries.shape[0], cfg, m.packed.element_size())
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = b.ops / FLOPS[m.packed.dtype] * 1e3
+    return Bound(max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations",
+                 b.distinct_rows, nbytes, b.ops)
+
+
+def knn_candidates_bound_streams(maps, cfg: hm.MapConfig, queries) -> Bound:
+    """``knn_candidates_bound`` of one launch over the streams: their
+    bytes and operations added."""
+    return _added([knn_candidates_bound(m, cfg, q)
+                   for m, q in zip(maps, queries)], maps[0].packed.dtype)
+
+
+def _added(parts, dtype) -> Bound:
+    nbytes = sum(b.nbytes for b in parts)
+    ops = sum(b.ops for b in parts)
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FLOPS[dtype] * 1e3
+    return Bound(max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations",
+                 sum(b.distinct_rows for b in parts), nbytes, ops)
+
+
 def knn_bound_streams(maps, cfg: hm.MapConfig, queries, wide: bool = False
                       ) -> Bound:
     """The bound of one batched search (``knn_search_cuda_batched``): each
     stream's queries against its own map, so the streams' bytes (each
     stream's distinct rows once) and operations add up."""
-    parts = [knn_bound(m, cfg, q, wide) for m, q in zip(maps, queries)]
-    nbytes = sum(b.nbytes for b in parts)
-    ops = sum(b.ops for b in parts)
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FLOPS[maps[0].packed.dtype] * 1e3
-    return Bound(max(t_bytes, t_ops),
-                 "bytes" if t_bytes >= t_ops else "operations",
-                 sum(b.distinct_rows for b in parts), nbytes, ops)
+    return _added([knn_bound(m, cfg, q, wide) for m, q in zip(maps, queries)],
+                  maps[0].packed.dtype)
 
 
 # the grouped search's prep, per query: the queries in and order (int32)

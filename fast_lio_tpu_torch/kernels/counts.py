@@ -37,7 +37,10 @@ def counters() -> Counts:
     return [knn.launches, knn.launches_f64, knn.batched_launches,
             knn.batched_launches_f64, knn_grouped.launches,
             knn_grouped.prep_launches, graph_if.launches,
-            graph_if.while_launches, segment_sum.launches, segment_sum.batched_launches]
+            graph_if.while_launches, segment_sum.launches,
+            segment_sum.batched_launches, knn.cand_launches,
+            knn.cand_launches_f64, knn.cand_batched_launches,
+            knn.cand_batched_launches_f64]
 
 
 def snapshot() -> Counts:

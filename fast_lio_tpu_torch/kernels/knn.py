@@ -26,12 +26,22 @@ single-stream step) searches its lanes.  ``knn_search`` is the custom op
 rule makes that one launch on CUDA, or runs the plain version per stream
 on the CPU.
 
+The rescore re-search (``Config.rescore_research``) takes the search's
+candidate block too: ``knn_search_candidates``, the custom op
+``fast_lio_tpu_torch::knn_search_candidates``, returns what
+``hash_map.knn_search(..., return_candidates=True)`` returns (at R = 8),
+through the kernel's candidates variant (``knn_tile_cand_kernel``) on CUDA,
+the plain version on the CPU, and over a stream axis under vmap.
+
 Routing: a CPU tensor goes to the plain version; a CUDA tensor always goes
 to the kernel (which is built at first use), and anything the kernel does
 not take raises, another dtype included.  ``launches`` counts the float32
 kernel's single launches per R, ``launches_f64`` the float64 kernel's;
 ``batched_launches`` and ``batched_launches_f64`` count the launches over
-a stream axis, one per launch whatever its count of streams.
+a stream axis, one per launch whatever its count of streams.  The
+candidates variant's launches are counted apart, in ``cand_launches``,
+``cand_launches_f64``, ``cand_batched_launches`` and
+``cand_batched_launches_f64`` (keyed by R, 8).
 """
 from __future__ import annotations
 
@@ -57,6 +67,11 @@ launches_f64 = {8: 0, 27: 0}
 # step's search), apart from the single searches above
 batched_launches = {8: 0, 27: 0}
 batched_launches_f64 = {8: 0, 27: 0}
+# the candidates variant's (knn_search_candidates_cuda and _batched)
+cand_launches = {8: 0}
+cand_launches_f64 = {8: 0}
+cand_batched_launches = {8: 0}
+cand_batched_launches_f64 = {8: 0}
 
 
 def ring_rows(B: int, itemsize: int = 4) -> int:
@@ -104,6 +119,11 @@ def _lib():
                                                ctypes.c_double)):
         fn.argtypes = [p, ctypes.c_longlong, i, p, i, i, ctypes.c_uint, cell,
                        f, i, i, p, p, p, p]
+        fn.restype = i
+    for fn, cell in ((lib.knn_search_candidates_f32, f),
+                     (lib.knn_search_candidates_f64, ctypes.c_double)):
+        fn.argtypes = [p, ctypes.c_longlong, i, p, i, i, ctypes.c_uint, cell,
+                       f, i, p, p, p, p, p, p]
         fn.restype = i
     lib.knn_configure.argtypes = []
     lib.knn_configure.restype = i
@@ -185,6 +205,68 @@ def _knn_vmap(info, in_dims, packed, queries, h_log2, bucket_slots,
 torch.library.register_vmap("fast_lio_tpu_torch::knn_search", _knn_vmap)
 
 
+def knn_search_candidates(m: hm.Map, cfg: hm.MapConfig,
+                          queries: torch.Tensor,
+                          k: int = hm.NUM_MATCH_POINTS):
+    """(nbrs, sq, found, cand_pts (N, 8B, 3), cand_ok (N, 8B)): what
+    ``hash_map.knn_search(m, cfg, queries, k, return_candidates=True)``
+    returns, at R = 8.
+
+    The custom op ``fast_lio_tpu_torch::knn_search_candidates``: on CPU
+    tensors that plain version; on CUDA tensors the kernel's candidates
+    variant.  Under ``torch.func.vmap`` its vmap rule searches every
+    stream's own map in one launch (``knn_search_candidates_cuda_batched``),
+    or on the CPU runs the plain version per stream."""
+    return torch.ops.fast_lio_tpu_torch.knn_search_candidates(
+        m.packed, queries, cfg.h_log2, cfg.bucket_slots, cfg.cell_size,
+        cfg.voxel_size, k)
+
+
+@torch.library.custom_op("fast_lio_tpu_torch::knn_search_candidates",
+                         mutates_args=())
+def _cand_op(packed: torch.Tensor, queries: torch.Tensor, h_log2: int,
+             bucket_slots: int, cell_size: float, voxel_size: float, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor, torch.Tensor]:
+    cfg = hm.MapConfig(h_log2, bucket_slots, cell_size, voxel_size)
+    if _on_cpu(packed, queries):
+        return hm.knn_search(hm.Map(packed, None), cfg, queries, k=k,
+                             return_candidates=True)
+    return knn_search_candidates_cuda(packed, cfg, queries, k=k)
+
+
+@_cand_op.register_fake
+def _cand_fake(packed, queries, h_log2, bucket_slots, cell_size, voxel_size,
+               k):
+    return empty_candidate_outputs(queries, k, 8 * bucket_slots)
+
+
+def _cand_vmap(info, in_dims, packed, queries, h_log2, bucket_slots,
+               cell_size, voxel_size, k):
+    """The batched candidate search, as ``_knn_vmap``: CUDA, one launch of
+    the candidates variant over the stream axis; CPU, the plain version per
+    stream."""
+    S = info.batch_size
+
+    def lead(t, d):
+        return t.movedim(d, 0) if d is not None else t.expand(S, *t.shape)
+
+    packed, queries = lead(packed, in_dims[0]), lead(queries, in_dims[1])
+    cfg = hm.MapConfig(h_log2, bucket_slots, cell_size, voxel_size)
+    if _on_cpu(packed, queries):
+        per = [hm.knn_search(hm.Map(packed[s], None), cfg, queries[s], k=k,
+                             return_candidates=True) for s in range(S)]
+        out = tuple(torch.stack(o) for o in zip(*per))
+    else:
+        out = knn_search_candidates_cuda_batched(packed, cfg,
+                                                 queries.contiguous(), k=k)
+    return out, (0,) * 5
+
+
+torch.library.register_vmap("fast_lio_tpu_torch::knn_search_candidates",
+                            _cand_vmap)
+
+
 def check_inputs(packed: torch.Tensor, cfg: hm.MapConfig,
                  queries: torch.Tensor, k: int, dtypes=DTYPES) -> None:
     """Raise ValueError on anything the kNN kernels do not take: packed and
@@ -227,6 +309,15 @@ def empty_outputs(queries: torch.Tensor, k: int):
             torch.empty(lead + (k,), dtype=torch.bool, device=dev))
 
 
+def empty_candidate_outputs(queries: torch.Tensor, k: int, C: int):
+    """``empty_outputs`` and the candidate block, (cand_pts (..., N, C, 3)
+    of the queries' dtype, cand_ok (..., N, C) bool), uninitialised."""
+    lead, dev, dt = queries.shape[:-1], queries.device, queries.dtype
+    return (*empty_outputs(queries, k),
+            torch.empty(lead + (C, 3), dtype=dt, device=dev),
+            torch.empty(lead + (C,), dtype=torch.bool, device=dev))
+
+
 def knn_search_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
                     queries: torch.Tensor, k: int = hm.NUM_MATCH_POINTS,
                     wide: bool = False):
@@ -248,6 +339,47 @@ def knn_search_cuda_batched(packed: torch.Tensor, cfg: hm.MapConfig,
     contiguous.  Returns (nbrs (S, N, k, 3), sq (S, N, k), found (S, N, k)),
     stream s's rows what ``knn_search_cuda(packed[s], cfg, queries[s])``
     returns.  On ``torch.cuda.current_stream()``; no sync."""
+    _check_streams(packed, cfg, queries, k)
+    out = empty_outputs(queries, k)
+    if _launch(packed, packed.stride(0), queries.shape[0], queries, cfg,
+               wide, out):
+        (batched_launches_f64 if queries.dtype == torch.float64
+         else batched_launches)[27 if wide else 8] += 1
+    return out
+
+
+def knn_search_candidates_cuda(packed: torch.Tensor, cfg: hm.MapConfig,
+                               queries: torch.Tensor,
+                               k: int = hm.NUM_MATCH_POINTS):
+    """Launch the candidates variant on ``torch.cuda.current_stream()``; no
+    sync.  Returns (nbrs, sq, found, cand_pts, cand_ok)."""
+    check_inputs(packed, cfg, queries, k)
+    out = empty_candidate_outputs(queries, k, 8 * cfg.bucket_slots)
+    if _launch(packed, 0, 1, queries, cfg, False, out):
+        (cand_launches_f64 if queries.dtype == torch.float64
+         else cand_launches)[8] += 1
+    return out
+
+
+def knn_search_candidates_cuda_batched(packed: torch.Tensor,
+                                       cfg: hm.MapConfig,
+                                       queries: torch.Tensor,
+                                       k: int = hm.NUM_MATCH_POINTS):
+    """The candidates variant over a stream axis, as
+    ``knn_search_cuda_batched``: stream s's five outputs what
+    ``knn_search_candidates_cuda(packed[s], cfg, queries[s])`` returns."""
+    _check_streams(packed, cfg, queries, k)
+    out = empty_candidate_outputs(queries, k, 8 * cfg.bucket_slots)
+    if _launch(packed, packed.stride(0), queries.shape[0], queries, cfg,
+               False, out):
+        (cand_batched_launches_f64 if queries.dtype == torch.float64
+         else cand_batched_launches)[8] += 1
+    return out
+
+
+def _check_streams(packed, cfg, queries, k) -> None:
+    """Raise ValueError on a batched launch's inputs the kernel does not
+    take (``knn_search_cuda_batched``)."""
     if packed.dim() != 3 or queries.dim() != 3 or (
             packed.shape[0] != queries.shape[0]):
         raise ValueError(
@@ -259,19 +391,14 @@ def knn_search_cuda_batched(packed: torch.Tensor, cfg: hm.MapConfig,
     check_inputs(packed[0], cfg, queries[0], k)
     if not queries.is_contiguous():
         raise ValueError("queries must be contiguous")
-    out = empty_outputs(queries, k)
-    if _launch(packed, packed.stride(0), queries.shape[0], queries, cfg,
-               wide, out):
-        (batched_launches_f64 if queries.dtype == torch.float64
-         else batched_launches)[27 if wide else 8] += 1
-    return out
 
 
 def _launch(packed, map_stride: int, streams: int, queries, cfg, wide,
             out) -> bool:
     """The kernel over ``streams`` maps ``map_stride`` scalars apart, into
-    ``out`` = (nbrs, sq, found).  Returns whether it launched (not for no
-    query)."""
+    ``out`` = (nbrs, sq, found), or with (nbrs, sq, found, cand_pts,
+    cand_ok) its candidates variant.  Returns whether it launched (not for
+    no query)."""
     H, B = cfg.num_buckets, cfg.bucket_slots
     N = queries.shape[-2]
     if N == 0 or streams == 0:
@@ -281,14 +408,20 @@ def _launch(packed, map_stride: int, streams: int, queries, cfg, wide,
     span = (3 if wide else 2) * cfg.cell_size
     lib = _lib()
     _configure(queries.device.index)
-    search = lib.knn_search_f64 if f64 else lib.knn_search_f32
-    nbrs, sq, found = out
+    nbrs, sq, found = out[:3]
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = search(
-            packed.data_ptr(), map_stride, streams, queries.data_ptr(), N, B,
-            H - 1, float(cfg.cell_size), float(span), int(wide), rows,
-            nbrs.data_ptr(), sq.data_ptr(), found.data_ptr(), stream)
+        head = (packed.data_ptr(), map_stride, streams, queries.data_ptr(),
+                N, B, H - 1, float(cfg.cell_size), float(span))
+        tail = (nbrs.data_ptr(), sq.data_ptr(), found.data_ptr())
+        if len(out) == 5:
+            search = (lib.knn_search_candidates_f64 if f64
+                      else lib.knn_search_candidates_f32)
+            err = search(*head, rows, *tail, out[3].data_ptr(),
+                         out[4].data_ptr(), stream)
+        else:
+            search = lib.knn_search_f64 if f64 else lib.knn_search_f32
+            err = search(*head, int(wide), rows, *tail, stream)
     if err != 0:
         raise RuntimeError(
             f"knn kernel launch failed: {lib.knn_error_string(err).decode()}")

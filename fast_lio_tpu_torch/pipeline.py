@@ -112,15 +112,16 @@ def make_knn_fn(cfg: Config, map_cfg: hm.MapConfig, m: hm.Map):
     unsaturated (``wide_fallback``: the wide search gated on an
     unsaturated query, no host read).
 
-    With ``Config.rescore_research`` the function instead returns the plain
+    With ``Config.rescore_research`` the function instead returns the
     search with its candidate block, ``(nbrs, sq, found, cand_pts,
-    cand_ok)``, on the CPU and on CUDA alike (the JAX package computes it in
-    XLA too); ``lio_step`` re-ranks that block in later iterations.
+    cand_ok)``: ``kernels.knn.knn_search_candidates``, the kernel's
+    candidates variant on CUDA tensors, ``hash_map.knn_search(...,
+    return_candidates=True)`` on CPU tensors (what the JAX package computes
+    in XLA); ``lio_step`` re-ranks that block in later iterations.
     """
     _check_knn_backend(cfg)
     if cfg.rescore_research:
-        return lambda q, mask: hm.knn_search(m, map_cfg, q,
-                                             return_candidates=True)
+        return lambda q, mask: knn_kernel.knn_search_candidates(m, map_cfg, q)
     search = (knn_grouped.knn_search if cfg.knn_backend == "grouped"
               else knn_kernel.knn_search)
 

@@ -44,11 +44,12 @@ The measurement is bench.py's (bench.py:19-33):
 ``FAST_LIO_RESCORE=1`` runs bench.py's A/B (bench.py:252-266): converged
 re-searches re-rank the cached candidate block, refused with bench.py's
 message on the scenarios with the wide fallback; ``extra.rescore`` is the
-value that ran.  It runs on the CPU only: the rescore takes the plain
-candidate block, which the CUDA kernel does not return, so on the card its
-two sides would differ in their search, not in the rescore alone; there
-the variable is ignored with a message.  The runner does not profile: ``torch.profiler`` drops
-device activities late in a long process.
+value that ran.  On the card the scan's one full search is the kNN
+kernel's candidates variant (``knn_backend`` "cuda_per_query_candidates"),
+which writes the block the rescore re-ranks, so both sides of the A/B
+search with the kernel; on the CPU both take the plain versions
+("plain_candidates").  The runner does not profile: ``torch.profiler``
+drops device activities late in a long process.
 """
 from __future__ import annotations
 
@@ -81,22 +82,13 @@ SKIP_WARM_S = 300.0
 BATCH_PREFIX = "avia_batch"
 
 
-def configure(name: str, cfg: Config, device: torch.device,
-              environ=os.environ) -> Config:
+def configure(name: str, cfg: Config, environ=os.environ) -> Config:
     """``cfg`` as the run takes it: with ``FAST_LIO_RESCORE=1`` the
     re-search re-ranks the cached candidate block (``rescore_research``),
     except where the wide fallback runs, which it would change
     (``pipeline._check_knn_backend`` refuses the pair): there the variable
-    is ignored with bench.py's message.  It is ignored on the card too: the
-    rescore needs the plain candidate block, so its side of the A/B would
-    search without the kernel the other side launches."""
+    is ignored with bench.py's message."""
     if environ.get("FAST_LIO_RESCORE") != "1":
-        return cfg
-    if torch.device(device).type == "cuda":
-        print("FAST_LIO_RESCORE=1 ignored on the card: the rescore re-ranks "
-              "the plain candidate block, which the CUDA kernel does not "
-              "return, so the A/B would compare the plain search with the "
-              "kernel (--device cpu runs it)", file=sys.stderr)
         return cfg
     if cfg.knn_wide_fallback:
         print(f"FAST_LIO_RESCORE=1 ignored: scenario {name!r} uses "
@@ -128,11 +120,11 @@ def make_packets(cfg: Config, data: sim.SimData) -> List[ScanPacket]:
 
 
 def knn_backend(cfg: Config, device: torch.device) -> str:
-    """The search the run's step makes (``configure`` keeps the rescore,
-    the plain candidate block, off the card)."""
-    if cfg.rescore_research:  # the candidate block, as JAX computes it
-        return "plain_candidates"
-    return "cuda_per_query" if device.type == "cuda" else "plain"
+    """The search the run's step makes: the per-query kernel, or its
+    candidates variant under the rescore, on the card; the plain versions
+    on the CPU."""
+    name = "cuda_per_query" if device.type == "cuda" else "plain"
+    return f"{name}_candidates" if cfg.rescore_research else name
 
 
 def _drain(device: torch.device) -> None:
@@ -207,7 +199,7 @@ def run(name: str, duration: float = scenarios.DURATION_S,
     line as a dict."""
     device = torch.device(device)
     cfg, data = scenarios.scenario(name, duration)
-    cfg = configure(name, cfg, device)
+    cfg = configure(name, cfg)
     packets = make_packets(cfg, data)
     if len(packets) <= N_WARM + 1:
         raise ValueError(f"{name} at {duration} s makes {len(packets)} "

@@ -44,9 +44,14 @@ the kernel's stream axis (``knn_search_cuda_batched``, the batched step's
 search): each map made as above from the sim run of another seed (0-3,
 with 0.01 m of range noise, which the seed draws), each stream its own
 scan's queries; their plain version is the plain
-search run per stream, their bound the streams' bounds added.  Prints one
-JSON line per search and query order, then the card's name and power
-limit.
+search run per stream, their bound the streams' bounds added.  The
+candidates rows (``knn_cand_r8``, ``knn_cand_f64_r8``,
+``knn_cand_batched_r8``) time the kernel's candidates variant, the rescore
+re-search's search (``knn_search_candidates_cuda`` and ``_batched``), on
+the R = 8 cases: their plain version is ``knn_search(...,
+return_candidates=True)``, their bound ``bounds.knn_candidates_bound`` (the
+search's bytes and the candidate block's).  Prints one JSON line per
+search and query order, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -420,6 +425,53 @@ def measure_batched(case: BatchedCase, reps: int) -> dict:
             for s, m in enumerate(case.maps)], max(5, reps // 5))}}
 
 
+def _shape(cfg: hm.MapConfig, q: torch.Tensor, R: int) -> dict:
+    lead = dict(S=q.shape[0]) if q.dim() == 3 else {}
+    return dict(**lead, N=q.shape[-2], R=R, B=cfg.bucket_slots,
+                H=cfg.num_buckets)
+
+
+def measure_candidates(case: Case, reps: int, with_plain: bool = True
+                       ) -> dict:
+    """The row of the candidates variant on ``case`` (R = 8): its times,
+    its bound (the search's and the block's bytes), the plain version's
+    time."""
+    m, cfg, q = case.m, case.cfg, case.queries
+    if case.wide:
+        raise ValueError("the candidate block is the R = 8 search's")
+    bound = bounds.knn_candidates_bound(m, cfg, q)
+    name = (f"knn_cand{'_f64' if q.dtype == torch.float64 else ''}"
+            f"_{case.tag}")
+    row = {"name": name, "order": case.order, "shape": _shape(cfg, q, 8),
+           **time_search(lambda: knn.knn_search_candidates_cuda(
+               m.packed, cfg, q), reps),
+           "bound_us": 1e3 * bound.ms, "bound_by": bound.by,
+           "distinct_rows": bound.distinct_rows, "bound_bytes": bound.nbytes}
+    if with_plain:
+        row["plain_us"] = stream_us(lambda: hm.knn_search(
+            m, cfg, q, return_candidates=True), max(5, reps // 5))
+    return {name: row}
+
+
+def measure_candidates_batched(case: BatchedCase, reps: int) -> dict:
+    """``measure_candidates`` of one launch over the streams of ``case``
+    (``knn_search_candidates_cuda_batched``): the plain version per
+    stream, the streams' bounds added."""
+    cfg, q = case.cfg, case.queries
+    bound = bounds.knn_candidates_bound_streams(case.maps, cfg, q)
+    name = (f"knn_cand_batched{'_f64' if q.dtype == torch.float64 else ''}"
+            f"_{case.tag}")
+    return {name: {
+        "name": name, "order": "main", "shape": _shape(cfg, q, 8),
+        **time_search(lambda: knn.knn_search_candidates_cuda_batched(
+            case.packed, cfg, q), reps),
+        "bound_us": 1e3 * bound.ms, "bound_by": bound.by,
+        "distinct_rows": bound.distinct_rows, "bound_bytes": bound.nbytes,
+        "plain_us": stream_us(lambda: [
+            hm.knn_search(m, cfg, q[s], return_candidates=True)
+            for s, m in enumerate(case.maps)], max(5, reps // 5))}}
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -440,10 +492,16 @@ def main(argv=None) -> int:
         for tag in CASES:
             for order in ("main", "shuffled"):
                 case = make_case(tag, order, dtype=dtype)
-                for row in measure(case, args.reps).values():
+                rows = measure(case, args.reps)
+                if not case.wide:
+                    rows.update(measure_candidates(case, args.reps))
+                for row in rows.values():
                     print(json.dumps(row), flush=True)
             bcase = make_batched_case(tag, dtype=dtype)
-            for row in measure_batched(bcase, args.reps).values():
+            rows = measure_batched(bcase, args.reps)
+            if not bcase.wide:
+                rows.update(measure_candidates_batched(bcase, args.reps))
+            for row in rows.values():
                 print(json.dumps(row), flush=True)
     for lib in ("knn", "knn_grouped"):
         print(json.dumps({"ptxas": lib, "kernels": build.kernel_usage(lib)}),

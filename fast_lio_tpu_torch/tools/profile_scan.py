@@ -241,13 +241,18 @@ def executed_per_scan(cfg, gated: bool, iterations, ran) -> dict:
     """What the step executed a scan over a window: the update's passes
     (the iterations where a WHILE node runs them, ``gated``, else every pass
     of an updating scan), the re-searches and wide searches (the kNN search
-    launches counted as run at R = 8 and R = 27; ``ran`` is
-    ``counts.since`` over the window, settled), and their sum, which the
-    profiler's ``knn_search_launches_per_scan`` must equal."""
+    launches counted as run at R = 8 and R = 27, or under
+    ``rescore_research`` the candidates variant's one search a scan;
+    ``ran`` is ``counts.since`` over the window, settled), and their sum,
+    which the profiler's ``knn_search_launches_per_scan`` must equal."""
     n = len(iterations)
+    f64 = cfg.compute_dtype == "float64"
     if cfg.knn_backend == "grouped":
         search = knn_grouped.launches
-    elif cfg.compute_dtype == "float64":
+    elif cfg.rescore_research:  # the scan's one search, with its block
+        search = (knn_kernel.cand_launches_f64 if f64
+                  else knn_kernel.cand_launches)
+    elif f64:
         search = knn_kernel.launches_f64
     else:
         search = knn_kernel.launches

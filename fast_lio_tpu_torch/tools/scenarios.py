@@ -158,13 +158,18 @@ def scenario(name: str, duration: float = DURATION_S
         sim_cfg = sim.SimConfig(duration=duration, scan_period=0.01,
                                 n_rings=8, n_azimuth=80, imu_rate=400.0)
     else:  # velodyne_outdoor
-        return cfg, sim.generate(
-            sim.SimConfig(duration=duration, n_rings=16, n_azimuth=320,
-                          elev_min=-22.0, elev_max=8.0, max_range=100.0,
-                          range_noise=0.01),
-            traj=sim.Trajectory(radius=12.0, omega=0.4),
-            world=outdoor_world())
+        return cfg, outdoor_run(duration)
     return cfg, sim.generate(sim_cfg)
+
+
+def outdoor_run(duration: float, n_azimuth: int = 320) -> sim.SimData:
+    """velodyne_outdoor's simulated run: 16 rings from -22 to 8 degrees,
+    ``n_azimuth`` columns, on a 12 m circle in the outdoor hall."""
+    return sim.generate(
+        sim.SimConfig(duration=duration, n_rings=16, n_azimuth=n_azimuth,
+                      elev_min=-22.0, elev_max=8.0, max_range=100.0,
+                      range_noise=0.01),
+        traj=sim.Trajectory(radius=12.0, omega=0.4), world=outdoor_world())
 
 
 def preset_run(name: str, duration: float = CUT_DURATION_S
@@ -205,3 +210,75 @@ def batch_scenario(name: str, duration: float = DURATION_S
         return PRESETS["avia"], batch_runs(4, duration)
     raise ValueError(
         f"unknown fleet scenario {name!r}: one of {', '.join(BATCH_NAMES)}")
+
+
+# The local map's prune with removals (``chip_smoke.py`` phase
+# ``prune_hall``, tests/test_torch_prune.py): velodyne_outdoor's run with a
+# 10 m detection range and a 32 m local-map cube, in float64.  The cube
+# (side 32 m, moved when the sensor comes within MOV_THRESHOLD * det_range
+# = 15 m of a face) slides as the sensor circles the hall, and the prune
+# frees every map point it leaves; with a 1000 m cube it never slides.
+PRUNE_DET_RANGE = 10.0
+PRUNE_CUBE_SIDE = 32.0
+NO_PRUNE_CUBE_SIDE = 1000.0
+# the CPU test's cut: 128 columns, 2048/1024-point pads
+PRUNE_SMALL = dict(n_azimuth=128, n_points_max=2048, n_ds_max=1024)
+
+
+def prune_run(full: bool = True, cube_side_length: float = PRUNE_CUBE_SIDE,
+              duration: float = BENCH_DURATION_S
+              ) -> Tuple[Config, sim.SimData]:
+    """(config, simulated run) of the prune's hall: velodyne_outdoor's
+    config and run (``full``: its 320 columns and 8192/4096-point pads;
+    else ``PRUNE_SMALL``) with ``PRUNE_DET_RANGE`` and the local-map cube
+    ``cube_side_length``, in float64."""
+    cfg = dataclasses.replace(config("velodyne_outdoor"),
+                              det_range=PRUNE_DET_RANGE,
+                              cube_side_length=cube_side_length,
+                              compute_dtype="float64")
+    n_azimuth = 320
+    if not full:
+        cfg = dataclasses.replace(
+            cfg, n_points_max=PRUNE_SMALL["n_points_max"],
+            n_ds_max=PRUNE_SMALL["n_ds_max"])
+        n_azimuth = PRUNE_SMALL["n_azimuth"]
+    return cfg, outdoor_run(duration, n_azimuth)
+
+
+# tests/test_validation.py's runs (``chip_smoke.py`` phase ``validation``):
+# its ``_small_cfg`` and its two sims, the 60 s stream with random-walking
+# IMU biases and the 20 s planar-degenerate corridor
+VALIDATION_RUNS = ("bias_walk", "corridor")
+VALIDATION_BIAS_G = (0.002, -0.001, 0.0015)  # the walk's start, rad/s
+
+
+def validation_config(**kw) -> Config:
+    """tests/test_validation.py's ``_small_cfg``."""
+    base = dict(
+        lidar_type=LidarType.AVIA, filter_size_surf=0.3, filter_size_map=0.3,
+        n_points_max=2048, n_ds_max=1024, n_imu_max=32, map_h_log2=13,
+        det_range=40.0, cube_side_length=300.0)
+    base.update(kw)
+    return Config(**base)
+
+
+def validation_run(name: str) -> Tuple[Config, sim.SimData]:
+    """(config, simulated run) of tests/test_validation.py's run ``name``:
+    ``bias_walk`` (its test (a)) or ``corridor`` (test (b))."""
+    if name == "bias_walk":
+        return validation_config(), sim.generate(sim.SimConfig(
+            duration=60.0, n_rings=8, n_azimuth=150,
+            imu_gyr_bias=VALIDATION_BIAS_G, imu_acc_bias=(0.05, -0.03, 0.02),
+            imu_gyr_bias_walk=2e-4, imu_acc_bias_walk=2e-3,
+            imu_acc_noise=0.01, imu_gyr_noise=0.001, range_noise=0.01))
+    if name == "corridor":
+        world = sim.World(room_lo=np.array([-40.0, -2.0, 0.0]),
+                          room_hi=np.array([120.0, 2.0, 3.0]), pillars=())
+        traj = sim.Trajectory(radius=200.0, omega=0.0025, z_amp=0.2)
+        return validation_config(det_range=15.0), sim.generate(
+            sim.SimConfig(duration=20.0, n_rings=8, n_azimuth=150,
+                          max_range=15.0, range_noise=0.01,
+                          imu_acc_noise=0.01, imu_gyr_noise=0.001),
+            traj=traj, world=world)
+    raise ValueError(f"unknown validation run {name!r}: one of "
+                     f"{', '.join(VALIDATION_RUNS)}")

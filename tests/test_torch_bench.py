@@ -286,28 +286,26 @@ def test_fleet_lanes_match_jax_batch(fleet):
 
 
 def test_rescore_ab_follows_benchs_rule(capsys):
-    """``FAST_LIO_RESCORE=1`` (bench.py:252-266): on for avia, refused
-    with bench.py's message where the wide fallback runs (mid360), and
-    refused on the card, where the rescore's plain candidate block would
-    stand against the kernel on the other side of the A/B."""
+    """``FAST_LIO_RESCORE=1`` (bench.py:252-266): on for avia, on the card
+    as on the CPU (the card's search is the kernel's candidates variant),
+    and refused with bench.py's message where the wide fallback runs
+    (mid360)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     avia, mid360 = scenarios.config("avia"), scenarios.config("mid360")
-    assert bench.configure("avia", avia, cpu, {}) == avia
-    on = bench.configure("avia", avia, cpu, {"FAST_LIO_RESCORE": "1"})
+    assert bench.configure("avia", avia, {}) == avia
+    on = bench.configure("avia", avia, {"FAST_LIO_RESCORE": "1"})
     assert on == dataclasses.replace(avia, rescore_research=True)
     assert bench.knn_backend(on, cpu) == "plain_candidates"
+    assert bench.knn_backend(on, cuda) == "cuda_per_query_candidates"
     assert capsys.readouterr().err == ""
-    assert bench.configure("mid360", mid360, cpu,
+    assert bench.configure("mid360", mid360,
                            {"FAST_LIO_RESCORE": "1"}) == mid360
     assert capsys.readouterr().err.startswith(
         "FAST_LIO_RESCORE=1 ignored: scenario 'mid360' uses "
         "knn_wide_fallback")
-    assert bench.configure("avia", avia, cuda,
-                           {"FAST_LIO_RESCORE": "1"}) == avia
-    assert capsys.readouterr().err.startswith(
-        "FAST_LIO_RESCORE=1 ignored on the card")
     assert bench.knn_backend(avia, cuda) == "cuda_per_query"
     assert bench.knn_backend(mid360, cuda) == "cuda_per_query"
+    assert bench.knn_backend(avia, cpu) == "plain"
 
 
 def test_measures_nothing_without_a_card(capsys):

@@ -452,6 +452,27 @@ def test_cuda_tile_kernel_matches_plain_version_on_scenes(scene, B, wide):
             assert got[2].any()
 
 
+def collide_scene(n=96, B=16, device="cpu", seed=66):
+    """(cfg, map, queries (n, 3)) where the candidate block has every kind
+    of row and slot: 16 buckets (h_log2 4), so a query's 8 region cells
+    often share a bucket (duplicates: sentinel rows) and a bucket holds
+    points of other cells (slots outside the region's AABB); the points of
+    x > 1 pruned (dead slots that keep their coordinates); queries where
+    the map is, where it was pruned and where it never was."""
+    rng = np.random.default_rng(seed)
+    cfg = thm.MapConfig(h_log2=4, bucket_slots=B, cell_size=1.0,
+                        voxel_size=0.5)
+    pts = rng.uniform(-3, 3, size=(600, 3)).astype(np.float32)
+    on = torch.ones(len(pts), dtype=torch.bool, device=device)
+    tm = thm.insert(thm.make_map(cfg, torch.float32, device), cfg,
+                    torch.tensor(pts, device=device), on, ~on)
+    thm.prune_outside(tm, torch.tensor([-3.0, -3.0, -3.0], device=device),
+                      torch.tensor([1.0, 3.0, 3.0], device=device))
+    q = np.concatenate([rng.uniform(-3.5, 3.5, size=(n - 2, 3)),
+                        [[10.0, 10.0, 10.0], [1.5, 0.0, 0.0]]])
+    return cfg, tm, torch.tensor(q.astype(np.float32), device=device)
+
+
 def _f64(tm, q, seed=69):
     """The map and queries in float64, off the float32 grid."""
     from fast_lio_tpu_torch.tools.microbench_knn import off_float32
@@ -579,3 +600,54 @@ def test_cuda_float64_pipeline_runs_on_the_float64_kernel():
     assert tknn.launches_f64[8] > before[1][8]
     assert pos["cuda"].shape == pos["cpu"].shape and len(pos["cpu"]) >= 5
     np.testing.assert_allclose(pos["cuda"], pos["cpu"], rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [16, 64])
+@pytest.mark.parametrize("scene", [*CUDA_SCENES, "collide"])
+def test_cuda_candidates_kernel_matches_plain_version(scene, B, dtype):
+    """The candidates variant (the rescore's search) at N = 1 to 8193: the
+    whole candidate block (every slot's coordinates and flag, dead slots and
+    sentinel rows included), found and sq bit-equal to the plain version's
+    ``knn_search(..., return_candidates=True)``, and neighbours where found;
+    its search's outputs bit-equal to the plain kernel's; one launch
+    counted each.  Float64 off the float32 grid.  Then over S = 4 streams
+    through the op's vmap rule: one batched launch, each stream bit-equal
+    to its single launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kNN kernel has no CPU mode")
+    if scene == "collide":
+        cfg, tm, q = collide_scene(n=max(CUDA_N), B=B, device="cuda")
+    else:
+        cfg, tm, q = cuda_scene(scene, B)
+    if dtype == torch.float64:
+        tm, q = _f64(tm, q)
+    counter = (tknn.cand_launches_f64 if dtype == torch.float64
+               else tknn.cand_launches)
+    for n in CUDA_N:
+        before = counter[8]
+        got = tknn.knn_search_candidates(tm, cfg, q[:n])
+        torch.cuda.synchronize()
+        assert counter[8] == before + 1
+        ref = thm.knn_search(tm, cfg, q[:n], return_candidates=True)
+        _bit_equal(_np(got[:3]), _np(ref[:3]))
+        for a, b in zip(got[3:], ref[3:]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(got[:3], tknn.knn_search_cuda(tm.packed, cfg, q[:n])):
+            assert torch.equal(a, b)
+    maps = torch.stack([tm.packed, torch.flip(tm.packed, [0])])
+    qs = torch.stack([q, torch.flip(q, [0])])
+    maps, qs = maps.repeat(2, 1, 1), qs.repeat(2, 1, 1)
+    batched = (tknn.cand_batched_launches_f64 if dtype == torch.float64
+               else tknn.cand_batched_launches)
+    before = batched[8]
+    got = torch.func.vmap(lambda p, x: tknn.knn_search_candidates(
+        thm.Map(p, None), cfg, x))(maps, qs)
+    torch.cuda.synchronize()
+    assert batched[8] == before + 1
+    for s in range(4):
+        single = tknn.knn_search_candidates_cuda(maps[s].contiguous(), cfg,
+                                                 qs[s].contiguous())
+        for a, b in zip(got, single):
+            assert torch.equal(a[s], b)

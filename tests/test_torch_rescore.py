@@ -1,7 +1,11 @@
 """The candidate-rescoring re-search mode (``Config.rescore_research``)
 against the JAX package: the candidate block of ``knn_search(...,
-return_candidates=True)``, ``rescore_candidates``, a pipeline run, and the
-two refused combinations.
+return_candidates=True)``, the custom op that computes it on the main path
+(``kernels.knn.knn_search_candidates``: its plain version here, its fake
+and its vmap rule; the CUDA kernel is held to it by
+``tests/test_torch_knn.py``'s ``cuda`` tests), ``rescore_candidates``, a
+pipeline run, the search ``make_knn_fn`` picks, the runner's A/B rule, and
+the two refused combinations.
 
 Tolerances: the candidate block and its mask are gathered, not computed, so
 they are bit-equal; ``rescore_candidates`` sums three squared differences
@@ -25,7 +29,11 @@ from fast_lio_tpu.map import hash_map as jhm
 from fast_lio_tpu.pipeline import Pipeline as JPipeline
 from fast_lio_tpu_torch import config as tcfg
 from fast_lio_tpu_torch import pipeline as tpipe
+from fast_lio_tpu_torch.kernels import knn as tknn
 from fast_lio_tpu_torch.map import hash_map as thm
+from fast_lio_tpu_torch.tools import bench, scenarios
+from fast_lio_tpu_torch.tools.microbench_knn import off_float32
+from test_torch_knn import collide_scene
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = thm.MapConfig(h_log2=10, bucket_slots=16, cell_size=1.0, voxel_size=0.5)
@@ -125,3 +133,123 @@ def test_rescore_refuses_wide_fallback_and_grouped():
     # alone, rescore returns the candidate block with the search
     out = tpipe.make_knn_fn(cfg, mcfg, m)(torch.zeros((4, 3)), None)
     assert len(out) == 5 and out[3].shape == (4, 8 * 64, 3)
+
+
+def _block_kinds(cfg, tm, q, cand_pts, cand_ok):
+    """How many slots of the block are of each kind: in a duplicate's
+    sentinel row, live outside the region's AABB, dead with coordinates
+    (pruned), and candidates (live inside)."""
+    B = cfg.bucket_slots
+    buckets = thm._bucket_of(thm.region_cells(q, cfg)[1], cfg.h_log2)
+    b_sorted, dup = thm.dedup_buckets(buckets, cfg.num_buckets - 1)
+    w = tm.packed[b_sorted][..., 3 * B:].reshape(len(q), 8 * B)
+    dup = dup.repeat_interleave(B, dim=-1)
+    live = (w == 0) & ~dup
+    return {"sentinel": int(dup.sum()),
+            "outside": int((live & ~cand_ok).sum()),
+            "dead_with_coords": int((~live & ~dup & (cand_pts != 0).any(-1))
+                                    .sum()),
+            "candidates": int(cand_ok.sum()),
+            "flagged_in_sentinel_rows": int((cand_ok & dup).sum())}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_candidates_op_matches_jax_block(dtype):
+    """The op on CPU tensors: its five outputs bit-equal to JAX's
+    ``knn_search(return_candidates=True)``, the whole block (every slot's
+    coordinates and flag) on a map with duplicate buckets, slots outside
+    the AABB and pruned slots; float64 off the float32 grid."""
+    cfg, tm, q = collide_scene()
+    if dtype == torch.float64:
+        tm, q = off_float32(tm, q, 67)
+    got = tknn.knn_search_candidates(tm, cfg, q)
+    want = jhm.knn_search(
+        jhm.Map(packed=jnp.asarray(tm.packed.numpy()),
+                dropped=jnp.asarray(tm.dropped.numpy())),
+        jhm.MapConfig(*cfg), jnp.asarray(q.numpy()), return_candidates=True)
+    assert [t.dtype for t in got] == [dtype, dtype, torch.bool, dtype,
+                                      torch.bool]
+    assert got[3].shape == (len(q), 8 * cfg.bucket_slots, 3)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    kinds = _block_kinds(cfg, tm, q, got[3], got[4])
+    assert kinds["flagged_in_sentinel_rows"] == 0
+    assert all(kinds[k] > 0 for k in ("sentinel", "outside",
+                                      "dead_with_coords", "candidates"))
+
+
+def test_candidates_op_fake_and_vmap():
+    """The op's schema and fake (the five outputs' shapes and dtypes), and
+    its vmap rule on the CPU: every stream's own map and queries through the
+    plain version, stream by stream."""
+    cfg, tm, q = collide_scene(n=24)
+    args = (tm.packed, q, cfg.h_log2, cfg.bucket_slots, cfg.cell_size,
+            cfg.voxel_size, 5)
+    torch.library.opcheck(tknn._cand_op, args,
+                          test_utils=("test_schema", "test_faketensor"))
+    fake = tknn._cand_fake(*args)
+    assert [tuple(t.shape) for t in fake] == [(24, 5, 3), (24, 5), (24, 5),
+                                             (24, 128, 3), (24, 128)]
+    maps = torch.stack([tm.packed, torch.flip(tm.packed, [0]),
+                        torch.roll(tm.packed, 3, 0)])
+    qs = torch.stack([q, torch.flip(q, [0]), q + 0.25])
+    got = torch.func.vmap(lambda p, x: tknn.knn_search_candidates(
+        thm.Map(p, None), cfg, x))(maps, qs)
+    assert len(got) == 5
+    for s in range(3):
+        ref = thm.knn_search(thm.Map(maps[s], None), cfg, qs[s],
+                             return_candidates=True)
+        for a, b in zip(got, ref):
+            assert torch.equal(a[s], b)
+    # a map shared by the streams (in_dims None) is broadcast
+    shared = torch.func.vmap(lambda x: tknn.knn_search_candidates(
+        tm, cfg, x))(qs)
+    for a, b in zip(shared, thm.knn_search(tm, cfg, qs[2],
+                                           return_candidates=True)):
+        assert torch.equal(a[2], b)
+
+
+def test_make_knn_fn_takes_the_candidates_op(monkeypatch):
+    """Under ``rescore_research`` the search is the op (the kernel's
+    candidates variant on the card); without it, never."""
+    calls = []
+    op = tknn.knn_search_candidates
+
+    def counting(*a, **k):
+        calls.append(1)
+        return op(*a, **k)
+
+    monkeypatch.setattr(tknn, "knn_search_candidates", counting)
+    cfg, tm, q = collide_scene(n=16)
+    on = dataclasses.replace(tcfg.PRESETS["avia"], rescore_research=True)
+    out = tpipe.make_knn_fn(on, cfg, tm)(q, None)
+    assert calls == [1]
+    for a, b in zip(out, thm.knn_search(tm, cfg, q, return_candidates=True)):
+        assert torch.equal(a, b)
+    off = dataclasses.replace(on, rescore_research=False)
+    assert len(tpipe.make_knn_fn(off, cfg, tm)(q, None)) == 3
+    assert calls == [1]
+
+
+def test_runner_keeps_the_rescore_on_the_card(capsys):
+    """``tools/bench.configure`` with ``FAST_LIO_RESCORE=1``: the rescore
+    on bench.py's avia, whatever the device (the card's search is the
+    candidates kernel, named by ``knn_backend``), and refused with bench.py's
+    message on every scenario with the wide fallback."""
+    env = {"FAST_LIO_RESCORE": "1"}
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for name in scenarios.NAMES:
+        cfg = scenarios.config(name)
+        got = bench.configure(name, cfg, env)
+        err = capsys.readouterr().err
+        if cfg.knn_wide_fallback:
+            assert got == cfg and err.startswith(
+                f"FAST_LIO_RESCORE=1 ignored: scenario {name!r} uses "
+                "knn_wide_fallback")
+            assert bench.knn_backend(got, cuda) == "cuda_per_query"
+        else:
+            assert got.rescore_research and err == ""
+            assert bench.knn_backend(got, cuda) == "cuda_per_query_candidates"
+            assert bench.knn_backend(got, cpu) == "plain_candidates"
+    assert [n for n in scenarios.NAMES
+            if not scenarios.config(n).knn_wide_fallback] == ["avia"]

@@ -670,6 +670,7 @@ def test_cuda_captured_step_equals_eager(run):
     _feed(eager, data)
     tcounts.settle()
     before = sum(tknn.launches.values()) + sum(tkg.launches.values())
+    cand_before = tknn.cand_launches[8]
     captured = tpipe.Pipeline(cfg)
     _feed(captured, data)
     a, b = _positions(eager), _positions(captured)
@@ -678,18 +679,22 @@ def test_cuda_captured_step_equals_eager(run):
     stats = captured.graphs.stats()
     assert len(stats) == len(cfg.pad_buckets or (1,))
     assert all(s["replays"] > 0 for s in stats.values())
-    # the single step's graph is gated: every kNN launch sits in a
-    # conditional node and counts as run, on the device; outside them a
-    # replay launches the set kernels of the two outermost IF nodes (the
+    # the single step's graph is gated: every re-search's kNN launch sits
+    # in a conditional node and counts as run, on the device; outside them
+    # a replay launches the set kernels of the two outermost IF nodes (the
     # prune's and the update's, which holds the filter's WHILE node) and
-    # the downsample's segment_sum kernel; rescore_research
-    # searches in plain torch ops (its candidate block), as the JAX package
-    # does in XLA: no kNN launch to count there
-    assert all(s["gated"] and s["launches_per_replay"] == 3
+    # the downsample's segment_sum kernel; rescore_research adds the scan's
+    # one search before the update, the candidates kernel (whose block the
+    # passes re-rank in plain torch ops, as the JAX package does in XLA),
+    # and launches no other kNN kernel
+    outside = 4 if cfg.rescore_research else 3
+    assert all(s["gated"] and s["launches_per_replay"] == outside
                for s in stats.values())
     tcounts.settle()
     knn_ran = sum(tknn.launches.values()) + sum(tkg.launches.values())
     assert (knn_ran > before) != cfg.rescore_research
+    steps = len(captured.diags) if cfg.rescore_research else 0
+    assert tknn.cand_launches[8] - cand_before == steps
     assert eager.graphs is None
 
 

@@ -68,6 +68,14 @@ RUNS = {
 RUNS["ouster64_f64"] = (
     dataclasses.replace(RUNS["ouster64"][0], compute_dtype="float64"),
     RUNS["ouster64"][1])
+# chip_smoke.py phase rescore: phase 4's run with the cached-candidate
+# re-search, in float32 and float64
+RUNS["avia_rescore"] = (
+    dataclasses.replace(RUNS["avia"][0], rescore_research=True),
+    RUNS["avia"][1])
+RUNS["avia_rescore_f64"] = (
+    dataclasses.replace(RUNS["avia_rescore"][0], compute_dtype="float64"),
+    RUNS["avia"][1])
 
 
 def jax_config(cfg):
@@ -82,9 +90,10 @@ def run(cfg, sim_cfg):
     return run_data(cfg, simlib.generate(sim_cfg))
 
 
-def run_data(cfg, data):
+def run_data(cfg, data, with_positions=False):
     """The JAX pipeline on a sim run through the packet API (each scan with
-    the IMU samples up to 0.1 s after its stamp)."""
+    the IMU samples up to 0.1 s after its stamp); ``with_positions``: each
+    estimate's position too."""
     pipe = Pipeline(cfg)
     imu_i = 0
     for k in range(len(data.scans)):
@@ -97,10 +106,28 @@ def run_data(cfg, data):
         while pipe.spin_once():
             pass
     traj = pipe.get_trajectory()
-    return dict(ate_raw_m=simlib.ate_rmse(traj, data),
-                ate_aligned_m=simlib.ate_rmse_aligned(traj, data),
-                scans=len(traj), health=pipe.health_check(),
-                iterations=[int(d.iterations) for d in pipe.diags])
+    out = dict(ate_raw_m=simlib.ate_rmse(traj, data),
+               ate_aligned_m=simlib.ate_rmse_aligned(traj, data),
+               scans=len(traj), health=pipe.health_check(),
+               iterations=[int(d.iterations) for d in pipe.diags])
+    if with_positions:
+        out["positions"] = [[float(v) for v in p] for _, p, _ in traj]
+    return out
+
+
+# chip_smoke.py phase prune_hall: the prune's hall at full width in float64
+# (JAX's x64 mode on for these runs only), with its 32 m cube and with a
+# 1000 m cube that never slides; each estimate's position printed
+PRUNE_RUNS = {"prune_hall_f64": scenarios.PRUNE_CUBE_SIDE,
+              "prune_hall_f64_cube1000": scenarios.NO_PRUNE_CUBE_SIDE}
+# chip_smoke.py phase validation: tests/test_validation.py's runs
+VALIDATION_RUNS = [f"validation_{n}" for n in scenarios.VALIDATION_RUNS]
+
+
+def run_prune(cube_side_length):
+    cfg, data = scenarios.prune_run(True, cube_side_length)
+    with jax.enable_x64(True):
+        return run_data(jax_config(cfg), data, with_positions=True)
 
 
 def preset_data(name):
@@ -191,12 +218,14 @@ def run_fleet_batch4(rounds=BATCH_ROUNDS):
                        for t, d in zip(trajs, datas)])
 
 
-def run_bench(name):
+def run_bench(name, rescore=False):
     """chip_smoke.py phase ``bench``: bench.py's scenario ``name`` cut to
     ``scenarios.BENCH_DURATION_S``, its packets synced first as bench.py
     syncs them (each scan after the IMU samples up to its stamp plus the
-    scan period), then run through the JAX ``Pipeline``."""
+    scan period), then run through the JAX ``Pipeline``; ``rescore``: as
+    bench.py runs it with ``FAST_LIO_RESCORE=1``."""
     cfg, data = scenarios.scenario(name, scenarios.BENCH_DURATION_S)
+    cfg = dataclasses.replace(cfg, rescore_research=rescore)
     pipe = Pipeline(jax_config(cfg))
     period = float(data.scan_stamps[1] - data.scan_stamps[0])
     imu_i, packets = 0, []
@@ -250,6 +279,8 @@ def run_bench_batch(n):
 
 
 BENCH_RUNS = [f"bench_{n}" for n in (*scenarios.NAMES, "avia_batch4")]
+# phase bench's FAST_LIO_RESCORE=1 run of bench.py's avia
+BENCH_RESCORE_RUN = "bench_avia_rescore"
 
 
 # chip_smoke.py's CLI_BAG_FLAGS
@@ -299,7 +330,8 @@ if __name__ == "__main__":
         orders, args = int(args[1]), args[2:]
     names = args or [*RUNS, "cli_bag", "fleet_batch4",
                      *(n for n in PACKET_RUNS if n != "preset_horizon_room"),
-                     *BAG_RUNS, *BENCH_RUNS]
+                     *BAG_RUNS, *BENCH_RUNS, BENCH_RESCORE_RUN, *PRUNE_RUNS,
+                     *VALIDATION_RUNS]
     for name in names:
         if orders:
             out = run_orders(name, orders)
@@ -309,6 +341,13 @@ if __name__ == "__main__":
             out = run_data(jax_config(cfg), data)
         elif name in BAG_RUNS:
             out = run_pointcloud2_bag(name[len("bag_"):])
+        elif name == BENCH_RESCORE_RUN:
+            out = run_bench("avia", rescore=True)
+        elif name in PRUNE_RUNS:
+            out = run_prune(PRUNE_RUNS[name])
+        elif name in VALIDATION_RUNS:
+            cfg, data = scenarios.validation_run(name[len("validation_"):])
+            out = run_data(jax_config(cfg), data)
         elif name == "bench_avia_batch4":
             out = run_bench_batch(4)
         elif name in BENCH_RUNS:
