@@ -9,8 +9,11 @@ Port of ``fast_lio_tpu/cli.py`` with the same flags and outputs:
 
 ``--platform`` names the torch device: ``cuda`` by default; without a
 CUDA device the runner exits non-zero unless ``--platform cpu`` is given
-(the CPU runs the kernels' plain PyTorch versions).  ``--profile`` writes a
-``torch.profiler`` trace to ``<out>/trace``.
+(the CPU runs the kernels' plain PyTorch versions).  ``--profile`` turns
+the port's tracer on (``tracing``) and writes a ``torch.profiler`` trace to
+``<out>/trace/trace.json``, with the tracer's spans as ``fast_lio.*`` ranges
+and its stage stamps' kernels, and the tracer's dump to
+``<out>/trace/program_trace.json``.
 
 Outputs (matching the reference's observability surface):
   out/trajectory_tum.txt       TUM-format trajectory (t x y z qx qy qz qw)
@@ -64,7 +67,8 @@ def build_parser():
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--runtime-pos-log", action="store_true")
     p.add_argument("--profile", action="store_true",
-                   help="capture a torch.profiler trace into <out>/trace")
+                   help="capture a torch.profiler trace and the tracer's "
+                        "spans and stage stamps into <out>/trace")
     p.add_argument("--health", action="store_true",
                    help="print an estimator health report at the end")
     p.add_argument("--stage-timing", action="store_true",
@@ -99,11 +103,16 @@ def _start_profiler(device: torch.device):
 
 
 def _stop_profiler(prof, out: Path, device: torch.device) -> None:
+    from . import tracing
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
     (out / "trace").mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "trace" / "trace.json"))
+    (out / "trace" / "program_trace.json").write_text(
+        json.dumps(tracing.dump(), default=str))
+    tracing.disable()
 
 
 def _run_fleet(args, cfg, device, out: Path, prof, t0: float) -> int:
@@ -231,7 +240,11 @@ def main(argv=None):
             ckpt.load_pipeline(args.resume, pipe)
             print(f"resumed from {args.resume}")
 
-    prof = _start_profiler(device) if args.profile else None
+    prof = None
+    if args.profile:  # before the first capture, so its graph holds stamps
+        from . import tracing
+        tracing.enable(device)
+        prof = _start_profiler(device)
 
     accum = None
     if args.pcd_save:

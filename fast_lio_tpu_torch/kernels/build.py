@@ -20,10 +20,14 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+from .. import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fast_lio_tpu_torch"
 
-LIBS = ("knn", "knn_grouped", "graph_if", "segment_sum")  # every source in csrc/
+# every source of the step's kernels in csrc/; probe.cu (tools/probe.py) and
+# stamp.cu (the tracer's) are built at their first use
+LIBS = ("knn", "knn_grouped", "graph_if", "segment_sum")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,7 +60,8 @@ def library_path(name: str) -> Path:
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every named source not yet built, one nvcc per source, all
-    started together.  Raises with the compiler's output on any failure."""
+    started together (each adds one to ``tracing.counters["kernel_builds"]``).
+    Raises with the compiler's output on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     procs = {}
@@ -68,6 +73,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
+        tracing.counters["kernel_builds"] += 1
     failures = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -113,5 +119,8 @@ def kernel_usage(name: str) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, building it if needed (the
-    caller keeps the handle)."""
-    return ctypes.CDLL(str(build_all([name])[name]))
+    caller keeps the handle): a ``build`` span, whose ``compiled`` says
+    whether ``nvcc`` ran."""
+    with tracing.span("build", lib=name,
+                      compiled=not library_path(name).exists()):
+        return ctypes.CDLL(str(build_all([name])[name]))

@@ -43,6 +43,18 @@ def counters() -> Counts:
             knn.cand_batched_launches_f64]
 
 
+NAMES = ("knn", "knn_f64", "knn_batched", "knn_batched_f64", "knn_grouped",
+         "knn_grouped_prep", "graph_if", "graph_while", "segment_sum",
+         "segment_sum_batched", "knn_cand", "knn_cand_f64",
+         "knn_cand_batched", "knn_cand_batched_f64")  # counters()'s order
+
+
+def named() -> Dict[str, Dict[int, int]]:
+    """A copy of each counter by name (``graph_while``: key 0 the WHILE
+    nodes entered, key 1 the passes run)."""
+    return {n: dict(c) for n, c in zip(NAMES, counters())}
+
+
 def snapshot() -> Counts:
     return [dict(c) for c in counters()]
 

@@ -50,6 +50,7 @@ import torch
 from . import control_flow as cf
 from . import imu as imu_mod
 from . import state as st
+from . import tracing
 from .config import Config, LidarType
 from .filter import ekf, process
 from .kernels import knn as knn_kernel
@@ -237,6 +238,13 @@ class SyncBuffer:
         self.imu_gyr.append(np.asarray(gyr, np.float64))
 
     def pop_packet(self) -> Optional[ScanPacket]:
+        sp = tracing.begin("sync") if tracing.ON else None
+        pkt = self._pop_packet()
+        if sp is not None:
+            tracing.end(sp)
+        return pkt
+
+    def _pop_packet(self) -> Optional[ScanPacket]:
         if not self.lidar_buf or not self.imu_t:
             return None
         stamp, pts, pt_time, intensity, pre_t = self.lidar_buf[0]
@@ -285,7 +293,8 @@ class SyncBuffer:
 @dataclasses.dataclass
 class StepDiag:
     """Per-scan diagnostics (the runtime_pos_log fields).  Device-produced
-    counts are held as device scalars (``int()`` reads them)."""
+    counts are held as device scalars (``int()`` reads them).
+    ``total_time``: the scan's ``process_packet`` span (``tracing``), s."""
 
     n_raw: int = 0
     n_truncated: int = 0
@@ -362,14 +371,18 @@ def lio_step(
     ``control_flow.gate(do_update, ...)`` (JAX's ``lax.cond`` between
     ``run_update`` and ``skip_update``), as are the prune, the passes, the
     re-searches and the wide search inside it.  Nothing here reads the
-    device on the host."""
+    device on the host.  With the tracer on, ``tracing.stamp`` 1-6 mark the
+    edges of stages 1-5 (``packed_step`` adds 0 and 7), each at the top
+    level of a captured graph, outside every conditional node."""
     deskew = cfg.lidar_type != LidarType.MARSIM
 
     # 1. IMU propagate + deskew
+    tracing.stamp(1)
     x, P, pts_d, imu_carry = imu_mod.propagate_and_deskew(
         x, P, Q, imu_t_rel, imu_acc, imu_gyr, imu_mask, acc_scale,
         last_end_rel, pcl_end_rel, imu_carry, pts, pt_time, deskew=deskew,
     )
+    tracing.stamp(2)
 
     # 2. local-map slide; the prune gated on `moved` (JAX's lax.cond), no
     # host read
@@ -378,12 +391,14 @@ def lio_step(
     moved = torch.any(new_lo != lm_lo) | ~lm_init
     lm_lo, lm_hi, lm_init = new_lo, new_hi, lm_init2
     m = hm.prune_outside(m, lm_lo, lm_hi, active=moved)
+    tracing.stamp(3)
 
     # 3. input voxel downsample (intensity voxel-averaged alongside)
     pts_ds, ds_mask, int_ds = voxel_downsample(
         pts_d, pt_mask, cfg.filter_size_surf, cfg.n_ds_max, feats=pt_intensity,
         coord_bound=cfg.det_range * 1.25 + 5.0,  # body frame + deskew margin
     )
+    tracing.stamp(4)
 
     # 4. iterated point-to-plane update
     cache0 = meas.empty_cache(cfg.n_ds_max, like=pts_ds)
@@ -414,6 +429,7 @@ def lio_step(
     x, P, cache, iters = cf.gate(do_update, run_update,
                                  cf.own((x, P, cache0, iters0)))
     n_eff = torch.sum(cache.selected)
+    tracing.stamp(5)
 
     # 5. map insert with hysteresis
     pts_world = meas.body_to_world(x, pts_ds)
@@ -421,6 +437,7 @@ def lio_step(
         pts_world, ds_mask, cache.nbrs, cache.found, ekf_inited,
         cfg.filter_size_map)
     m = hm.insert(m, map_cfg, pts_world, add_mask, ds_flag)
+    tracing.stamp(6)
 
     diag = dict(n_down=torch.sum(ds_mask), n_eff=n_eff, iters=iters,
                 map_size=hm.map_size(m))
@@ -524,10 +541,15 @@ def packed_step(cfg: Config, map_cfg: hm.MapConfig, x: st.State, P,
     map is updated in place.  A pure function of its arguments but for that
     map, with no host read: ``Pipeline`` runs (and captures) it on its
     state, and ``BatchPipeline`` runs it under ``torch.func.vmap`` on B
-    states stacked on a leading axis."""
+    states stacked on a leading axis.  ``tracing.stamp`` 0 and 7 (with the
+    tracer on) bracket the step: the feed's unpacking before ``lio_step``'s
+    first, its outputs after its last."""
+    tracing.stamp(0)
     scan, ekf_inited, do_update = unpack_feed(cfg, buf)
-    return step_outputs(lio_step(cfg, map_cfg, x, P, m, imu_carry, Q, *scan,
-                                 lm_lo, lm_hi, lm_init, ekf_inited, do_update))
+    out = step_outputs(lio_step(cfg, map_cfg, x, P, m, imu_carry, Q, *scan,
+                                lm_lo, lm_hi, lm_init, ekf_inited, do_update))
+    tracing.stamp(7)
+    return out
 
 
 class Pipeline:
@@ -810,14 +832,24 @@ class Pipeline:
         args = (self.cfg, self.acc_scale, pkt, last_end_rel, pcl_end_rel,
                 ekf_inited, self.map_built, pad)
         if self.feed is None:  # the CPU: a fresh buffer, no copy
-            return self._packed_step(torch.from_numpy(pack_buf(*args)))
+            sp = tracing.begin("pack") if tracing.ON else None
+            buf = torch.from_numpy(pack_buf(*args))
+            if sp is not None:
+                tracing.end(sp)
+            return self._packed_step(buf)
         host = self.feed.take(8 + self.cfg.n_imu_max * 7 + pad * 5)
+        sp = tracing.begin("pack") if tracing.ON else None
         pack_buf(*args, out=host.numpy())
+        if sp is not None:
+            tracing.end(sp)
         if self.graphs is not None:
+            out = self.graphs.run(host, self._packed_step)
             # the next replay overwrites the graph's outputs, and the next
             # scan its input buffer (which the intensity cloud views)
-            out = {k: v.clone()
-                   for k, v in self.graphs.run(host, self._packed_step).items()}
+            sp = tracing.begin("outputs") if tracing.ON else None
+            out = {k: v.clone() for k, v in out.items()}
+            if sp is not None:
+                tracing.end(sp)
         else:
             buf = torch.empty(host.shape, dtype=host.dtype, device=self.device)
             buf.copy_(host, non_blocking=True)
@@ -826,7 +858,20 @@ class Pipeline:
         return out
 
     def process_packet(self, pkt: ScanPacket):
-        t0 = time.perf_counter()
+        """Run one synced packet: the IMU's static init, or the step.  With
+        the tracer on, a ``process_packet`` span, the scan's root."""
+        t0 = time.time_ns()
+        sp = tracing.begin("process_packet", t0) if tracing.ON else None
+        t1 = None
+        try:
+            t1 = self._process_packet(pkt, t0)
+        finally:
+            if sp is not None:
+                tracing.end_scan(sp, t1)
+
+    def _process_packet(self, pkt: ScanPacket, t0: int) -> int:
+        """``process_packet`` from host clock ``t0`` (``time.time_ns``);
+        returns the clock's reading that ends ``StepDiag.total_time``."""
         cfg = self.cfg
         diag = StepDiag(n_raw=len(pkt.pts), preprocess_time=pkt.preprocess_time)
 
@@ -835,6 +880,7 @@ class Pipeline:
 
         # ---- IMU static init phase (IMU_Processing.hpp:356-380) ----
         if self.imu_need_init:
+            sp = tracing.begin("imu_init") if tracing.ON else None
             if len(pkt.imu_t):
                 self.imu_stats = imu_mod.update_stats(
                     self.imu_stats, pkt.imu_acc, pkt.imu_gyr)
@@ -847,7 +893,9 @@ class Pipeline:
                         st.G_M_S2 / np.linalg.norm(self.imu_stats.mean_acc))
                     self.imu_need_init = False
             self.last_lidar_end_time = pkt.lidar_end_time
-            return
+            if sp is not None:
+                tracing.end(sp)
+            return time.time_ns()
 
         last_end_rel = self.last_lidar_end_time - pkt.lidar_beg_time
         pcl_end_rel = pkt.lidar_end_time - pkt.lidar_beg_time
@@ -889,10 +937,12 @@ class Pipeline:
             # real per-scan latency: wait for the step's outputs
             float(out["pose"][0])
             int(map_size)
-        diag.total_time = time.perf_counter() - t0
+        t1 = time.time_ns()
+        diag.total_time = (t1 - t0) * 1e-9
         self.diags.append(diag)
         pose = out["pose"]
         self.trajectory.append((pkt.lidar_end_time, pose[:3], pose[3:]))
         if cfg.runtime_pos_log:
             self.state_log.append(
                 (pkt.lidar_beg_time, st.State(*(v.clone() for v in self.x))))
+        return t1

@@ -25,6 +25,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import tracing
 from ..config import Config, LidarType
 
 
@@ -207,7 +208,16 @@ def decode(msg: dict, cfg: Config, use_native: bool = None) -> RawScan:
     fast_lio_tpu_torch.io.rosbag or any custom feeder.  ``use_native``: None = use
     the native decoder when the shared library is available (set env
     FAST_LIO_NATIVE=0 to force numpy), True = require it, False = numpy.
+    With the tracer on, a ``decode`` span.
     """
+    sp = tracing.begin("decode") if tracing.ON else None
+    scan = _decode(msg, cfg, use_native)
+    if sp is not None:
+        tracing.end(sp)
+    return scan
+
+
+def _decode(msg: dict, cfg: Config, use_native) -> RawScan:
     import os
 
     if use_native is None:

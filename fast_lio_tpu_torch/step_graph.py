@@ -30,9 +30,11 @@ launches of each kernel it holds outside any conditional node and every
 replay adds them (``kernels.counts``), per rank on a sharded map; the
 launches inside conditional nodes are counted on the device as they run
 (``counts.add_on_device``).  ``stats`` gives each bucket's capture
-seconds (host clock around the capture and the graph's instantiation,
-synced before and after) and the bytes the conditional nodes' body pools
-(``kernels.graph_if``) grew by in it.
+seconds (the ``capture`` span of ``tracing``: the eager first step, the
+capture and the graph's instantiation, ending synced) and the bytes the
+conditional nodes' body pools (``kernels.graph_if``) grew by in it.  With
+the tracer on, a replay is a ``launch`` span (the feed's copy enqueued and
+the graph launched) and a wait for the feed a ``feed_wait`` span.
 
 A sharded step (``parallel/sharding.py``, the counterpart of
 ``jax.jit(shard_map(...))``) is captured the same way on every NCCL rank,
@@ -59,7 +61,7 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
-from . import control_flow
+from . import control_flow, tracing
 from .kernels import counts, graph_if
 
 Shape = Union[int, Tuple[int, ...]]  # a feed buffer's length, or (B, L)
@@ -83,7 +85,7 @@ class PinnedFeed:
     shape in a ring.  The device copies a buffer out asynchronously, so a
     buffer is written again only after that copy has run: an event per
     buffer, which the host waits on only when it runs ``SLOTS`` scans ahead
-    of the device (``waits`` counts those waits)."""
+    of the device (``waits``)."""
 
     SLOTS = 4
 
@@ -91,7 +93,13 @@ class PinnedFeed:
         self._rings: Dict[Shape, list] = {}
         self._next: Dict[Shape, int] = collections.Counter()
         self._taken = None  # the slot the scan in flight was packed into
-        self.waits = 0
+        self._waits0 = tracing.counters["feed_waits"]
+
+    @property
+    def waits(self) -> int:
+        """The waits for a slot since the feed was made: the process's
+        ``feed_waits`` counter (every feed's, where several run at once)."""
+        return tracing.counters["feed_waits"] - self._waits0
 
     def take(self, shape: Shape) -> torch.Tensor:
         """A pinned float32 buffer of ``shape`` (a length, or (B, L) for a
@@ -104,8 +112,11 @@ class PinnedFeed:
         self._next[shape] = (k + 1) % self.SLOTS
         slot = ring[k]
         if slot.event is not None and not slot.event.query():
+            sp = tracing.begin("feed_wait") if tracing.ON else None
             slot.event.synchronize()
-            self.waits += 1
+            if sp is not None:
+                tracing.end(sp)
+            tracing.counters["feed_waits"] += 1
         self._taken = slot
         return slot.buf
 
@@ -132,7 +143,7 @@ class _Captured(NamedTuple):
     static_in: torch.Tensor
     static_out: dict
     launches: counts.Counts  # kernel launches a replay makes outside IFs
-    capture_s: float  # capture and instantiation, host clock, synced
+    capture_s: float  # the capture span: eager step, capture, instantiation
     body_pool_bytes: int  # what the body pools grew by in the capture
 
 
@@ -172,10 +183,13 @@ class StepGraphs:
         cap = self._graphs.get(n)
         if cap is None:
             return self._run_and_capture(host, step)
+        sp = tracing.begin("launch") if tracing.ON else None
         cap.static_in.copy_(host, non_blocking=True)
         if self.group is not None:
             self.group.launching("graph")
         cap.graph.replay()
+        if sp is not None:
+            tracing.end(sp)
         counts.add(cap.launches)
         self.replays[n] += 1
         return cap.static_out
@@ -197,6 +211,9 @@ class StepGraphs:
 
     def _run_and_capture(self, host: torch.Tensor, step) -> dict:
         n = _shape(host)
+        t0 = time.time_ns()
+        sp = tracing.begin("capture", t0, shape=n) if tracing.ON else None
+        tracing.note_capture()
         if self.group is not None:
             self._same_shape_on_every_rank(n)
         static_in = torch.empty(host.shape, dtype=host.dtype,
@@ -226,7 +243,6 @@ class StepGraphs:
         gated = (control_flow.gated_capture(self.device) if self.gates
                  else contextlib.nullcontext())
         torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph), gated:
                 static_out = step(static_in)
@@ -240,9 +256,11 @@ class StepGraphs:
             launches = counts.since(before)
             counts.restore(before)
         torch.cuda.synchronize(self.device)
-        capture_s = time.perf_counter() - t0
+        t1 = time.time_ns()
+        if sp is not None:
+            tracing.end(sp, t1)
         self._graphs[n] = _Captured(
-            graph, static_in, static_out, launches, capture_s,
+            graph, static_in, static_out, launches, (t1 - t0) * 1e-9,
             graph_if.body_pool_bytes(self.device) - pool_bytes)
         return out
 
@@ -250,8 +268,8 @@ class StepGraphs:
         """Per captured feed shape (a length, or (B, L)): replays so far,
         whether conditional nodes gate the step, the kernel launches one
         replay makes outside them (the launches inside them count as run,
-        on the device: ``counts.settle``), the capture's seconds and the
-        bytes the body pools grew by in it."""
+        on the device: ``counts.settle``), the capture's seconds (its
+        ``capture`` span) and the bytes the body pools grew by in it."""
         return {n: {"replays": self.replays[n], "gated": self.gates,
                     "launches_per_replay": counts.total(c.launches),
                     "capture_s": c.capture_s,
