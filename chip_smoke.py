@@ -82,7 +82,24 @@ check exits non-zero:
    replaces, timed as ``graph_us`` is; for the single cases, what
    ``microbench_segment_sum.segment_reduce_probe`` finds of
    ``torch.segment_reduce`` on the same inputs (bits, repeats, host syncs,
-   its time in a graph), logged and not checked.  Row ``empty_node``
+   its time in a graph), logged and not checked.  Rows
+   ``imu_propagate``, ``imu_deskew``, ``imu_f64_propagate``,
+   ``imu_f64_deskew``, ``imu_batched``, ``imu_batched_f64``: the IMU
+   stage's two kernels (``csrc/imu.cu``, ``tools/microbench_imu.py``) on
+   the inputs of the first steps of every path below, recorded from a
+   short eager run of each path's configuration and sensor: M = 64 at
+   N = 32,768 (avia, marsim without the deskew) and 45,056 (ouster64),
+   M = 32 at 8,192 (oracle, prune_hall), 2,048 (validation) and 45,056
+   (bench.py's ouster64), M = 8 at 1,024 (mid360, the sharded dry run's
+   shape); f32, f64 (ouster64, oracle, prune_hall; the feed f32 on every
+   path), one lane and 4 (avia f32, ouster64 f64; both kernels together
+   there); held within ``tests/test_torch_imu.py``'s tolerances of the
+   plain version on the card and bit-equal over two runs in every case;
+   each kernel's time in a graph of 100 calls (the deskew's: the pair's
+   less the propagation's), the plain version's in a graph of 10, and the
+   bounds (``bounds.imu_propagate_bound``: the (F, G) chain's and the
+   covariance steps' fmas at the type's rate; ``imu_deskew_bound``: the
+   points' bytes at 3.35 TB/s).  Row ``empty_node``
    (``tools/probe.py``, ``csrc/probe.cu``; printed in this phase, not in
    the kernels line, since no path launches it): an empty one-thread
    kernel in a CUDA graph of 100, per call, the least any launch costs;
@@ -706,7 +723,16 @@ TIMES = ("device_us", "device_timer", "profiler_windows", "prep_device_us",
 # phase 2 runs whose downsample inputs it is held and timed on (the first
 # gives the row's figures, the others stand in it by name)
 SEGMENT_SUM_KINDS = ("segment_sum", "segment_sum_batched")
-NOT_KNN = ("graph_if", "graph_while", *SEGMENT_SUM_KINDS)
+# the IMU stage's kernels (csrc/imu.cu): launch counters (single ones keyed
+# by kernel, 0 the propagation and 1 the deskew; over lanes by the scalar's
+# bits), one launch of each a step in every mode
+IMU_KINDS = ("imu", "imu_f64", "imu_batched")
+IMU_ROWS = {"imu_propagate": ("imu", 0), "imu_deskew": ("imu", 1),
+            "imu_f64_propagate": ("imu_f64", 0),
+            "imu_f64_deskew": ("imu_f64", 1),
+            "imu_batched": ("imu_batched", 32),
+            "imu_batched_f64": ("imu_batched", 64)}
+NOT_KNN = ("graph_if", "graph_while", *SEGMENT_SUM_KINDS, *IMU_KINDS)
 SEGMENT_SUM_ROWS = {"segment_sum": ("segment_sum", 32),
                     "segment_sum_f64": ("segment_sum", 64),
                     "segment_sum_batched": ("segment_sum_batched", 32),
@@ -804,6 +830,7 @@ def phase_kernels(pkg):
     log({"phase": "kernels", "case": "graph_while",
          "row": rows["graph_while"]})
     rows.update(segment_sum_rows(pkg))
+    rows.update(imu_rows(pkg))
     for row in rows.values():
         row["node_floor_ms"] = floor["ms"]
     return rows
@@ -1174,6 +1201,51 @@ def segment_sum_rows(pkg) -> dict:
     return rows
 
 
+def imu_rows(pkg) -> dict:
+    """The IMU stage's two kernels (``csrc/imu.cu``) on the inputs of the
+    first steps of every path this script runs, at each block size, point
+    pad, type and lane count they give the stage
+    (``microbench_imu.rows``: ``KINDS``' paths, each recorded from a short
+    eager run of its configuration and sensor), each timed in a CUDA graph
+    of 100 calls.  Checks: within ``tests/test_torch_imu.py``'s tolerances
+    of the plain version on the card, and two runs bit-equal, in every
+    case.  Returns the kernels line's rows by name (the propagation and
+    the deskew apart for one lane; over four lanes both together, as their
+    counter counts), each with its kind's first path's figures and the
+    other paths' under their names."""
+    before = pkg["counts"].snapshot()
+    rows = {}
+    for case, r in pkg["mbi"].rows().items():
+        log({"phase": "kernels", **r})
+        check(r["within_tolerance"], f"{case}: max |delta| against the "
+              f"plain version {r['max_abs_err']} outside its tolerance")
+        check(r["run_to_run_equal"], f"{case}: two runs differ")
+        prop, desk = r["propagate_bound_us"], r["deskew_bound_us"]
+        if r["shape"]["lanes"] == 1:
+            parts = [("propagate", r["propagate_us"], prop, "operations")]
+            if r["deskew_us"] is not None:
+                parts.append(("deskew", r["deskew_us"], desk, "bytes"))
+        else:
+            parts = [("", r["both_us"] or r["propagate_us"], prop + desk,
+                      "bytes" if desk >= prop else "operations")]
+        for part, us, bound_us, by in parts:
+            name = f"{r['kind']}_{part}" if part else r["kind"]
+            figures = dict(ms=1e-3 * us, plain_ms=1e-3 * r["plain_us"],
+                           bound_ms=1e-3 * bound_us, bound_by=by,
+                           max_abs_err=r["max_abs_err"], shape=r["shape"])
+            if name in rows:
+                rows[name][r["path"]] = figures
+                continue
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="fast_lio_tpu_torch/csrc/imu.cu",
+                replaces=("no pallas_call: XLA's propagate_and_deskew, "
+                          "fast_lio_tpu/imu.py"),
+                launches=None, library_ms=None, path=r["path"], **figures)
+    pkg["counts"].restore(before)  # launches to compare are not the path's
+    return rows
+
+
 def rank_tables(pkg, case, world=2) -> dict:
     """The per-query kernel on each rank's table of ``case``'s map sharded
     ``world`` ways (what phase 10 searches: 2^(h_log2 - 1) buckets), held
@@ -1260,7 +1332,9 @@ def launch_counters(pkg) -> dict:
             "knn_cand": knn.cand_launches,
             "knn_cand_f64": knn.cand_launches_f64,
             "knn_cand_batched": knn.cand_batched_launches,
-            "knn_cand_batched_f64": knn.cand_batched_launches_f64}
+            "knn_cand_batched_f64": knn.cand_batched_launches_f64,
+            "imu": pkg["kimu"].launches, "imu_f64": pkg["kimu"].launches_f64,
+            "imu_batched": pkg["kimu"].batched_launches}
 
 
 def reset_launches(pkg) -> None:
@@ -1839,9 +1913,9 @@ def phase_graph(pkg, runs, card: str) -> dict:
         # the captured step's gates skip what JAX's skips; the eager step
         # runs every pass and arm
         for kind, by_r in captured["launches"].items():
-            if kind in SEGMENT_SUM_KINDS:  # one a step in both modes
-                check(by_r == eager["launches"][kind],
-                      f"graph {name}: segment_sum launches {by_r} captured, "
+            if kind in (*SEGMENT_SUM_KINDS, *IMU_KINDS):  # one a step in
+                check(by_r == eager["launches"][kind],  # both modes
+                      f"graph {name}: {kind} launches {by_r} captured, "
                       f"{eager['launches'][kind]} eager")
                 continue
             if kind in ("graph_if", "graph_while"):
@@ -2610,9 +2684,9 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
     once, and its condition kernel counts on the device each pass it ran;
     it evaluates the prune's and the update's IF nodes
     (``launches_per_replay`` less the downsample's one ``segment_sum``
-    launch: in the gated graph every other launch sits in a conditional
-    node, the WHILE node's in the update's), and each pass that runs the
-    node of its re-search.  Checks: one WHILE node entered a scan, the
+    launch and the IMU propagation's: in the gated graph every other
+    launch sits in a conditional node, the WHILE node's in the update's),
+    and each pass that runs the node of its re-search.  Checks: one WHILE node entered a scan, the
     passes it ran equal the scan's iterations, scan by scan, and so do the
     IF nodes evaluated less those outside, the iterations the eager run's
     (JAX's rule), the two runs bit-equal, and the captured run of the phase
@@ -2650,7 +2724,8 @@ def marsim_passes(pkg, cfg, data, traj_captured) -> dict:
                   for g in gated.graphs.stats().values()]
     its = {"eager": [int(d.iterations) for d in eager.diags],
            "gated": [int(d.iterations) for d in gated.diags]}
-    if_outside = per_replay[0] - 1  # less the segment_sum launch
+    # less the segment_sum launch and the IMU propagation's (no deskew)
+    if_outside = per_replay[0] - 2
     passes = [(k, n) for k, _, _, n in by_scan]
     jax_its = JAX_ITERATIONS["preset_marsim"]
     dpos = max_pos_diff(gated.get_trajectory(), eager.get_trajectory())
@@ -2807,13 +2882,14 @@ def load_pkg() -> dict:
     from fast_lio_tpu_torch import control_flow
     from fast_lio_tpu_torch.kernels import build, counts, graph_if
     from fast_lio_tpu_torch.kernels import knn
+    from fast_lio_tpu_torch.kernels import imu as kernels_imu
     from fast_lio_tpu_torch.kernels import knn_grouped, segment_sum
     from fast_lio_tpu_torch.map import hash_map as hm
     from fast_lio_tpu_torch.parallel import launch, sharding
     from fast_lio_tpu_torch.pipeline import Pipeline
     from fast_lio_tpu_torch.step_graph import StepGraphs
     from fast_lio_tpu_torch.tools import (bench, bench_scaling,
-                                          microbench_knn,
+                                          microbench_imu, microbench_knn,
                                           microbench_segment_sum, multicard,
                                           oracle_compare, probe,
                                           profile_scan, scenarios)
@@ -2827,7 +2903,8 @@ def load_pkg() -> dict:
                 profile_scan=profile_scan, multicard=multicard,
                 counts=counts, cf=control_flow, graph_if=graph_if,
                 StepGraphs=StepGraphs, build=build, bench=bench,
-                seg=segment_sum, mbs=microbench_segment_sum, probe=probe)
+                seg=segment_sum, mbs=microbench_segment_sum, probe=probe,
+                kimu=kernels_imu, mbi=microbench_imu)
 
 
 def in_background(fn, *args, **kwargs):
@@ -3472,6 +3549,8 @@ def main() -> int:
                                              avia_sim)
     log({"phase": "avia", "tiles": tile_stats(pkg, searches)})
     check(l_avia["knn"][8] > 0, "avia: the R=8 kNN kernel never ran")
+    check(l_avia["imu"][0] == l_avia["imu"][1] > 0,
+          f"avia: not one IMU propagation and deskew a step ({l_avia['imu']})")
 
     lap("4")
     # 5. ouster64 (bench.py's 45056-point pad)
@@ -3632,6 +3711,8 @@ def main() -> int:
     for name, row in kernel_rows.items():
         if name in SEGMENT_SUM_ROWS:
             kind, keys = SEGMENT_SUM_ROWS[name][0], (SEGMENT_SUM_ROWS[name][1],)
+        elif name in IMU_ROWS:
+            kind, keys = IMU_ROWS[name][0], (IMU_ROWS[name][1],)
         elif name == "graph_if":
             kind, keys = name, (0,)
         elif name == "graph_while":  # nodes entered, and passes run

@@ -6,7 +6,8 @@
   and ``elems[1::2]``, scan that half recursively, combine once more for
   the even positions, interleave.  Log depth, no host read, and it runs
   under ``torch.func.vmap``.  The IMU chains (``imu.py``) use it, so the
-  port multiplies in JAX's order.
+  port multiplies in JAX's order; ``associative_last`` computes the last
+  element alone, in the same order (the (F, G) chain reads no other).
 
 * ``gate(pred, body, carry)`` — ``lax.cond(pred, body, identity, carry)``.
   ``pred`` is a () bool tensor on the device and ``body`` is functional: a
@@ -117,6 +118,28 @@ def associative_scan(fn: Callable, elems):
         return tuple(_interleave(a, b) for a, b in zip(even, odd))
 
     return scan(elems)
+
+
+def associative_last(fn: Callable, elems):
+    """``associative_scan(fn, elems)[-1]`` alone, in the association order
+    that element has there: adjacent pairs combined level by level, a
+    level's odd tail set aside and combined last, the deepest tail first.
+    Bit for bit the scan's last element, with about half its combines and
+    none of its interleaves.  ``elems`` as for ``associative_scan`` (at
+    least one element)."""
+    single = isinstance(elems, torch.Tensor)
+    if single:
+        return associative_last(lambda a, b: (fn(a[0], b[0]),), (elems,))[0]
+    el = tuple(elems)
+    tails = []
+    while el[0].shape[0] >= 2:
+        if el[0].shape[0] % 2:
+            tails.append(tuple(e[-1:] for e in el))
+        el = tuple(fn(tuple(e[0:-1:2] for e in el),
+                      tuple(e[1::2] for e in el)))
+    for tail in reversed(tails):
+        el = tuple(fn(el, tail))
+    return tuple(e[0] for e in el)
 
 
 def select(flag: torch.Tensor, new, old):

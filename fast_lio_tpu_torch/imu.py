@@ -8,9 +8,12 @@ Port of ``fast_lio_tpu/imu.py`` (the reference's IMU_Processing.hpp):
   block (IMU_Processing.hpp:243-301) and backward per-point motion
   compensation (IMU_Processing.hpp:307-345) as a vectorized gather.  The
   quaternion chain and the (F, G) covariance composition are the JAX
-  package's two ``associative_scan``s (``control_flow.associative_scan``,
-  log depth, JAX's association order); every per-interval Jacobian is
-  built in one batched call.
+  package's two ``associative_scan``s in JAX's association order (the
+  chain's ``control_flow.associative_scan``, log depth; of the (F, G) scan
+  only its last element, ``control_flow.associative_last``, the only one
+  read); every per-interval Jacobian is built in one batched call.  On
+  CUDA tensors the stage runs as two hand-written kernels instead
+  (``kernels/imu.py``, ``csrc/imu.cu``), held to this plain version.
 
 Padding contract for the IMU block (length M): slot 0 is the previous frame's
 tail sample (IMU_Processing.hpp:220); ``imu_mask[i]`` marks real samples;
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from . import state as st
-from .control_flow import associative_scan
+from .control_flow import associative_last, associative_scan
 from .filter import ekf
 from .math import so3
 
@@ -111,6 +114,32 @@ def propagate_and_deskew(
     x: st.State,
     P: torch.Tensor,
     Q: torch.Tensor,
+    imu_t: torch.Tensor,
+    imu_acc: torch.Tensor,
+    imu_gyr: torch.Tensor,
+    imu_mask: torch.Tensor,
+    acc_scale: torch.Tensor,
+    last_end_rel: torch.Tensor,
+    pcl_end_rel: torch.Tensor,
+    carry: ImuCarry,
+    pts: torch.Tensor,
+    pt_time: torch.Tensor,
+    deskew: bool = True,
+):
+    """``propagate_and_deskew_plain``'s results (``kernels/imu.py``): on CPU
+    tensors the plain version itself, on CUDA tensors the custom op
+    ``fast_lio_tpu_torch::propagate_and_deskew``, one propagation kernel
+    and, with ``deskew``, one deskew kernel (``csrc/imu.cu``)."""
+    from .kernels import imu as imu_kernels  # the kernels import this module
+    return imu_kernels.propagate_and_deskew(
+        x, P, Q, imu_t, imu_acc, imu_gyr, imu_mask, acc_scale, last_end_rel,
+        pcl_end_rel, carry, pts, pt_time, deskew)
+
+
+def propagate_and_deskew_plain(
+    x: st.State,
+    P: torch.Tensor,
+    Q: torch.Tensor,
     imu_t: torch.Tensor,  # (M,) seconds RELATIVE to scan begin
     imu_acc: torch.Tensor,  # (M, 3)
     imu_gyr: torch.Tensor,  # (M, 3)
@@ -183,8 +212,7 @@ def propagate_and_deskew(
         Fb, Gb = b
         return Fb @ Fa, Fb @ Ga @ Fb.transpose(-1, -2) + Gb
 
-    F_all, G_all = associative_scan(compose, (F, G))
-    F_tot, G_tot = F_all[-1], G_all[-1]
+    F_tot, G_tot = associative_last(compose, (F, G))
     P_prop = F_tot @ P @ F_tot.T + G_tot
     P_prop = 0.5 * (P_prop + P_prop.T)
 

@@ -1,7 +1,8 @@
-"""The least time an H100 could take for one kNN search, and for one
-segmented mean of the voxel downsample: the bounds set beside each kernel's
-time by ``chip_smoke.py``, ``tools/microbench_knn.py`` and
-``tools/microbench_segment_sum.py``.
+"""The least time an H100 could take for one kNN search, for one
+segmented mean of the voxel downsample and for the IMU stage's two kernels:
+the bounds set beside each kernel's time by ``chip_smoke.py``,
+``tools/microbench_knn.py``, ``tools/microbench_segment_sum.py`` and
+``tools/microbench_imu.py``.
 
 Counted as a roofline counts it, for this search's data: the bytes the
 search must move (each distinct bucket row it reads, once; the queries once;
@@ -202,3 +203,38 @@ def segment_mean_bound(seg_id: torch.Tensor, c: int, n_out: int,
     return Bound(max(t_bytes, t_ops),
                  "bytes" if t_bytes >= t_ops else "operations", 0, nbytes,
                  ops, chain_us)
+
+
+# the IMU stage (csrc/imu.cu), per lane: a combine of two (F, G) on the 17
+# indices the propagation touches, 11 of F's rows live (F_b F_a, F_b G_a,
+# (F_b G_a) F_b^T); a step's Fw Q Fw^T (12 entries a row of 12, 12 fmas
+# each); a covariance step (F P and (F P) F^T on the live rows and columns)
+COMBINE_FMAS = 3 * 11 * 17 * 17
+STEP_G_FMAS = 12 * 12 * 12
+COV_STEP_FMAS = 2 * 11 * 23 * 17
+KNOT_SCALARS = 17
+
+
+def imu_propagate_bound(n_valid: int, dtype: torch.dtype,
+                        lanes: int = 1) -> Bound:
+    """The bound of the propagation kernel on ``lanes`` lanes of
+    ``n_valid`` valid IMU pairs each: the fused multiply-adds of the (F, G)
+    chain (the n_valid - 1 combines an invalid pair skips, each pair's and
+    the final step's G) and of the two covariance steps, 2 operations
+    each, at the type's rate.  Its bytes (the block, P and the knots, a
+    few kB) weigh nothing beside them."""
+    fmas = (max(n_valid - 1, 0) * COMBINE_FMAS
+            + (n_valid + 1) * STEP_G_FMAS + 2 * COV_STEP_FMAS)
+    ops = 2 * fmas * lanes
+    return Bound(ops / FLOPS[dtype] * 1e3, "operations", 0, 0, ops)
+
+
+def imu_deskew_bound(n: int, m: int, dtype: torch.dtype,
+                     lanes: int = 1) -> Bound:
+    """The bound of the deskew kernel on ``lanes`` lanes of n points and m
+    knots: each point's (x, y, z) and time read in float32 (the feed's
+    type) and its (x, y, z) written in the computing type, the knots read
+    once, at the card's memory rate."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = lanes * (n * (4 * 4 + 3 * size) + KNOT_SCALARS * m * size)
+    return Bound(nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes", 0, nbytes, 0)

@@ -27,13 +27,23 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fast_lio_tpu_torch"
 
 # every source of the step's kernels in csrc/; probe.cu (tools/probe.py) and
 # stamp.cu (the tracer's) are built at their first use
-LIBS = ("knn", "knn_grouped", "graph_if", "segment_sum")
+LIBS = ("knn", "knn_grouped", "graph_if", "segment_sum", "imu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills into the build log
 )
+# a library's flags beyond NVCC_FLAGS: imu.cu rounds every elementwise
+# product and sum apart, as PyTorch's elementwise ops do (its matrix
+# products call fma() themselves)
+EXTRA_FLAGS = {"imu": ("--fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
 
 def nvcc() -> str:
     """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
@@ -54,7 +64,7 @@ def library_path(name: str) -> Path:
     and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -69,7 +79,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)

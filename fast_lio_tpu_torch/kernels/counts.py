@@ -22,7 +22,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from . import graph_if, knn, knn_grouped, segment_sum
+from . import graph_if, imu, knn, knn_grouped, segment_sum
 
 Counts = List[Dict[int, int]]
 
@@ -40,13 +40,15 @@ def counters() -> Counts:
             graph_if.while_launches, segment_sum.launches,
             segment_sum.batched_launches, knn.cand_launches,
             knn.cand_launches_f64, knn.cand_batched_launches,
-            knn.cand_batched_launches_f64]
+            knn.cand_batched_launches_f64, imu.launches, imu.launches_f64,
+            imu.batched_launches]
 
 
 NAMES = ("knn", "knn_f64", "knn_batched", "knn_batched_f64", "knn_grouped",
          "knn_grouped_prep", "graph_if", "graph_while", "segment_sum",
          "segment_sum_batched", "knn_cand", "knn_cand_f64",
-         "knn_cand_batched", "knn_cand_batched_f64")  # counters()'s order
+         "knn_cand_batched", "knn_cand_batched_f64", "imu", "imu_f64",
+         "imu_batched")  # counters()'s order
 
 
 def named() -> Dict[str, Dict[int, int]]:

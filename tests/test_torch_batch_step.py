@@ -353,11 +353,11 @@ def test_cuda_captured_batch_matches_captured_single_pipelines():
     assert len(stats) == 1 and all(s["replays"] > 0 and s["gated"]
                                    for s in stats.values())
     n_pass = cfg.max_iteration + 1
-    # outside any conditional node a replay launches the WHILE node's
-    # condition kernel (once, before the node) and the downsample's
-    # batched segment_sum kernel
+    # outside any conditional node a replay launches the IMU stage's two
+    # kernels over the lanes, the WHILE node's condition kernel (once,
+    # before the node) and the downsample's batched segment_sum kernel
     (st,) = stats.values()
-    assert st["launches_per_replay"] == 2
+    assert st["launches_per_replay"] == 4
     assert graph_if.while_launches[0] - before[2] == st["replays"]
     # every pass runs one batched R = 8 search (under vmap the re-search
     # is a select), inside the WHILE node, counted on the device only as

@@ -1,5 +1,6 @@
 """The kNN bound (``kernels/bounds.py``) on tiny maps counted by hand:
-distinct rows read once, bytes, operations, and which of the two bounds."""
+distinct rows read once, bytes, operations, and which of the two bounds;
+the IMU kernels' bounds counted by hand."""
 import numpy as np
 import pytest
 import torch
@@ -60,3 +61,25 @@ def test_many_queries_on_one_full_row_are_bound_by_operations():
     assert got.distinct_rows == len(_region_buckets(q[0].numpy(), False))
     assert got.by == "operations"
     assert got.ms == got.ops / 67e12 * 1e3
+
+
+@pytest.mark.parametrize("dtype,rate", [(torch.float32, 67e12),
+                                        (torch.float64, 34e12)])
+def test_imu_bounds_count_the_chain_and_the_points(dtype, rate):
+    """The IMU kernels' bounds counted by hand: 21 combines of 22 valid
+    pairs on the 17 touched indices (11 live rows of F: 3 x 11 x 17 x 17
+    fmas each), 23 steps' Fw Q Fw^T (12 x 12 entries of 12 fmas), two
+    covariance steps (2 x 11 x 23 x 17), two operations a fma; an
+    invalid block combines nothing.  The deskew: each point's 4 feed
+    scalars read and 3 written, the knots read once."""
+    fmas = 21 * 3 * 11 * 17 * 17 + 23 * 12 * 12 * 12 + 2 * 2 * 11 * 23 * 17
+    b = bounds.imu_propagate_bound(22, dtype, lanes=4)
+    assert (b.ops, b.by) == (4 * 2 * fmas, "operations")
+    assert b.ms == pytest.approx(4 * 2 * fmas / rate * 1e3)
+    assert bounds.imu_propagate_bound(0, dtype).ops == 2 * (
+        12 * 12 * 12 + 2 * 2 * 11 * 23 * 17)
+    size = 4 if dtype == torch.float32 else 8
+    d = bounds.imu_deskew_bound(32768, 64, dtype, lanes=2)
+    assert (d.nbytes, d.by) == (2 * (32768 * (4 * 4 + 3 * size)
+                                     + 17 * 64 * size), "bytes")
+    assert d.ms == pytest.approx(d.nbytes / 3.35e12 * 1e3)

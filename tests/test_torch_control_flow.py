@@ -10,6 +10,9 @@ On the CPU (tier 1):
   quaternions, 1e-5 of the largest entry on the 23x23 products: XLA's and
   torch's products round otherwise, the order is the same); and under
   ``torch.func.vmap``, bit-equal to one scan a row.
+* ``associative_last`` (the last element alone) bit for bit
+  ``associative_scan``'s last element at lengths 1-70, on tensors and
+  tuples, eagerly and under ``torch.func.vmap``.
 * ``gate``: the masked form is ``torch.where`` of the body and the carry;
   a gated capture that cannot record an IF node raises (on the CPU, and
   wherever no graph is being captured).
@@ -140,6 +143,35 @@ def test_scan_of_the_imu_combines_matches_jax(n, dt):
         want_m = np.asarray(want_m)
         np.testing.assert_allclose(got_m.numpy(), want_m, rtol=0,
                                    atol=rel * np.abs(want_m).max())
+
+
+@pytest.mark.parametrize("n", range(1, 71))
+def test_last_element_alone_is_the_scans_last(n):
+    """``associative_last`` bit for bit ``associative_scan(...)[-1]``: on a
+    tensor (the non-associative ``3 a + b`` in int64, the quaternion
+    product) and on a tuple (the (F, G) composition, f32 and f64), eagerly
+    and under ``torch.func.vmap``."""
+    rng = np.random.default_rng(200 + n)
+    ints = torch.from_numpy(rng.integers(-5, 6, n).astype(np.int64))
+    fold = lambda a, b: 3 * a + b  # noqa: E731
+    assert torch.equal(cf.associative_last(fold, ints),
+                       cf.associative_scan(fold, ints)[-1])
+    for dt in (torch.float32, torch.float64):
+        q = torch.from_numpy(rng.normal(size=(n, 4))).to(dt)
+        assert torch.equal(cf.associative_last(tso3.quat_multiply, q),
+                           cf.associative_scan(tso3.quat_multiply, q)[-1])
+        F = (torch.eye(23, dtype=torch.float64) + 0.05 * torch.from_numpy(
+            rng.normal(size=(2, n, 23, 23)))).to(dt)
+        A = torch.from_numpy(rng.normal(size=(2, n, 23, 23))) * 1e-2
+        G = (A @ A.transpose(-1, -2)).to(dt)
+        last = cf.associative_last(_compose_torch, (F[0], G[0]))
+        scan = cf.associative_scan(_compose_torch, (F[0], G[0]))
+        assert all(torch.equal(a, b[-1]) for a, b in zip(last, scan))
+        last = torch.func.vmap(
+            lambda f, g: cf.associative_last(_compose_torch, (f, g)))(F, G)
+        scan = torch.func.vmap(lambda f, g: tuple(
+            e[-1] for e in cf.associative_scan(_compose_torch, (f, g))))(F, G)
+        assert all(torch.equal(a, b) for a, b in zip(last, scan))
 
 
 def test_scan_runs_under_vmap():
@@ -726,12 +758,13 @@ def test_cuda_gated_graph_equals_eager_bit_for_bit(run):
         np.testing.assert_array_equal(pos["gated"], pos[other])
         assert iters["gated"] == iters[other]
     stats = runs["gated"][0].graphs.stats()
-    # outside any conditional node a replay launches the set kernels of the
-    # two outermost IF nodes (the prune's and the update's, which holds the
+    # outside any conditional node a replay launches the IMU stage's two
+    # kernels (the propagation and the deskew), the set kernels of the two
+    # outermost IF nodes (the prune's and the update's, which holds the
     # filter's WHILE node) and the downsample's segment_sum kernel, and no
     # kNN search
     assert stats and all(s["gated"] and s["replays"] > 0
-                         and s["launches_per_replay"] == 3
+                         and s["launches_per_replay"] == 5
                          for s in stats.values())
     # the gates skip re-searches: fewer kNN launches than the masked graph
     assert 0 < runs["gated"][1] < runs["masked"][1]

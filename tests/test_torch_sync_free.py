@@ -681,13 +681,14 @@ def test_cuda_captured_step_equals_eager(run):
     assert all(s["replays"] > 0 for s in stats.values())
     # the single step's graph is gated: every re-search's kNN launch sits
     # in a conditional node and counts as run, on the device; outside them
-    # a replay launches the set kernels of the two outermost IF nodes (the
+    # a replay launches the IMU stage's two kernels (the propagation and
+    # the deskew), the set kernels of the two outermost IF nodes (the
     # prune's and the update's, which holds the filter's WHILE node) and
     # the downsample's segment_sum kernel; rescore_research adds the scan's
     # one search before the update, the candidates kernel (whose block the
     # passes re-rank in plain torch ops, as the JAX package does in XLA),
     # and launches no other kNN kernel
-    outside = 4 if cfg.rescore_research else 3
+    outside = 6 if cfg.rescore_research else 5
     assert all(s["gated"] and s["launches_per_replay"] == outside
                for s in stats.values())
     tcounts.settle()
